@@ -1,0 +1,5 @@
+"""Weight conversion into the port's parameter trees."""
+
+from flasht5_tpu_torch.convert.from_jax import params_from_numpy
+
+__all__ = ["params_from_numpy"]

@@ -1,0 +1,34 @@
+"""Compute ops: plain PyTorch versions and the hand-written Hopper kernels.
+
+Each kernel wrapper launches its kernel for CUDA tensors, runs its plain
+version for CPU tensors, and counts its launches in a `.launches` integer.
+
+- rmsnorm:             RMS norm forward (Triton)
+- flash_attention_rpe: attention with the T5 bias from the bucket table (CUDA)
+- quant:               INT8/FP8 weight-only dequant matmul (CUDA)
+- decode_attention:    single-query attention over int8/bf16/f32 caches (CUDA)
+- attn_ref:            plain attention oracle
+"""
+
+from flasht5_tpu_torch.ops import (decode_attention, flash_attention_rpe,
+                                   quant, rmsnorm)
+
+# name -> the wrapper that launches (and counts) the kernel
+KERNELS = {
+    "rms_norm": rmsnorm.rms_norm_fwd,
+    "flash_attention_rpe": flash_attention_rpe.flash_attention_rpe_fwd,
+    "quant_matmul": quant.quant_matmul,
+    "decode_attention": decode_attention.decode_attention,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]

@@ -33,3 +33,8 @@ assert jax.default_backend() == "cpu", jax.default_backend()
 assert len(jax.devices()) == 8
 
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where none is present")

@@ -1,0 +1,122 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device (marker `cuda`) and skips without one.
+The file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(`--noconftest` because tests/conftest.py sets JAX up.)
+
+Tolerances: 1e-4 where the kernel and its plain version compute in f32 and
+differ only in summation order and the `exp` implementation; in bf16, one
+bf16 ulp of the output (2^-8 relative: rtol 1e-2, with atol 1e-2 for values
+near 0), and 2e-2 where P is also rounded to bf16 at values that differ
+(the kernel's online softmax rescales tiles that the plain version does in
+one pass).
+"""
+
+import pytest
+import torch
+
+from flasht5_tpu_torch.ops import (decode_attention, flash_attention_rpe,
+                                   quant, rmsnorm)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.manual_seed(0)
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 512), (8, 512, 512), (300, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel(dev, shape, dtype):
+    x = torch.randn(shape, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(shape[-1], device=dev)).to(dtype)
+    y, rstd = rmsnorm.rms_norm_fwd(x, w)
+    y0, rstd0 = rmsnorm.rms_norm_plain(x, w)
+    torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("m_len,n_len,d", [(512, 512, 64), (100, 300, 64),
+                                           (300, 100, 64), (77, 77, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rpe_kernel(dev, causal, m_len, n_len, d, dtype):
+    q = torch.randn((2, 8, m_len, d), device=dev).to(dtype)
+    k = torch.randn((2, 8, n_len, d), device=dev).to(dtype)
+    v = torch.randn((2, 8, n_len, d), device=dev).to(dtype)
+    w = torch.randn((32, 8), device=dev)
+    kw = dict(causal=causal, bidirectional=not causal, sm_scale=d ** -0.5)
+    o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w, **kw)
+    o0, lse0 = flash_attention_rpe.flash_attention_rpe_plain(q, k, v, w,
+                                                              **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+
+
+# M <= 32 with N % 4 == 0 takes the decode form, the rest the tensor-core
+# form; the cases cover both, their ragged edges and the boundary between
+@pytest.mark.parametrize("m,k_dim,n", [(8, 512, 512), (8, 512, 2048),
+                                       (8, 2048, 512), (8, 512, 32768),
+                                       (20, 2048, 100), (32, 512, 512),
+                                       (1, 4096, 512), (8, 512, 90),
+                                       (33, 512, 512), (4096, 512, 2048),
+                                       (64, 2048, 512), (4096, 2048, 512),
+                                       (77, 512, 96)])
+@pytest.mark.parametrize("mode,group_size", [("int8", None), ("int8", 128),
+                                             ("fp8", None)])
+def test_quant_matmul_kernel(dev, m, k_dim, n, mode, group_size):
+    w = torch.randn((k_dim, n), device=dev) * 0.05
+    qt = {"int8": quant.quantize_int8, "fp8": quant.quantize_fp8}[mode](
+        w, group_size)
+    x = torch.randn((m, k_dim), device=dev).to(torch.bfloat16)
+    got = quant.quant_matmul(x, qt).float()
+    want = quant.quant_matmul_plain(x, qt).float()
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    x32 = x.float()
+    torch.testing.assert_close(quant.quant_matmul(x32, qt),
+                               quant.quant_matmul_plain(x32, qt),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_quant_matmul_refuses_untileable_k(dev):
+    qt = quant.quantize_int8(torch.randn((48, 64), device=dev))
+    with pytest.raises(ValueError, match="multiples of 32"):
+        quant.quant_matmul(torch.randn((4, 48), device=dev), qt)
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("L", [66, 512, 1000])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_decode_attention_kernel(dev, kv, L, with_bias):
+    b, h, d = 8, 8, 64
+    q = torch.randn((b, h, d), device=dev).to(
+        torch.float32 if kv == "f32" else torch.bfloat16)
+    k = torch.randn((b, h, L, d), device=dev)
+    v = torch.randn((b, h, L, d), device=dev)
+    if kv == "int8":
+        (kq, ks), (vq, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+        args = [kq, vq, ks, vs]
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        args = [k.to(dt), v.to(dt)]
+    lengths = torch.randint(0, L + 1, (b,), device=dev, dtype=torch.int32)
+    lengths[0] = 0
+    bias = torch.randn((b, h, L), device=dev) if with_bias else None
+    got = decode_attention.decode_attention(q, *args, lengths=lengths,
+                                            bias=bias).float()
+    want = decode_attention.decode_attention_plain(
+        q, *args, lengths=lengths, bias=bias).float()
+    # one chunk (L <= 512): the plain version's rounding points are the
+    # kernel's; beyond, P is rounded against a running maximum
+    tol = 1e-4 if kv == "f32" else (1e-2 if L <= 512 else 2e-2)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.all(got[0] == 0)
