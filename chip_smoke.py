@@ -9,22 +9,38 @@ of JAX. In order:
 1. prints the environment and the card's name and power limit;
 2. builds the CUDA kernels from `flasht5_tpu_torch/csrc/` (one `nvcc` per
    source, all started together);
-3. holds each of the serving path's four kernels against its plain PyTorch
-   version on the card, at the shapes the full-width engine gives it, and
-   times the kernel, the plain version and, where one exists, the one
-   PyTorch call that computes the same function (`library_ms`, a yardstick
-   the port never calls);
+3. holds each kernel against its plain PyTorch version on the card, at the
+   shapes the full-width serving engine and train step give it, and times
+   the kernel, the plain version and, where one exists, the one PyTorch
+   call that computes the same function (`library_ms`, a yardstick the port
+   never calls); each output is held entry by entry to a stated limit, and
+   faults planted in the attention backward (the bucket one above) and the
+   cross-entropy backward (its small entries flushed or doubled) at the
+   train step's shapes must fall beyond it;
 4. checks on a tiny model that the engine on the card serves the tokens the
    engine on the CPU (the plain versions) serves, and that two planted
    faults move its logits beyond the tolerance;
-5. times a full-width FAT5-small decode step (seeded random weights, int8
+5. checks on a tiny model that one training step on the card gives the
+   loss and every gradient the CPU gives, and that three planted faults in
+   what the backward kernels are given move the gradients beyond the
+   tolerance;
+6. times a full-width FAT5-small decode step (seeded random weights, int8
    weights and KV cache, the decode kernel) by wall clock and by device
    time, and lists the kernels one decode window launches (`torch.profiler`);
-6. serves 16 requests of 512 random tokens with that engine, three times,
+7. serves 16 requests of 512 random tokens with that engine, three times,
    with every launch count set to 0 just before each run and read just
-   after; every kernel must have launched in each;
-7. prints one JSON line of the kernels, the `nvidia-smi` name and power
-   limit line, and, last, {"ok": true, "device": {...}}.
+   after; each serving kernel must have launched in each;
+8. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
+   256) tokens a step, one seeded batch repeated): 3 warm-up steps, then
+   three loops of 10 steps, each with the launch counts set to 0 just
+   before and read just after; each training kernel must have launched in
+   each loop, every loss must be finite and the loss must fall; then the
+   step's device time, its kernels by name and the optimizer's launches;
+9. prints JSON lines of the serving and training results and of the
+   kernels (each with its launches in each path that runs it, and their
+   sum), the
+   `nvidia-smi` name and power limit line, and, last,
+   {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Times are device times from CUDA events over back-to-back launches
@@ -36,6 +52,7 @@ as the engine finds its weights and caches cold.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -49,6 +66,10 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 BF16_ULP = 2.0 ** -7           # one bf16 ulp, relative to the value
+# the attention backward's limits: of each of dq, dk, dv's largest entry,
+# and of each bucket's sum of |dS| for dW (`check_training_kernels`)
+ATTN_BWD_TOL = 2e-3
+DW_TOL = 1e-5
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -254,24 +275,79 @@ def check_kernels(dev):
              "decode self-attention q (8, 8, 64) bf16, int8 K/V "
              "(8, 8, 66, 64), bias, lengths 1..57")
 
+    return run_checks(cases)
+
+
+def _readings(c, args, got, want):
+    """One reading per output of the case: its largest |error| and |want|,
+    its worst share (the largest |error| / limit over the entries whose
+    limit is not 0) and the count of entries beyond their limit (each of
+    them fails). Each entry's limit is the case's `limits(*args, want)`
+    where it has one, else atol (times the output's largest |want| where
+    the case says `scaled`) + rtol * |want|."""
+    n = c.get("outputs", 1)
+    got = (got if isinstance(got, tuple) else (got,))[:n]
+    want = (want if isinstance(want, tuple) else (want,))[:n]
+    if "limits" in c:
+        limits = c["limits"](*args, want)
+    else:
+        limits = [None if w is None else
+                  c["atol"] * (float(w.float().abs().max())
+                               if c.get("scaled") else 1.0)
+                  + c["rtol"] * w.float().abs() for w in want]
+    out = []
+    for g, w, lim in zip(got, want, limits):
+        if g is None and w is None:
+            continue
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        lim = torch.as_tensor(lim, device=diff.device).expand_as(diff)
+        share = torch.where(lim > 0, diff / lim, 0.0)
+        out.append(dict(max_abs_err=float(diff.max()),
+                        max_abs_want=float(w.abs().max()),
+                        worst_share=float(share.max()),
+                        beyond=(int((~(diff <= lim)).sum())
+                                if torch.isfinite(g).all() else g.numel())))
+    return out
+
+
+def _compare(c, args, got, want):
+    """The readings of the kernel's outputs against the plain version's;
+    raises where an output is not finite or an entry lies beyond its
+    limit."""
+    readings = _readings(c, args, got, want)
+    for i, r in enumerate(readings):
+        if r["beyond"]:
+            raise AssertionError(f"{c['name']} ({c['label']}): output {i} "
+                                 f"beyond its limit: {r}")
+    return readings
+
+
+def run_checks(cases):
+    """Each case: the kernel against its plain version on one input set,
+    then device times of the kernel, the plain version and the library
+    call over input sets that exceed the L2 cache."""
     results = []
     for c in cases:
         sets = copies_for(c["make"], c["in_bytes"])
         arg_sets = [a for a, _ in sets]
         got = c["kernel"](*arg_sets[0])
         want = c["plain"](*arg_sets[0])
-        got = got[0] if isinstance(got, tuple) else got
-        want = want[0] if isinstance(want, tuple) else want
         torch.cuda.synchronize()
-        if not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{c['name']} ({c['label']}): non-finite")
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        over = diff - (c["atol"] + c["rtol"] * want.float().abs())
-        if not float(over.max()) <= 0.0:
-            raise AssertionError(f"{c['name']} ({c['label']}): max abs err "
-                                 f"{err}, beyond atol {c['atol']} + rtol "
-                                 f"{c['rtol']} by {float(over.max())}")
+        readings = _compare(c, arg_sets[0], got, want)
+        # planted faults: each must take some output beyond its limit
+        faults = []
+        for fault_name, fault in c.get("faults", ()):
+            fr = _readings(c, arg_sets[0], fault(*arg_sets[0]), want)
+            faults.append(dict(
+                fault=fault_name,
+                worst_share=max(r["worst_share"] for r in fr),
+                beyond=[r["beyond"] for r in fr]))
+            if not any(r["beyond"] for r in fr):
+                raise AssertionError(f"{c['name']} ({c['label']}): planted "
+                                     f"fault ({fault_name}) within the "
+                                     f"limits: {fr}")
+        del got, want
         iters = 200 if c["bytes"] < 64 * 2 ** 20 else 50
         ms = device_ms(c["kernel"], arg_sets, iters)
         plain_ms = device_ms(c["plain"], arg_sets, max(10, iters // 4))
@@ -280,9 +356,11 @@ def check_kernels(dev):
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = c["ops"] / PEAK_OPS_PER_S[c["ops_type"]] * 1e3
         row = dict(name=c["name"], shape=c["label"], main=c["main"],
-                   max_abs_err=err, atol=c["atol"], rtol=c["rtol"],
-                   tol_reason=c["why"], ms=ms,
+                   max_abs_err=max(r["max_abs_err"] for r in readings),
+                   outputs=readings, faults=faults, atol=c.get("atol"),
+                   rtol=c.get("rtol"), tol_reason=c["why"], ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
+                   library=c.get("library_note"),
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=c["bytes"], ops=c["ops"])
@@ -585,9 +663,9 @@ def run_engine(dev):
               f"{tokens} tokens in {wall:.6f} s = {tokens / wall:.3f} "
               f"tokens/s; first token at {ttft[0]:.6f}..{ttft[-1]:.6f} s; "
               f"launches {json.dumps(launches)}", flush=True)
-        missing = [name for name, n in launches.items() if n <= 0]
+        missing = [name for name in SERVING if launches[name] <= 0]
         if missing:
-            raise AssertionError(f"kernels not launched on the main path: "
+            raise AssertionError(f"kernels not launched while serving: "
                                  f"{missing}")
         runs.append(dict(tokens=tokens, seconds=wall,
                          tokens_per_s=tokens / wall, launches=launches))
@@ -606,19 +684,513 @@ def run_engine(dev):
         per_prefill=per_prefill, per_step=per_step, step=step)
 
 
+
+# ---------------------------------------------------------------------------
+# training: kernel checks at the train step's shapes
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_ENC, TRAIN_DEC = 8, 1024, 256     # bench.py:45
+
+
+def check_training_kernels(dev):
+    """The training path's new kernels (and the forward without a table) at
+    the FAT5-small train step's shapes. The library yardsticks: autograd's
+    backward of F.rms_norm, of F.scaled_dot_product_attention (the RPE bias
+    as a float mask, which gives no gradient of the bucket table) and of
+    F.cross_entropy (no z-loss)."""
+    from flasht5_tpu_torch import positional
+    from flasht5_tpu_torch.ops import (cross_entropy, flash_attention_rpe,
+                                       rmsnorm)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    cases = []
+
+    # -- rms_norm backward (Triton) ---------------------------------------
+    def rms_bwd_case(rows, label, main=False):
+        d = 512
+
+        def make():
+            x = randn(rows, d)
+            w = (1 + 0.1 * randn(d, dtype=torch.float32)).to(torch.bfloat16)
+            dy = randn(rows, d)
+            _, rstd = rmsnorm.rms_norm_plain(x, w)
+            xl = x.detach().requires_grad_(True)
+            wl = w.detach().requires_grad_(True)
+            y = F.rms_norm(xl, (d,), wl, 1e-6)
+            return (x, w, rstd, dy), (y, xl, wl, dy)
+        (x, w, rstd, dy), _ = make()
+        cases.append(dict(
+            name="rms_norm_bwd", label=label, make=make, outputs=2,
+            in_bytes=3 * nbytes(x),
+            kernel=rmsnorm.rms_norm_bwd, plain=rmsnorm.rms_norm_bwd_plain,
+            library=lambda y, x, w, dy: torch.autograd.grad(
+                y, (x, w), dy, retain_graph=True),
+            library_note="autograd backward of F.rms_norm",
+            atol=1e-3, rtol=BF16_ULP, scaled=True,
+            bytes=nbytes(x, dy, rstd, w) + nbytes(x) + d * 4,
+            ops=8 * rows * d, ops_type="f32", main=main,
+            why="dx in bf16: one bf16 ulp; dW an fp32 sum over the rows in "
+                "another order: 1e-3 of its largest entry"))
+
+    rms_bwd_case(TRAIN_B * TRAIN_ENC, "encoder x, dy (8192, 512) bf16",
+                 main=True)
+    rms_bwd_case(TRAIN_B * TRAIN_DEC, "decoder x, dy (2048, 512) bf16")
+
+    # -- attention backward (CUDA) and the forward without a table -------
+    def attn_case(m_len, n_len, causal, table, label, main=False):
+        b, h, d = TRAIN_B, 8, 64
+        kw = dict(causal=causal, bidirectional=not causal, sm_scale=1.0)
+
+        def make():
+            q, do = randn(b, h, m_len, d), randn(b, h, m_len, d)
+            k, v = randn(b, h, n_len, d), randn(b, h, n_len, d)
+            w = (randn(32, h, dtype=torch.float32, scale=0.5)
+                 if table else None)
+            o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w,
+                                                                 **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            mask = None
+            if table or causal:
+                mask = torch.zeros((m_len, n_len), device=dev)
+                if table:
+                    mask = positional.t5_relative_bias(
+                        {"relative_attention_bias": w}, m_len, n_len,
+                        bidirectional=not causal)
+                if causal:
+                    mask = torch.where(flash_attention_rpe._visible(
+                        m_len, n_len, True, dev), mask, -1e30)
+                mask = mask.to(torch.bfloat16)
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                 scale=1.0)
+            return ((q, k, v, w, lse, delta, do),
+                    (out, ql, kl, vl, do))
+        (q, k, v, w, lse, delta, do), _ = make()
+        pairs = m_len * n_len
+        if causal:   # the scores a bottom-right causal mask leaves
+            pairs = int(flash_attention_rpe._visible(m_len, n_len, True,
+                                                     "cpu").sum())
+
+        def kernel(q, k, v, w, lse, delta, do):
+            return flash_attention_rpe.flash_attention_bwd(
+                q, k, v, w, lse, delta, do, **kw)
+
+        def limits(q, k, v, w, lse, delta, do, want):
+            """dq, dk, dv: one bf16 ulp of each entry plus ATTN_BWD_TOL of
+            the output's largest entry; dW: DW_TOL of the sum of |dS| over
+            each bucket's scores, the scale of its rounding error."""
+            lims = [ATTN_BWD_TOL * t.float().abs().max()
+                    + BF16_ULP * t.float().abs() for t in want[:3]]
+            if w is not None:
+                lims.append(DW_TOL * flash_attention_rpe
+                            .flash_attention_dw_abs_plain(
+                                q, k, v, w, lse, delta, do, **kw))
+            return lims
+        cases.append(dict(
+            name="flash_attention_bwd", label=label, make=make, outputs=4,
+            in_bytes=8 * nbytes(q) + 2 * nbytes(lse),
+            kernel=kernel,
+            plain=lambda q, k, v, w, lse, delta, do:
+                flash_attention_rpe.flash_attention_bwd_plain(
+                    q, k, v, w, lse, delta, do, **kw),
+            faults=([("the bucket one above", _bucket_one_above(kernel))]
+                    if main else []),
+            library=lambda out, q, k, v, do: torch.autograd.grad(
+                out, (q, k, v), do, retain_graph=True),
+            library_note="autograd backward of F.scaled_dot_product_attention"
+                         + (" with the bias as a float mask; no dW"
+                            if table else ""),
+            limits=limits,
+            bytes=nbytes(q, k, v, do) + nbytes(q) + nbytes(q, k, v)
+            + nbytes(lse) + (nbytes(w) if table else 0),
+            ops=10 * b * h * pairs * d, ops_type="bf16", main=main,
+            why=f"dq, dk, dv in bf16: one bf16 ulp of each entry, plus "
+                f"{ATTN_BWD_TOL} of the output's largest entry for bf16 P "
+                f"and dS rounded at values an f32 ulp apart; dW, an fp32 "
+                f"sum that nearly cancels: {DW_TOL} of each bucket's sum of "
+                f"|dS|"))
+
+    attn_case(TRAIN_ENC, TRAIN_ENC, False, True,
+              "encoder q,k,v (8,8,1024,64) bf16, bidirectional, table",
+              main=True)
+    attn_case(TRAIN_DEC, TRAIN_ENC, False, False,
+              "cross q (8,8,256,64), k,v (8,8,1024,64) bf16, no table")
+    attn_case(TRAIN_DEC, TRAIN_DEC, True, True,
+              "decoder self q,k,v (8,8,256,64) bf16, causal, table")
+
+    # the forward at the train step's shapes: the encoder's (with the
+    # table) and the cross-attention's (without)
+    def fwd_case(m_len, table, label):
+        def make():
+            q = randn(TRAIN_B, 8, m_len, 64)
+            k, v = (randn(TRAIN_B, 8, TRAIN_ENC, 64),
+                    randn(TRAIN_B, 8, TRAIN_ENC, 64))
+            w = (randn(32, 8, dtype=torch.float32, scale=0.5)
+                 if table else None)
+            bias = None if w is None else positional.t5_relative_bias(
+                {"relative_attention_bias": w}, m_len, TRAIN_ENC
+            ).to(torch.bfloat16)
+            return (q, k, v, w), (q, k, v, bias)
+        (q, k, v, w), _ = make()
+        cases.append(dict(
+            name="flash_attention_rpe", label=label, make=make,
+            in_bytes=nbytes(q, k, v) + (8 * m_len * TRAIN_ENC * 2
+                                        if table else 0),
+            kernel=flash_attention_rpe.flash_attention_rpe_fwd,
+            plain=flash_attention_rpe.flash_attention_rpe_plain,
+            library=lambda q, k, v, bias: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=1.0),
+            library_note="F.scaled_dot_product_attention"
+                         + (", the bias as a float mask" if table else ""),
+            atol=2e-2, rtol=BF16_ULP, bytes=nbytes(q, k, v) + nbytes(q)
+            + TRAIN_B * 8 * m_len * 4 + (nbytes(w) if table else 0),
+            ops=4 * TRAIN_B * 8 * m_len * TRAIN_ENC * 64, ops_type="bf16",
+            main=False, why="bf16 output and P rounded to bf16 against "
+                            "per-tile maxima"))
+
+    fwd_case(TRAIN_ENC, True, "encoder forward q,k,v (8,8,1024,64) bf16, "
+             "bidirectional, table")
+    fwd_case(TRAIN_DEC, False, "cross forward q (8,8,256,64), k,v "
+             "(8,8,1024,64) bf16, no table")
+
+    # -- cross-entropy forward and backward (Triton) ----------------------
+    rows, vocab = TRAIN_B * TRAIN_DEC, 32768
+
+    def make_ce():
+        logits = randn(rows, vocab, scale=3.0)
+        labels = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        lse = torch.logsumexp(logits.float(), -1)
+        dloss = torch.full((rows,), 1.0 / rows, device=dev)
+        dz = torch.zeros((rows,), device=dev)
+        ll = logits.detach().requires_grad_(True)
+        loss = F.cross_entropy(ll, labels, reduction="none")
+        return ((logits, labels, lse, dloss, dz),
+                (logits, labels, loss, ll, dloss))
+    (logits, labels, lse, dloss, dz), _ = make_ce()
+    cases.append(dict(
+        name="cross_entropy_fwd", label="logits (2048, 32768) bf16",
+        make=make_ce, in_bytes=2 * nbytes(logits),
+        kernel=lambda x, *rest: cross_entropy.cross_entropy_fwd(x),
+        plain=lambda x, *rest: cross_entropy.cross_entropy_fwd_plain(x),
+        library=lambda x, labels, *rest: F.cross_entropy(
+            x, labels, reduction="none"),
+        library_note="F.cross_entropy forward (no z-loss)",
+        atol=1e-4, rtol=1e-5, bytes=nbytes(logits) + rows * 4,
+        ops=4 * rows * vocab, ops_type="f32", main=True,
+        why="fp32 log-sum-exp over 32768 values in another order"))
+    def ce_bwd(x, labels, lse, dloss, dz):
+        return cross_entropy.cross_entropy_bwd(x, labels, lse, dloss, dz,
+                                               lse_square_scale=1e-4)
+
+    def where_small(fn):
+        """A planted fault: `fn` applied to the entries of dlogits under
+        1e-6 (all but the largest few per row)."""
+        def fault(*args):
+            g = ce_bwd(*args)
+            return torch.where(g.abs() < 1e-6, fn(g), g)
+        return fault
+    cases.append(dict(
+        name="cross_entropy_bwd", label="logits (2048, 32768) bf16, z-loss "
+        "1e-4", make=make_ce, in_bytes=2 * nbytes(logits),
+        kernel=ce_bwd,
+        plain=lambda x, labels, lse, dloss, dz:
+            cross_entropy.cross_entropy_bwd_plain(x, labels, lse, dloss, dz,
+                                                  lse_square_scale=1e-4),
+        faults=[("entries under 1e-6 flushed to 0",
+                 where_small(torch.zeros_like)),
+                ("entries under 1e-6 doubled", where_small(lambda g: 2 * g))],
+        library=lambda x, labels, loss, ll, dloss: torch.autograd.grad(
+            loss, ll, dloss, retain_graph=True),
+        library_note="autograd backward of F.cross_entropy (no z-loss)",
+        atol=0.0, rtol=BF16_ULP, bytes=2 * nbytes(logits) + rows * 16,
+        ops=10 * rows * vocab, ops_type="f32", main=True,
+        why="bf16 dlogits from the same lse, exp by another implementation "
+            "in fp32: one bf16 ulp of each entry (a flip of its rounding) "
+            "and no absolute floor, so every entry is held"))
+    return run_checks(cases)
+
+
+# ---------------------------------------------------------------------------
+# training: a tiny model's step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SMALL_GRAD_TOL = 1e-4
+
+
+def _bucket_one_above(attn_bwd):
+    """`attn_bwd` given, for every offset, the bucket one above: a planted
+    fault in the attention backward's bucket array."""
+    from flasht5_tpu_torch.ops import flash_attention_rpe as fa
+    real_table_args = fa._table_args
+
+    def shifted_table_args(*args):
+        table, bucket, nb = real_table_args(*args)
+        if bucket is None:      # no table (cross-attention): nothing to shift
+            return table, bucket, nb
+        return table, (bucket + 1).clamp(max=nb - 1), nb
+
+    def fault(*args, **kw):
+        with _patched(fa, "_table_args", shifted_table_args):
+            return attn_bwd(*args, **kw)
+    return fault
+
+
+def _training_faults():
+    """Small faults in what the card's backward kernels are given, each of
+    which the card-vs-CPU gradient check must catch: (name, manager)."""
+    from flasht5_tpu_torch.ops import cross_entropy as ce
+    from flasht5_tpu_torch.ops import flash_attention_rpe as fa
+    from flasht5_tpu_torch.ops import rmsnorm as rn
+
+    attn_bwd_bucket_one_above = _bucket_one_above(fa.flash_attention_bwd)
+    real_rms_bwd, real_ce_bwd = rn.rms_norm_bwd, ce.cross_entropy_bwd
+
+    def rms_bwd_row_rstd(x, w, rstd, dy):
+        rstd = rstd.clone()
+        rstd.view(-1)[-1] = rstd.view(-1)[0]
+        return real_rms_bwd(x, w, rstd, dy)
+
+    def ce_bwd_lse_rolled(logits, labels, lse, dloss, dz, **kw):
+        return real_ce_bwd(logits, labels, torch.roll(lse, 1), dloss, dz,
+                           **kw)
+
+    # each wrapper counts its launches through its module-level name, which
+    # the fault takes over for its duration: give the stand-in a count too
+    for fault in (attn_bwd_bucket_one_above, rms_bwd_row_rstd,
+                  ce_bwd_lse_rolled):
+        fault.launches = 0
+    return [
+        ("flash_attention_bwd reads the bucket one above",
+         _patched(fa, "flash_attention_bwd", attn_bwd_bucket_one_above)),
+        ("rms_norm_bwd gets the first row's rstd in the last row",
+         _patched(rn, "rms_norm_bwd", rms_bwd_row_rstd)),
+        ("cross_entropy_bwd gets each row's lse one row down",
+         _patched(ce, "cross_entropy_bwd", ce_bwd_lse_rolled)),
+    ]
+
+
+def check_small_training(dev):
+    """One training step's loss and every gradient leaf of a tiny f32 model
+    on the flagship path (pallas_rpe, fused norm and CE, z-loss), on the
+    card (the kernels) against the CPU (their plain versions).
+
+    Both compute in f32; the kernels sum in other orders and evaluate exp
+    by other means, so the gradients agree to a few 1e-6 of each leaf's
+    largest entry. SMALL_GRAD_TOL (1e-4 of that entry) leaves room for that
+    and sits below the gap of each planted fault, read in the same run: a
+    fault within the tolerance fails the check."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.models import t5
+
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+                        d_ff=256, num_layers=2, num_decoder_layers=2,
+                        dropout_rate=0.0, attention_scale=1.0,
+                        dtype="float32", attention_type="pallas_rpe",
+                        use_fused_layernorm=True, use_fused_crossentropy=True,
+                        z_loss=1e-4, pad_token_id=0)
+    cpu_params = t5.init_params(cfg, seed=5, device="cpu")
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(2, 512, (2, 96)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(2, 512, (2, 40)).astype(np.int32))
+    labels[:, -5:] = -100
+
+    def step(device):
+        params = _to(copy.deepcopy(cpu_params), device)   # fresh leaves
+        leaves = t5.tree_leaves_with_path(params)
+        for _, p in leaves:
+            p.requires_grad_(True)
+        loss = t5.forward(cfg, params, input_ids=ids.to(device),
+                          labels=labels.to(device))["loss"]
+        loss.backward()
+        return float(loss.detach()), [(path, p.grad.cpu())
+                                      for path, p in leaves]
+
+    want_loss, want = step("cpu")
+
+    def gap(grads):
+        worst, where = 0.0, None
+        for (path, g), (_, w) in zip(grads, want):
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+            if rel > worst:
+                worst, where = rel, path
+        return worst, where
+
+    got_loss, got = step(dev)
+    worst, where = gap(got)
+    print(f"small-training: loss card {got_loss} cpu {want_loss}; "
+          f"gradients card vs cpu: largest gap {worst} of the leaf's "
+          f"largest entry, at {where} (tol {SMALL_GRAD_TOL})", flush=True)
+    if not (abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+            and worst <= SMALL_GRAD_TOL):
+        raise AssertionError("tiny training step: card and cpu differ")
+    for name, fault in _training_faults():
+        with fault:
+            fault_gap, fault_where = gap(step(dev)[1])
+        print(f"small-training: planted fault, {name}: gradients card vs "
+              f"cpu largest gap {fault_gap} at {fault_where} (tol "
+              f"{SMALL_GRAD_TOL})", flush=True)
+        if not fault_gap > SMALL_GRAD_TOL:
+            raise AssertionError(f"planted fault ({name}) moves the "
+                                 f"gradients by {fault_gap}, within the "
+                                 f"tolerance")
+
+
+# ---------------------------------------------------------------------------
+# training: the full-width FAT5-small train step through Trainer.train
+# ---------------------------------------------------------------------------
+
+def run_training(dev):
+    """The training path: `Trainer(flagship_config(), ...).train(batches)`
+    on one random batch of 8 x (1024 + 256) tokens repeated, AdamWScale at
+    lr 1e-3 with no weight decay (bench.py:45-58). Three warm-up steps,
+    then three timed loops of 10 steps; every training kernel must launch
+    in each loop and the loss on the repeated batch must fall."""
+    from flasht5_tpu_torch import flagship_config, ops
+    from flasht5_tpu_torch.train import Trainer, TrainerConfig
+
+    cfg = flagship_config()
+    tcfg = TrainerConfig(learning_rate=1e-3, weight_decay=0.0,
+                         lr_scheduler="constant", max_steps=10 ** 6,
+                         logging_steps=1, seed=0)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, device=dev)
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (
+                 TRAIN_B, TRAIN_ENC)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (
+                 TRAIN_B, TRAIN_DEC)).astype(np.int32)}
+    tokens_per_step = TRAIN_B * (TRAIN_ENC + TRAIN_DEC)     # bench.py:108
+    losses = [e["loss"] for e in trainer.train([batch] * 3)["logs"]]
+    torch.cuda.synchronize()
+    print(f"training: FAT5-small {cfg.num_layers}+{cfg.num_decoder_layers} "
+          f"layers, batch {TRAIN_B} x ({TRAIN_ENC} + {TRAIN_DEC}), "
+          f"{cfg.dtype} activations, fp32 params; init and 3 warm-up steps "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    loops = []
+    torch.cuda.reset_peak_memory_stats()
+    for attempt in range(3):
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        logs = trainer.train([batch] * 10)["logs"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        loop_losses = [e["loss"] for e in logs]
+        losses += loop_losses
+        print(f"training loop {attempt + 1} of 3: 10 steps, "
+              f"{10 * tokens_per_step} tokens in {wall:.6f} s = "
+              f"{10 * tokens_per_step / wall:.3f} tokens/s; losses "
+              f"{json.dumps(loop_losses)}; launches per step "
+              f"{json.dumps({k: n / 10 for k, n in launches.items()})}",
+              flush=True)
+        missing = [name for name in TRAINING if launches[name] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched while training: "
+                                 f"{missing}")
+        clocks = sh("nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                    "temperature.gpu", "--format=csv,noheader")
+        print(f"training loop {attempt + 1}: card after it (SM clock, power, "
+              f"temperature): {clocks}", flush=True)
+        loops.append(dict(seconds=wall, launches=launches,
+                          tokens_per_s=10 * tokens_per_step / wall,
+                          card_after=clocks))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    median = sorted(loops, key=lambda r: r["tokens_per_s"])[1]
+
+    # one step queued behind a sleep, so the device never waits for the
+    # host: its device time (as the decode step's is measured)
+    db = trainer._device_batch(batch)
+    step_wall = median["seconds"] / 10 * 1e3
+    busys = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * step_wall + 5.0)))
+        start.record()
+        trainer._step(db)
+        end.record()
+        end.synchronize()
+        busys.append(start.elapsed_time(end))
+    step = dict(wall_ms=step_wall, device_ms=sum(busys) / 3)
+    step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+
+    # the kernels of one step by name and device time, and the optimizer's
+    # launches alone
+    from torch.profiler import ProfilerActivity
+
+    def profiled(fn):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            # kernels only: a record_function range (the optimizer's step)
+            # also shows on the device's timeline, spanning its kernels
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                t, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+        return by_name
+
+    by_name = profiled(lambda: trainer._step(db))
+    opt_kernels = profiled(trainer.optimizer.step)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    step["kernels_per_step"] = sum(n for _, n in by_name.values())
+    step["kernel_ms_per_step"] = sum(t for t, _ in by_name.values())
+    step["optimizer_launches"] = sum(n for _, n in opt_kernels.values())
+    step["optimizer_kernel_ms"] = sum(t for t, _ in opt_kernels.values())
+    print(f"train step: {json.dumps(step)} (wall: median loop / 10; device: "
+          f"mean of 3 steps queued behind a sleep; kernels: one profiled "
+          f"step)", flush=True)
+    print("profile of one train step: " + json.dumps(
+        [{"name": name[:80], "ms": t, "launches": n}
+         for name, (t, n) in top]), flush=True)
+    result = dict(
+        tokens_per_s_median=median["tokens_per_s"],
+        tokens_per_s=[r["tokens_per_s"] for r in loops],
+        tokens_per_step=tokens_per_step, losses=losses,
+        peak_memory_bytes=peak, step=step,
+        launches_per_step={k: n / 10 for k, n in median["launches"].items()})
+    return median["launches"], result
+
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
     "rms_norm": ("triton", "flasht5_tpu_torch/ops/rmsnorm.py",
                  "flasht5_tpu/ops/rmsnorm.py:85"),
+    "rms_norm_bwd": ("triton", "flasht5_tpu_torch/ops/rmsnorm.py",
+                     "flasht5_tpu/ops/rmsnorm.py:115"),
     "flash_attention_rpe": ("cuda",
                             "flasht5_tpu_torch/csrc/flash_attention_rpe.cu",
                             "flasht5_tpu/ops/flash_attention_rpe.py:489"),
+    "flash_attention_bwd": ("cuda",
+                            "flasht5_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "flasht5_tpu/ops/flash_attention_rpe.py:1191"),
+    "cross_entropy_fwd": ("triton", "flasht5_tpu_torch/ops/cross_entropy.py",
+                          "flasht5_tpu/ops/cross_entropy.py:352"),
+    "cross_entropy_bwd": ("triton", "flasht5_tpu_torch/ops/cross_entropy.py",
+                          "flasht5_tpu/ops/cross_entropy.py:417"),
     "quant_matmul": ("cuda", "flasht5_tpu_torch/csrc/quant_matmul.cu",
                      "flasht5_tpu/ops/quant.py:196"),
     "decode_attention": ("cuda", "flasht5_tpu_torch/csrc/decode_attention.cu",
                          "flasht5_tpu/ops/decode_attention.py:285"),
 }
+# the kernels each path runs, and must launch in each of its runs
+SERVING = ("rms_norm", "flash_attention_rpe", "quant_matmul",
+           "decode_attention")
+TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
+            "flash_attention_bwd", "cross_entropy_fwd", "cross_entropy_bwd")
 
 
 def main() -> int:
@@ -647,21 +1219,33 @@ def main() -> int:
               + " | ".join(regs[:12]))
     print(f"kernel build {time.perf_counter() - t0:.3f} s", flush=True)
 
-    checks = check_kernels(dev)
+    checks = check_kernels(dev) + check_training_kernels(dev)
     check_small_reference(dev)
-    launches, served = run_engine(dev)
+    check_small_training(dev)
+    served_launches, served = run_engine(dev)
+    trained_launches, trained = run_training(dev)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         main_case = next(r for r in checks
                          if r["name"] == name and r["main"])
+        by_path = {}
+        if name in SERVING:
+            by_path["serving"] = served_launches[name]
+        if name in TRAINING:
+            by_path["training"] = trained_launches[name]
+        # launches_by_path: each path's median run (the engine's, the
+        # training loop's), counted from 0 just before it; launches: their
+        # sum over the paths that run the kernel
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=main_case["max_abs_err"],
+            launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=main_case["max_abs_err"],
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], shape=main_case["shape"]))
     print(json.dumps({"engine": served}))
+    print(json.dumps({"training": trained}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

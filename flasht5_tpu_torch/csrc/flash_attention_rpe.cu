@@ -26,6 +26,11 @@
 // Rounding points mirror the TPU kernel: scores and the softmax in fp32, P
 // rounded to the input type before the PV product, O rounded once. The
 // bias is added in fp32 (the TPU path rounds it to the model dtype first).
+//
+// With table == nullptr (and no bucket array) the kernel adds no bias: it is
+// then plain flash attention, the no-bias use of flasht5_tpu/ops/
+// flash_attention.py (_fwd_kernel_nj1_bfold, _fwd_kernel), which the
+// decoder's cross-attention runs.
 
 #include "common.cuh"
 
@@ -60,7 +65,9 @@ rpe_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool row_ok = row < M;
   const int offset = N - M;               // bottom-right causal alignment
 
-  for (int t = tid; t < num_buckets; t += kThreads) ws[t] = table[t * H + h];
+  const bool has_bias = table != nullptr;
+  if (has_bias)
+    for (int t = tid; t < num_buckets; t += kThreads) ws[t] = table[t * H + h];
 
   float qr[D];
   const T* qrow = q + (bh * M + (row_ok ? row : 0)) * D;
@@ -95,7 +102,7 @@ rpe_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = tid; t < kWin; t += kThreads) {
       int gi = j0 - i0 - (kBM - 1) + t + M - 1;
       gi = max(0, min(gi, M + N - 2));
-      bs[t] = ws[bucket[gi]];
+      bs[t] = has_bias ? ws[bucket[gi]] : 0.f;
     }
     __syncthreads();
 
@@ -190,7 +197,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 // q (B,H,M,D), k/v (B,H,N,D) in `dtype`; table (num_buckets, H) f32;
 // bucket (M+N-1,) int32 with bucket[col - row + M - 1]; o (B,H,M,D) in
-// `dtype`; lse (B,H,M) f32. All contiguous.
+// `dtype`; lse (B,H,M) f32. All contiguous. table and bucket may both be
+// null (num_buckets 0): no bias.
 FT5_EXPORT int ft5_flash_attention_rpe_fwd(
     const void* q, const void* k, const void* v, const float* table,
     const int* bucket, void* o, float* lse, int B, int H, int M, int N, int D,

@@ -1,4 +1,5 @@
-"""Model layer: the T5 v1.1 encoder-decoder (parameters, blocks, encode)."""
+"""Model layer: the T5 v1.1 encoder-decoder (parameters, blocks, encode,
+forward with the loss)."""
 
 from flasht5_tpu_torch.models import t5
 

@@ -1,8 +1,9 @@
-"""T5 v1.1 encoder stack in PyTorch: parameters, blocks and `encode`.
+"""T5 v1.1 encoder-decoder in PyTorch: parameters, blocks, `encode`,
+`forward` with the loss, and `model_forward`.
 
-The counterpart of `flasht5_tpu/models/t5.py` for the serving slice. The
-parameter tree is a nested dict (blocks in lists) with the JAX package's key
-names, so a JAX tree carries across one-to-one (convert/from_jax.py):
+The counterpart of `flasht5_tpu/models/t5.py`. The parameter tree is a
+nested dict (blocks in lists) with the JAX package's key names, so a JAX tree
+carries across one-to-one (convert/from_jax.py):
 
     shared.embedding
     {encoder,decoder}.block.<i>.self_attention_layer.self_attention.{Wq,Wk,Wv,o}
@@ -15,12 +16,15 @@ names, so a JAX tree carries across one-to-one (convert/from_jax.py):
     lm_head
 
 Linear weights are stored (in, out), applied as `x @ W`. Only the T5
-relative bias is ported; the forward is inference only (no dropout).
+relative bias is ported. Gradients come from autograd, through the kernels'
+backward where the path has one (`rms_norm`, attention, cross-entropy).
+Dropout draws from a `torch.Generator` the caller passes down; its bits are
+not the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +32,8 @@ import torch.nn.functional as F
 from flasht5_tpu_torch import positional, runtime
 from flasht5_tpu_torch.config import FlashT5Config
 from flasht5_tpu_torch.ops.attn_ref import attn_ref
+from flasht5_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
+                                                 cross_entropy_loss_ref)
 from flasht5_tpu_torch.ops.flash_attention_rpe import flash_attention_rpe
 from flasht5_tpu_torch.ops.quant import QuantizedTensor, quant_matmul
 from flasht5_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_ref
@@ -47,6 +53,23 @@ def check_supported(config: FlashT5Config) -> None:
         raise NotImplementedError("tensor parallelism is not ported yet")
     if config.use_masking:
         raise NotImplementedError("use_masking is not ported yet")
+    if config.use_fused_lm_head_ce:
+        raise NotImplementedError(
+            "use_fused_lm_head_ce (ops/fused_linear_ce.py) is not ported yet")
+
+
+def tree_leaves_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """[(path, leaf)] in the JAX package's flatten order (dict keys sorted,
+    lists in order), each path written as `jax.tree_util.keystr` writes it,
+    e.g. "['encoder']['block'][0]['ff_layer']['wo']"."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in tree_leaves_with_path(tree[key],
+                                                  f"{prefix}[{key!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, node in enumerate(tree)
+                for leaf in tree_leaves_with_path(node, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
 
 
 # ===========================================================================
@@ -150,6 +173,18 @@ def _layer_norm(config: FlashT5Config, w: torch.Tensor,
     return rms_norm_ref(x, w.to(x.dtype), config.layer_norm_epsilon)
 
 
+def _dropout(generator: Optional[torch.Generator], rate: float,
+             x: torch.Tensor, deterministic: bool) -> torch.Tensor:
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout (deterministic=False, rate > 0) draws from "
+                         "a torch.Generator: pass `generator`")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def _matmul(x: torch.Tensor, w) -> torch.Tensor:
     """A QuantizedTensor goes to the dequant-matmul kernel; a plain weight
     to `torch.matmul`, as the JAX package left it to XLA."""
@@ -158,8 +193,8 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
-def _ff(config: FlashT5Config, params: Params, x: torch.Tensor
-        ) -> torch.Tensor:
+def _ff(config: FlashT5Config, params: Params, x: torch.Tensor, *,
+        generator=None, deterministic=True) -> torch.Tensor:
     """Pre-norm MLP with residual (reference: modeling_flash_t5.py:147-164)."""
     h = _layer_norm(config, params["layer_norm"]["weight"], x)
     if config.use_gelu_act:
@@ -172,7 +207,9 @@ def _ff(config: FlashT5Config, params: Params, x: torch.Tensor
             h, params["act"]["wi_1"])
     else:
         h = act(_matmul(h, params["act"]["wi"]))
-    return x + _matmul(h, params["wo"])
+    h = _dropout(generator, config.dropout_rate, h, deterministic)
+    h = _matmul(h, params["wo"])
+    return x + _dropout(generator, config.dropout_rate, h, deterministic)
 
 
 def _heads(y: torch.Tensor, n_heads: int, d_kv: int) -> torch.Tensor:
@@ -186,7 +223,8 @@ def _attention(config: FlashT5Config, params: Params,
                key_value_states: Optional[torch.Tensor] = None,
                position_bias: Optional[torch.Tensor] = None,
                has_pe: bool, is_causal: bool, bidirectional: bool,
-               rpe_table: Optional[torch.Tensor] = None):
+               rpe_table: Optional[torch.Tensor] = None,
+               deterministic: bool = True):
     """Multi-head attention (reference: modeling_flash_t5.py:232-294);
     returns (output, position_bias) so the stack threads block 0's bias."""
     b, m = hidden_states.shape[:2]
@@ -202,7 +240,8 @@ def _attention(config: FlashT5Config, params: Params,
 
     if config.attention_type == "pallas_rpe":
         # every layer uses block 0's bucket table (T5 semantics,
-        # reference modeling:452-455); the stack threads it as rpe_table
+        # reference modeling:452-455); the stack threads it as rpe_table.
+        # Without one (cross-attention) this is plain flash attention.
         table = rpe_table
         if table is None and has_pe and pe_params is not None:
             table = pe_params["relative_attention_bias"]
@@ -212,6 +251,9 @@ def _attention(config: FlashT5Config, params: Params,
             num_buckets=config.relative_attention_num_buckets,
             max_distance=config.relative_attention_max_distance)
     else:
+        if not deterministic and config.attention_dropout_rate > 0.0:
+            raise NotImplementedError(
+                "attention dropout on the ref path is not ported yet")
         if position_bias is None and has_pe and pe_params is not None:
             position_bias = positional.t5_relative_bias(
                 pe_params, m, n, bidirectional=bidirectional,
@@ -226,37 +268,47 @@ def _attention(config: FlashT5Config, params: Params,
 def _block_apply(config: FlashT5Config, block_params: Params,
                  hidden_states: torch.Tensor, *, is_decoder: bool,
                  has_pe: bool, position_bias=None, encoder_hidden_states=None,
-                 rpe_table=None):
+                 rpe_table=None, generator=None, deterministic=True):
+    def drop(t):
+        return _dropout(generator, config.dropout_rate, t, deterministic)
+
     sa = block_params["self_attention_layer"]
     normed = _layer_norm(config, sa["layer_norm"]["weight"], hidden_states)
     attn_out, position_bias = _attention(
         config, sa["self_attention"], normed, position_bias=position_bias,
         has_pe=has_pe, is_causal=is_decoder, bidirectional=not is_decoder,
-        rpe_table=rpe_table)
-    hidden_states = hidden_states + attn_out
+        rpe_table=rpe_table, deterministic=deterministic)
+    hidden_states = hidden_states + drop(attn_out)
     if is_decoder and encoder_hidden_states is not None:
         ca = block_params["cross_attention_layer"]
         normed = _layer_norm(config, ca["layer_norm"]["weight"], hidden_states)
         attn_out, _ = _attention(
             config, ca["cross_attention"], normed,
             key_value_states=encoder_hidden_states, has_pe=False,
-            is_causal=False, bidirectional=True)
-        hidden_states = hidden_states + attn_out
-    hidden_states = _ff(config, block_params["ff_layer"], hidden_states)
+            is_causal=False, bidirectional=True, deterministic=deterministic)
+        hidden_states = hidden_states + drop(attn_out)
+    hidden_states = _ff(config, block_params["ff_layer"], hidden_states,
+                        generator=generator, deterministic=deterministic)
     return hidden_states, position_bias
 
 
 def stack_apply(config: FlashT5Config, stack_params: Params,
                 embedding: torch.Tensor, input_ids: torch.Tensor, *,
                 is_decoder: bool,
-                encoder_hidden_states: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True) -> torch.Tensor:
     """Embed + N blocks + final norm (reference: modeling_flash_t5.py:410-464).
 
     Block 0 owns the positional encoding; its bias (the `ref` path) or its
-    bucket table (the `pallas_rpe` path) applies in every block."""
+    bucket table (the `pallas_rpe` path) applies in every block.
+    `attention_mask` is accepted and ignored: the JAX package applies it only
+    through `use_masking`, which `check_supported` refuses."""
+    del attention_mask
     check_supported(config)
     x = embedding[input_ids.long()].to(runtime.torch_dtype(config.dtype))
+    x = _dropout(generator, config.dropout_rate, x, deterministic)
     rpe_table = None
     if config.attention_type == "pallas_rpe":
         pe = stack_params["block"][0]["self_attention_layer"][
@@ -268,14 +320,109 @@ def stack_apply(config: FlashT5Config, stack_params: Params,
         x, position_bias = _block_apply(
             config, block_params, x, is_decoder=is_decoder, has_pe=(i == 0),
             position_bias=position_bias,
-            encoder_hidden_states=encoder_hidden_states, rpe_table=rpe_table)
-    return _layer_norm(config, stack_params["final_layer_norm"]["weight"], x)
+            encoder_hidden_states=encoder_hidden_states, rpe_table=rpe_table,
+            generator=generator, deterministic=deterministic)
+    x = _layer_norm(config, stack_params["final_layer_norm"]["weight"], x)
+    return _dropout(generator, config.dropout_rate, x, deterministic)
 
 
-def encode(config: FlashT5Config, params: Params,
-           input_ids: torch.Tensor) -> torch.Tensor:
-    """Encoder hidden states (B, S, d_model), with no attention mask: the
-    JAX package applies one only through `use_masking`, not ported yet."""
+# ===========================================================================
+# Losses
+# ===========================================================================
+
+def compute_loss(config: FlashT5Config, logits: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """CE + z-loss (reference: FlashT5CrossEntropyLoss, modeling:40-79).
+
+    Keeps the reference's reduction quirk: the fused path means over ALL
+    rows, ignored ones included (modeling:68); the plain path means over the
+    non-ignored rows only (modeling:74)."""
+    z = config.z_loss or 0.0
+    flat_logits = logits.reshape(-1, logits.shape[-1])
+    flat_labels = labels.reshape(-1)
+    if config.use_fused_crossentropy:
+        losses, _ = cross_entropy_loss(flat_logits, flat_labels, z,
+                                       config.label_smoothing)
+        return torch.mean(losses)
+    losses, _ = cross_entropy_loss_ref(
+        flat_logits, flat_labels, lse_square_scale=z,
+        label_smoothing=config.label_smoothing)
+    n_valid = torch.clamp(torch.sum(flat_labels != -100), min=1)
+    return torch.sum(losses) / n_valid
+
+
+# ===========================================================================
+# Top-level models
+# ===========================================================================
+
+def shift_right(config: FlashT5Config,
+                input_ids: torch.Tensor) -> torch.Tensor:
+    """Decoder-input construction (reference: modeling:506-517)."""
+    shifted = torch.roll(input_ids, 1, dims=-1)
+    shifted[..., 0] = config.decoder_start_token_id
+    return torch.where(shifted == -100, config.pad_token_id, shifted)
+
+
+def encode(config: FlashT5Config, params: Params, input_ids: torch.Tensor,
+           attention_mask: Optional[torch.Tensor] = None, *,
+           generator: Optional[torch.Generator] = None,
+           deterministic: bool = True) -> torch.Tensor:
+    """Encoder hidden states (B, S, d_model). `attention_mask` is ignored
+    unless `use_masking`, which is not ported yet (as in the JAX package)."""
     return stack_apply(config, params["encoder"],
                        params["shared"]["embedding"], input_ids,
-                       is_decoder=False)
+                       is_decoder=False, attention_mask=attention_mask,
+                       generator=generator, deterministic=deterministic)
+
+
+def forward(config: FlashT5Config, params: Params,
+            input_ids: Optional[torch.Tensor] = None,
+            attention_mask: Optional[torch.Tensor] = None,
+            decoder_input_ids: Optional[torch.Tensor] = None,
+            decoder_attention_mask: Optional[torch.Tensor] = None,
+            labels: Optional[torch.Tensor] = None,
+            encoder_hidden_states: Optional[torch.Tensor] = None, *,
+            generator: Optional[torch.Generator] = None,
+            deterministic: bool = True) -> Dict[str, torch.Tensor]:
+    """Conditional-generation forward (reference: modeling:692-736).
+
+    Returns dict(loss?, logits, encoder_hidden_states). Dropout (training,
+    `deterministic=False`) draws from `generator`."""
+    if encoder_hidden_states is None:
+        encoder_hidden_states = encode(config, params, input_ids,
+                                       attention_mask, generator=generator,
+                                       deterministic=deterministic)
+    if labels is not None and decoder_input_ids is None:
+        decoder_input_ids = shift_right(config, labels)
+    dec = stack_apply(config, params["decoder"],
+                      params["shared"]["embedding"], decoder_input_ids,
+                      is_decoder=True, attention_mask=decoder_attention_mask,
+                      encoder_hidden_states=encoder_hidden_states,
+                      generator=generator, deterministic=deterministic)
+    if config.tie_word_embeddings:
+        lm_logits = _matmul(dec, params["shared"]["embedding"].t())
+    else:
+        lm_logits = _matmul(dec, params["lm_head"])
+    out = {"logits": lm_logits, "encoder_hidden_states": encoder_hidden_states}
+    if labels is not None:
+        out["loss"] = compute_loss(config, lm_logits, labels)
+    return out
+
+
+def model_forward(config: FlashT5Config, params: Params,
+                  input_ids: Optional[torch.Tensor] = None,
+                  attention_mask: Optional[torch.Tensor] = None,
+                  decoder_input_ids: Optional[torch.Tensor] = None,
+                  decoder_attention_mask: Optional[torch.Tensor] = None, *,
+                  generator: Optional[torch.Generator] = None,
+                  deterministic: bool = True) -> Dict[str, torch.Tensor]:
+    """Bare encoder-decoder (FlashT5Model, reference: modeling:520-602):
+    dict(last_hidden_state, encoder_last_hidden_state), no lm_head or loss."""
+    enc = encode(config, params, input_ids, attention_mask,
+                 generator=generator, deterministic=deterministic)
+    dec = stack_apply(config, params["decoder"],
+                      params["shared"]["embedding"], decoder_input_ids,
+                      is_decoder=True, attention_mask=decoder_attention_mask,
+                      encoder_hidden_states=enc, generator=generator,
+                      deterministic=deterministic)
+    return {"last_hidden_state": dec, "encoder_last_hidden_state": enc}

@@ -3,20 +3,27 @@
 Each kernel wrapper launches its kernel for CUDA tensors, runs its plain
 version for CPU tensors, and counts its launches in a `.launches` integer.
 
-- rmsnorm:             RMS norm forward (Triton)
-- flash_attention_rpe: attention with the T5 bias from the bucket table (CUDA)
+- rmsnorm:             RMS norm forward and backward (Triton)
+- flash_attention_rpe: attention with the T5 bias from the bucket table, or
+                       none, forward and backward (CUDA)
+- flash_attention:     the no-bias attention of the decoder's cross-attention
+- cross_entropy:       cross-entropy with z-loss, forward and backward (Triton)
 - quant:               INT8/FP8 weight-only dequant matmul (CUDA)
 - decode_attention:    single-query attention over int8/bf16/f32 caches (CUDA)
 - attn_ref:            plain attention oracle
 """
 
-from flasht5_tpu_torch.ops import (decode_attention, flash_attention_rpe,
-                                   quant, rmsnorm)
+from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
+                                   flash_attention_rpe, quant, rmsnorm)
 
 # name -> the wrapper that launches (and counts) the kernel
 KERNELS = {
     "rms_norm": rmsnorm.rms_norm_fwd,
+    "rms_norm_bwd": rmsnorm.rms_norm_bwd,
     "flash_attention_rpe": flash_attention_rpe.flash_attention_rpe_fwd,
+    "flash_attention_bwd": flash_attention_rpe.flash_attention_bwd,
+    "cross_entropy_fwd": cross_entropy.cross_entropy_fwd,
+    "cross_entropy_bwd": cross_entropy.cross_entropy_bwd,
     "quant_matmul": quant.quant_matmul,
     "decode_attention": decode_attention.decode_attention,
 }

@@ -13,13 +13,20 @@ bf16 ulp of the output (2^-8 relative: rtol 1e-2, with atol 1e-2 for values
 near 0), and 2e-2 where P is also rounded to bf16 at values that differ
 (the kernel's online softmax rescales tiles that the plain version does in
 one pass).
+
+The backward kernels: f32 gradients within 1e-3 of the largest entry of
+each output (the kernels sum over up to 1024 keys or rows, and dW over
+millions of scores, in another order than the plain version); in bf16, P and
+dS are rounded to bf16 at values that may differ by an f32 ulp, so 3e-2 of
+the largest entry. dW and the rms_norm weight gradient are fp32 sums in both
+dtypes: 1e-3 of the largest entry.
 """
 
 import pytest
 import torch
 
-from flasht5_tpu_torch.ops import (decode_attention, flash_attention_rpe,
-                                   quant, rmsnorm)
+from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
+                                   flash_attention_rpe, quant, rmsnorm)
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +127,115 @@ def test_decode_attention_kernel(dev, kv, L, with_bias):
     tol = 1e-4 if kv == "f32" else (1e-2 if L <= 512 else 2e-2)
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert torch.all(got[0] == 0)
+
+
+def _close_to_max(got, want, tol):
+    """|got - want| within tol times the largest |want| of that output."""
+    scale = float(want.float().abs().max()) or 1.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * scale)
+
+
+def _dw_error_bound(q, k, w, lse, delta, do, v, kw):
+    """Per (bucket, head): 1e-5 times the sum of |dS| over that bucket's
+    scores, plus 1e-3 times the largest dW. dW is a sum of terms of both
+    signs that nearly cancel (each row of dS sums to 0), so its rounding
+    error scales with the terms, not with the result: under a causal mask
+    with M > N every visible score lies in the last bucket and dW is all
+    cancellation."""
+    total = flash_attention_rpe.flash_attention_dw_abs_plain(
+        q, k, v, w, lse, delta, do, **kw)
+    want = flash_attention_rpe.flash_attention_bwd_plain(
+        q, k, v, w, lse, delta, do, **kw)[3]
+    return 1e-5 * total + 1e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("shape", [(8192, 512), (300, 512), (3, 7, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_bwd_kernel(dev, shape, dtype):
+    x = torch.randn(shape, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(shape[-1], device=dev)).to(dtype)
+    dy = torch.randn(shape, device=dev).to(dtype)
+    _, rstd = rmsnorm.rms_norm_fwd(x, w)
+    dx, dw = rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+    dx0, dw0 = rmsnorm.rms_norm_bwd_plain(x, w, rstd, dy)
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(dx.float(), dx0.float(), rtol=tol, atol=tol)
+    _close_to_max(dw, dw0, 1e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("m_len,n_len,d", [(77, 77, 32), (100, 300, 64),
+                                           (300, 100, 64), (256, 1024, 64),
+                                           (130, 70, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table", [True, False])
+def test_flash_attention_bwd_kernel(dev, causal, m_len, n_len, d, dtype,
+                                    table):
+    q = torch.randn((2, 4, m_len, d), device=dev).to(dtype)
+    k = torch.randn((2, 4, n_len, d), device=dev).to(dtype)
+    v = torch.randn((2, 4, n_len, d), device=dev).to(dtype)
+    do = torch.randn((2, 4, m_len, d), device=dev).to(dtype)
+    w = torch.randn((32, 4), device=dev) if table else None
+    kw = dict(causal=causal, bidirectional=not causal, sm_scale=d ** -0.5)
+    o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w, **kw)
+    o0, lse0 = flash_attention_rpe.flash_attention_rpe_plain(q, k, v, w,
+                                                              **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_attention_rpe.flash_attention_bwd(q, k, v, w, lse, delta, do,
+                                                  **kw)
+    want = flash_attention_rpe.flash_attention_bwd_plain(q, k, v, w, lse,
+                                                         delta, do, **kw)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for g, g0 in zip(got[:3], want[:3]):
+        assert g.dtype == dtype
+        _close_to_max(g, g0, tol)
+    if table:
+        assert got[3].dtype == torch.float32 and got[3].shape == (32, 4)
+        bound = _dw_error_bound(q, k, w, lse, delta, do, v, kw)
+        assert torch.all((got[3] - want[3]).abs() <= bound), \
+            (got[3] - want[3]).abs().max()
+    else:
+        assert got[3] is None and want[3] is None
+
+
+def test_flash_attention_bwd_dw_is_deterministic(dev):
+    q, k, v, do = (torch.randn((8, 8, 256, 64), device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    w = torch.randn((32, 8), device=dev)
+    o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [flash_attention_rpe.flash_attention_bwd(q, k, v, w, lse, delta,
+                                                    do) for _ in range(3)]
+    for r in runs[1:]:
+        for a, b in zip(r, runs[0]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows,v", [(2048, 32768), (37, 1000), (5, 50257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_cross_entropy_kernels(dev, rows, v, dtype, smoothing):
+    logits = (3 * torch.randn((rows, v), device=dev)).to(dtype)
+    labels = torch.randint(0, v, (rows,), device=dev)
+    labels[::7] = -100
+    lse, total = cross_entropy.cross_entropy_fwd(
+        logits, label_smoothing=smoothing)
+    lse0, total0 = cross_entropy.cross_entropy_fwd_plain(
+        logits, label_smoothing=smoothing)
+    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-5)
+    if smoothing:
+        torch.testing.assert_close(total, total0, rtol=1e-4, atol=1e-2)
+    dloss, dz = torch.randn(rows, device=dev), torch.randn(rows, device=dev)
+    kw = dict(lse_square_scale=1e-4, label_smoothing=smoothing)
+    got = cross_entropy.cross_entropy_bwd(logits, labels, lse, dloss, dz,
+                                          **kw)
+    want = cross_entropy.cross_entropy_bwd_plain(logits, labels, lse, dloss,
+                                                 dz, **kw)
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.all(got[::7] == 0)

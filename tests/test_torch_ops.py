@@ -138,9 +138,24 @@ def test_flash_attention_rpe_matches_jax(causal, m_len, n_len):
 
 
 def test_flash_attention_rpe_needs_a_table():
-    x = torch.zeros((1, 1, 4, 32))
-    with pytest.raises(NotImplementedError):
-        flash_attention_rpe.flash_attention_rpe(x, x, x, None)
+    """Without a bucket table, `flash_attention_rpe` is plain flash
+    attention, as in the JAX package (`flash_attention_rpe.py:1476-1479`):
+    forward and backward match the JAX `flash_attention(q, k, v, None)`."""
+    from flasht5_tpu.ops import flash_attention as jfa
+    rng = np.random.default_rng(9)
+    q, k, v, do = (rng.standard_normal((2, 4, n, 32)).astype(np.float32)
+                   for n in (24, 40, 40, 24))
+    o_j, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, None),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    ts = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    o = flash_attention_rpe.flash_attention_rpe(*ts, None)
+    o.backward(_t(do))
+    np.testing.assert_allclose(o.detach().numpy(), _np(o_j), rtol=1e-5,
+                               atol=1e-5)
+    for t, g in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), _np(g), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("causal", [False, True])

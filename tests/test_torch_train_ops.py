@@ -1,0 +1,314 @@
+"""Parity of the port's training kernels' plain versions with the JAX package.
+
+The backward of `rms_norm`, of the RPE attention (with the bucket table's
+gradient) and of the no-bias attention, and the fused cross-entropy forward
+and backward. Inputs and cotangents are made from a numpy seed and fed to
+both packages; the JAX side runs its Pallas kernels in interpret mode
+(tests/conftest.py) and is differentiated with `jax.vjp`, the port side runs
+on the CPU (the plain version of each kernel) through autograd. The Hopper
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py.
+
+Tolerances: 1e-4 where both sides compute in f32 and differ only in the
+order of their sums (the attention gradients sum over up to 72 keys or rows,
+dW over up to 72 x 72 scores); in bf16, 2e-2 relative and absolute, a little
+over two bf16 ulps (2^-8 relative each), since a value one f32 ulp apart on
+the two sides can round to neighbouring bf16 values.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flasht5_tpu.ops import cross_entropy as jce
+from flasht5_tpu.ops import flash_attention as jfa
+from flasht5_tpu.ops import flash_attention_rpe as jrpe
+from flasht5_tpu.ops import rmsnorm as jrms
+from flasht5_tpu_torch.ops import (cross_entropy, flash_attention,
+                                   flash_attention_rpe, rmsnorm)
+
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _np(x):
+    return np.asarray(jax.device_get(x)).astype(np.float32)
+
+
+def _t(a, dtype=torch.float32, grad=False):
+    t = torch.from_numpy(np.array(a, dtype=np.float32)).to(dtype)
+    return t.requires_grad_(grad)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().float().numpy(), _np(want), **tol)
+
+
+# ---------------------------------------------------------------------------
+# rms_norm backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(37, 128), (3, 21, 128)])
+def test_rms_norm_backward_matches_jax(dtype, shape):
+    """dx and dW of the port's `rms_norm` (autograd through
+    `rms_norm_bwd_plain`) against `jax.vjp` of the JAX kernel; the row
+    counts (37, 63) are not multiples of the JAX kernel's row block."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    y_j, vjp = jax.vjp(lambda a, b: jrms.rms_norm(a, b, 1e-6),
+                       jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+    dx_j, dw_j = vjp(jnp.asarray(dy, jdt))
+    xt, wt = _t(x, tdt, True), _t(w, tdt, True)
+    y = rmsnorm.rms_norm(xt, wt, 1e-6)
+    y.backward(_t(dy, tdt))
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert xt.grad.dtype == tdt and wt.grad.dtype == tdt
+    _close(y, y_j, tol)
+    _close(xt.grad, dx_j, tol)
+    _close(wt.grad, dw_j, tol)
+
+
+# ---------------------------------------------------------------------------
+# attention backward
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(m_len, n_len, d=32, b=2, h=4, seed=11):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, m_len, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, n_len, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, n_len, d)).astype(np.float32)
+    w = rng.standard_normal((32, h)).astype(np.float32)
+    do = rng.standard_normal((b, h, m_len, d)).astype(np.float32)
+    return q, k, v, w, do
+
+
+def _jax_vjp(fn, args, cotangent):
+    """(fn(*args), its vjp at `cotangent`), jitted: interpret-mode Pallas
+    runs several times faster compiled than op by op."""
+    def run(args, ct):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(ct)
+    return jax.jit(run)(tuple(jnp.asarray(a) for a in args),
+                        jnp.asarray(cotangent))
+
+
+def _rpe_grads(causal, m_len, n_len, **jax_kw):
+    q, k, v, w, do = _attn_inputs(m_len, n_len)
+    kw = dict(causal=causal, sm_scale=0.5, bidirectional=not causal,
+              num_buckets=32, max_distance=128)
+    o_j, want = _jax_vjp(
+        lambda *a: jrpe.flash_attention_rpe(*a, **kw, **jax_kw),
+        (q, k, v, w), do)
+    ts = [_t(a, grad=True) for a in (q, k, v, w)]
+    o = flash_attention_rpe.flash_attention_rpe(*ts, **kw)
+    o.backward(_t(do))
+    _close(o, o_j, F32_TOL)
+    for t, g in zip(ts, want):
+        _close(t.grad, g, F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("m_len,n_len", [(48, 48), (40, 72), (72, 40)])
+def test_rpe_attention_backward_matches_jax(causal, m_len, n_len):
+    """dq, dk, dv and the table's dW against the JAX backward at its
+    defaults (one key tile: the fused single-tile kernels)."""
+    _rpe_grads(causal, m_len, n_len)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_rpe_attention_backward_matches_jax_two_pass(monkeypatch, causal):
+    """block_n=16 and FLASHT5_RPE_FUSED_BWD=0 on the JAX side: its
+    two-pass `_bwd_dkv_kernel` / `_bwd_dq_kernel` pair over several key
+    tiles. (Its fused multi-tile kernel, the =1 form, accumulates dq through
+    an aliased buffer that interpret mode does not carry across grid steps:
+    on the CPU its dq is wrong against the JAX package's own attention
+    oracle, so it is not a reference here.)"""
+    monkeypatch.setenv("FLASHT5_RPE_FUSED_BWD", "0")
+    _rpe_grads(causal, 56, 56, block_n=16)
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_rpe"])
+@pytest.mark.parametrize("causal,m_len,n_len", [(False, 40, 72),
+                                                (False, 72, 40),
+                                                (True, 48, 48),
+                                                (True, 40, 72)])
+def test_no_bias_attention_matches_jax(entry, causal, m_len, n_len):
+    """The decoder's cross-attention path: the port's
+    `flash_attention(q, k, v, None)` and `flash_attention_rpe(..., None)`,
+    forward and backward, against the JAX `flash_attention(q, k, v, None)`."""
+    q, k, v, _, do = _attn_inputs(m_len, n_len, seed=12)
+    o_j, want = _jax_vjp(
+        lambda a, b, c: jfa.flash_attention(a, b, c, None, causal=causal,
+                                            sm_scale=0.7),
+        (q, k, v), do)
+    ts = [_t(a, grad=True) for a in (q, k, v)]
+    if entry == "flash_attention":
+        o = flash_attention.flash_attention(*ts, None, causal=causal,
+                                            sm_scale=0.7)
+    else:
+        o = flash_attention_rpe.flash_attention_rpe(*ts, None, causal=causal,
+                                                    sm_scale=0.7)
+    o.backward(_t(do))
+    _close(o, o_j, F32_TOL)
+    for t, g in zip(ts, want):
+        _close(t.grad, g, F32_TOL)
+
+
+def test_attention_bwd_plain_matches_autograd_of_the_oracle():
+    """A second anchor, independent of both kernels: the plain backward's
+    dq, dk, dv and dW (its scatter_add over buckets) equal autograd through
+    the plain attention oracle on the materialized T5 bias."""
+    from flasht5_tpu_torch import positional
+    from flasht5_tpu_torch.ops.attn_ref import attn_ref
+    q, k, v, w, do = (_t(a, grad=True) for a in _attn_inputs(24, 40, seed=13))
+    bias = positional.t5_relative_bias({"relative_attention_bias": w}, 24,
+                                       40, bidirectional=False)
+    attn_ref(q, k, v, bias, sm_scale=0.5, causal=True).backward(do)
+    o, lse = flash_attention_rpe.flash_attention_rpe_plain(
+        q, k, v, w, causal=True, sm_scale=0.5, bidirectional=False)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_attention_rpe.flash_attention_bwd_plain(
+        q, k, v, w, lse, delta, do, causal=True, sm_scale=0.5,
+        bidirectional=False)
+    for g, t in zip(got, (q, k, v, w)):
+        np.testing.assert_allclose(g.detach().numpy(), t.grad.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_attention_dw_abs_plain_sums_abs_ds_by_bucket():
+    """The scale of dW's error that the card checks hold dW to: the sum of
+    |dS| over each bucket's scores, with dS taken as autograd's gradient of
+    a per-batch bias through the plain oracle."""
+    from flasht5_tpu_torch import positional
+    from flasht5_tpu_torch.ops.attn_ref import attn_ref
+    q, k, v, w, do = (_t(a) for a in _attn_inputs(24, 40, seed=15))
+    kw = dict(causal=False, sm_scale=0.5, bidirectional=True)
+    bias = positional.t5_relative_bias({"relative_attention_bias": w}, 24, 40,
+                                       bidirectional=True)
+    bias = bias.expand(q.shape[0], -1, -1, -1).clone().requires_grad_(True)
+    attn_ref(q, k, v, bias, sm_scale=0.5, causal=False).backward(do)
+    o, lse = flash_attention_rpe.flash_attention_rpe_plain(q, k, v, w, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_attention_rpe.flash_attention_dw_abs_plain(
+        q, k, v, w, lse, delta, do, **kw)
+    rel = torch.arange(40)[None, :] - torch.arange(24)[:, None]
+    bucket = positional.relative_position_bucket(rel, bidirectional=True,
+                                                 num_buckets=32,
+                                                 max_distance=128)
+    abs_ds = bias.grad.abs().sum(0)                      # (H, M, N)
+    want = torch.stack([abs_ds[:, bucket == b].sum(-1) for b in range(32)])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-6)
+    assert torch.all(got >= flash_attention_rpe.flash_attention_bwd_plain(
+        q, k, v, w, lse, delta, do, **kw)[3].abs() - 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy
+# ---------------------------------------------------------------------------
+
+def _ce_inputs(rows, v, dtype, seed=14):
+    rng = np.random.default_rng(seed)
+    logits = (3.0 * rng.standard_normal((rows, v))).astype(np.float32)
+    labels = rng.integers(0, v, size=(rows,)).astype(np.int32)
+    labels[::5] = -100
+    dloss = rng.standard_normal(rows).astype(np.float32)
+    dz = rng.standard_normal(rows).astype(np.float32)
+    if dtype == "bfloat16":   # both sides see the same bf16 values
+        logits = np.asarray(jnp.asarray(logits, jnp.bfloat16), np.float32)
+    return logits, labels, dloss, dz
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("tiled,rows", [("1", 37), ("0", 29)])
+def test_cross_entropy_matches_jax(monkeypatch, dtype, smoothing, tiled,
+                                   rows):
+    """Per-row (loss, z_loss) and dlogits against the JAX op, through its
+    vocab-tiled kernels (FLASHT5_CE_TILED=1, the default) and its whole-row
+    kernels (=0): z-loss 1e-4, rows with ignore_index, V = 1000, which is
+    not a multiple of either side's vocabulary tile."""
+    monkeypatch.setenv("FLASHT5_CE_TILED", tiled)
+    logits, labels, dloss, dz = _ce_inputs(rows, 1000, dtype)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    (loss_j, z_j), vjp = jax.vjp(
+        lambda x: jce.cross_entropy_loss(x, jnp.asarray(labels), 1e-4,
+                                         smoothing),
+        jnp.asarray(logits, jdt))
+    (dlogits_j,) = vjp((jnp.asarray(dloss), jnp.asarray(dz)))
+    x = _t(logits, tdt, True)
+    loss, z = cross_entropy.cross_entropy_loss(
+        x, torch.from_numpy(labels), 1e-4, smoothing)
+    torch.autograd.backward([loss, z], [_t(dloss), _t(dz)])
+    assert loss.dtype == torch.float32 and x.grad.dtype == tdt
+    assert float(loss[0].detach()) == 0.0 == float(z[0].detach())  # ignored
+    _close(loss, loss_j, F32_TOL)
+    _close(z, z_j, F32_TOL)
+    _close(x.grad, dlogits_j, F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+def test_cross_entropy_ref_matches_jax_ref():
+    logits, labels, _, _ = _ce_inputs(23, 300, "float32", seed=15)
+    for smoothing in (0.0, 0.1):
+        want = jce.cross_entropy_loss_ref(
+            jnp.asarray(logits), jnp.asarray(labels), lse_square_scale=1e-4,
+            label_smoothing=smoothing, logit_scale=0.5)
+        got = cross_entropy.cross_entropy_loss_ref(
+            _t(logits), torch.from_numpy(labels), lse_square_scale=1e-4,
+            label_smoothing=smoothing, logit_scale=0.5)
+        for g, w in zip(got, want):
+            _close(g, w, dict(rtol=1e-5, atol=1e-5))
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
+
+def test_training_wrappers_refuse_a_device_they_do_not_take():
+    meta = dict(device="meta")
+    x = torch.zeros((4, 128), **meta)
+    w = torch.zeros((128,), **meta)
+    r = torch.zeros((4,), **meta)
+    with pytest.raises(ValueError):
+        rmsnorm.rms_norm_bwd(x, w, r, x)
+    q = torch.zeros((1, 2, 8, 32), **meta)
+    with pytest.raises(ValueError):
+        flash_attention_rpe.flash_attention_bwd(
+            q, q, q, None, torch.zeros((1, 2, 8), **meta),
+            torch.zeros((1, 2, 8), **meta), q)
+    with pytest.raises(ValueError):
+        cross_entropy.cross_entropy_fwd(x)
+    with pytest.raises(ValueError):
+        cross_entropy.cross_entropy_bwd(x, r.long(), r, r, r)
+
+
+def test_training_wrappers_refuse_a_dtype_they_do_not_take():
+    x = torch.zeros((4, 128), dtype=torch.float64, device="meta")
+    r = torch.zeros((4,), device="meta")
+    with pytest.raises(TypeError):
+        rmsnorm.rms_norm_bwd(x, torch.zeros((128,), device="meta"), r, x)
+    q = torch.zeros((1, 2, 8, 32), dtype=torch.float16, device="meta")
+    lse = torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(TypeError):
+        flash_attention_rpe.flash_attention_bwd(q, q, q, None, lse, lse, q)
+    with pytest.raises(TypeError):
+        cross_entropy.cross_entropy_fwd(x.to(torch.int32))
+
+
+def test_unported_options_raise():
+    x = torch.zeros((1, 1, 4, 32))
+    with pytest.raises(NotImplementedError):
+        flash_attention.flash_attention(x, x, x, torch.zeros((1, 1, 4, 4)))
+    logits = torch.zeros((3, 10))
+    labels = torch.zeros((3,), dtype=torch.long)
+    with pytest.raises(NotImplementedError):
+        cross_entropy.cross_entropy_loss(logits, labels, split=True)
+    with pytest.raises(NotImplementedError):
+        cross_entropy.cross_entropy_loss(logits, labels, class_start_idx=10)
