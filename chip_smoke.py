@@ -14,12 +14,15 @@ of JAX. In order:
    the kernel, the plain version and, where one exists, the one PyTorch
    call that computes the same function (`library_ms`, a yardstick the port
    never calls); each output is held entry by entry to a stated limit, and
-   faults planted in the attention backward (the bucket one above) and the
-   cross-entropy backward (its small entries flushed or doubled) at the
-   train step's shapes must fall beyond it;
-4. checks on a tiny model that the engine on the card serves the tokens the
-   engine on the CPU (the plain versions) serves, and that two planted
-   faults move its logits beyond the tolerance;
+   faults planted in the attention backward (the bucket one above), the
+   cross-entropy backward (its small entries flushed or doubled) and the
+   paged decode attention (two pages swapped, a length one short) must
+   fall beyond it;
+4. checks on a tiny model that the slot engine on the card serves the
+   tokens the engine on the CPU (the plain versions) serves, and that two
+   planted faults move its logits beyond the tolerance; and that the paged
+   engine on the card serves exactly the CPU's tokens through each of its
+   three routes, and other tokens with two pages swapped in its table;
 5. checks on a tiny model that one training step on the card gives the
    loss and every gradient the CPU gives, and that three planted faults in
    what the backward kernels are given move the gradients beyond the
@@ -30,15 +33,21 @@ of JAX. In order:
 7. serves 16 requests of 512 random tokens with that engine, three times,
    with every launch count set to 0 just before each run and read just
    after; each serving kernel must have launched in each;
-8. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
+8. serves 16 requests of 512 random tokens and up to 256 new ones with the
+   paged engine at full width (int8, pages of 64, sync 64): a warm run read
+   window by window (wall, launches, one profiled window), then three runs
+   interleaved with the slot engine at the same settings, each with the
+   launch counts set to 0 just before and read just after; each paged-path
+   kernel must have launched in each paged run;
+9. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
    256) tokens a step, one seeded batch repeated): 3 warm-up steps, then
    three loops of 10 steps, each with the launch counts set to 0 just
    before and read just after; each training kernel must have launched in
    each loop, every loss must be finite and the loss must fall; then the
    step's device time, its kernels by name and the optimizer's launches;
-9. prints JSON lines of the serving and training results and of the
-   kernels (each with its launches in each path that runs it, and their
-   sum), the
+10. prints JSON lines of the serving, paged serving and training results
+   and of the kernels (each with its launches in each path that runs it,
+   and their sum), the
    `nvidia-smi` name and power limit line, and, last,
    {"ok": true, "device": {...}}.
 
@@ -276,6 +285,133 @@ def check_kernels(dev):
              "(8, 8, 66, 64), bias, lengths 1..57")
 
     return run_checks(cases)
+
+
+PAGED_TOL = 1e-5
+# slots, page size, pages a slot: 64 x 2048 tokens in pages of 128
+# (tools/paged_roofline.py:34-60)
+PAGED_ROOFLINE = (64, 128, 16)
+
+
+def _paged_pool(dev, gen, n_pages, h, page, d):
+    """An int8 fused page record (n_pages + 1 with the trash page) of
+    quantized normal values: (values (N, 2, H, P, D), scales (N, 2, H, P))."""
+    from flasht5_tpu_torch.ops import quant
+    x = torch.randn((n_pages + 1, 2, h, page, d), generator=gen, device=dev)
+    q, s = quant.quantize_kv(x)
+    return q, s[..., 0]
+
+
+def check_paged_kernels(dev):
+    """paged_decode_attention at the paged engine's serving shape (a) and at
+    the roofline shape of tools/paged_roofline.py (b), through the engine's
+    route (the fused record, with the softmax state), each against its plain
+    version; at (a), two planted faults in what the kernel is given, and the
+    standard-layout routes (arrays, ragged) once each. The library call:
+    SDPA over the slots' pages gathered beforehand into a dense bf16 cache
+    (the gather is not timed; no single PyTorch call reads pages)."""
+    from flasht5_tpu_torch.inference import paged_kv
+    from flasht5_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, d = 8, 64
+    cases = []
+
+    def kernel(q, pkv, skv, table, lengths, bias):
+        return paged_kv.paged_decode_attention_chunked_packed(
+            q, pkv, skv, table, lengths, bias=bias, return_state=True)
+
+    def plain(q, pkv, skv, table, lengths, bias):
+        return pa.paged_attention_plain(
+            q, pkv[:, 0], pkv[:, 1], skv[:, 0], skv[:, 1], table, lengths,
+            bias=bias, return_state=True)
+
+    def paged_case(slots, page, maxp, lengths, table, with_bias, label,
+                   main=False):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        table = torch.as_tensor(table, dtype=torch.int32, device=dev)
+        max_len = maxp * page
+        valid = (torch.arange(max_len, device=dev)[None, :]
+                 < lens[:, None])[:, None, None, :]
+
+        def make():
+            pkv, skv = _paged_pool(dev, gen, slots * maxp, h, page, d)
+            q = 0.25 * torch.randn((slots, h, d), generator=gen, device=dev)
+            bias = (torch.randn((slots, h, max_len), generator=gen,
+                                device=dev) if with_bias else None)
+            kf, vf = paged_kv.gather_pool_dense(pkv, skv, table)
+            mask = None
+            if with_bias or not bool(valid.all()):
+                mask = torch.where(valid, 0.0, -1e30)
+                if bias is not None:
+                    mask = mask + bias[:, :, None, :]
+                mask = mask.to(torch.bfloat16)
+            lib = (q[:, :, None].to(torch.bfloat16), kf.to(torch.bfloat16),
+                   vf.to(torch.bfloat16), mask)
+            return (q, pkv, skv, table, lens, bias), lib
+        (q, pkv, skv, _, _, bias), lib = make()
+        used = sum(lengths)                  # live tokens of every head
+        per_tok = h * (2 * d + 2 * 4 + (4 if with_bias else 0))
+        faults = []
+        if main:
+            def swapped(q, pkv, skv, table, lengths, bias):
+                t = table.clone()
+                t[-1, [0, 1]] = table[-1, [1, 0]]
+                return kernel(q, pkv, skv, t, lengths, bias)
+
+            def short(q, pkv, skv, table, lengths, bias):
+                n = lengths.clone()
+                n[3] -= 1
+                return kernel(q, pkv, skv, table, n, bias)
+            faults = [("pages 0 and 1 of the last slot swapped", swapped),
+                      ("slot 3 one token short", short)]
+        cases.append(dict(
+            name="paged_decode_attention", label=label, make=make, outputs=3,
+            in_bytes=nbytes(pkv, skv, bias, *lib), kernel=kernel,
+            plain=plain, faults=faults,
+            library=lambda q, k, v, mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=1.0),
+            library_note="F.scaled_dot_product_attention over the pages "
+                         "gathered into a dense bf16 cache beforehand",
+            atol=PAGED_TOL, rtol=PAGED_TOL,
+            bytes=used * per_tok + nbytes(q, lens, table) + nbytes(q)
+            + 2 * slots * h * 4, ops=4 * h * used * d, ops_type="f32",
+            main=main,
+            why="f32 products and sums in another order, exp by another "
+                "implementation, an online softmax against one maximum"))
+
+    # (a) the serving shape: 8 slots, pages of 64, 5-page tables over a
+    # 40-page pool in a random order, lengths spread over [1, 320]
+    perm = torch.randperm(40, generator=torch.Generator().manual_seed(3))
+    paged_case(8, 64, 5, [1, 40, 64, 65, 130, 200, 257, 320],
+               perm.reshape(8, 5), True,
+               "serving q (8, 8, 64) f32, int8 fused pool (41, 2, 8, 64, 64), "
+               "table (8, 5), lengths 1..320, bias, state", main=True)
+    # (b) the roofline shape: tables round-robin over the pool
+    slots, page, maxp = PAGED_ROOFLINE
+    rr = [[j * slots + s for j in range(maxp)] for s in range(slots)]
+    paged_case(slots, page, maxp, [maxp * page] * slots, rr, False,
+               f"roofline q ({slots}, 8, 64) f32, int8 fused pool "
+               f"({slots * maxp + 1}, 2, 8, {page}, 64), {slots} x "
+               f"{maxp * page} tokens, round-robin tables, state")
+    results = run_checks(cases)
+
+    # the standard-layout routes, once each at the serving shape
+    c = cases[0]
+    (q, pkv, skv, table, lens, bias), _ = c["make"]()
+    want = plain(q, pkv, skv, table, lens, bias)[0]
+    for name in ("paged_decode_attention_arrays",
+                 "paged_decode_attention_ragged"):
+        got = getattr(paged_kv, name)(
+            q, pkv[:, 0].contiguous(), pkv[:, 1].contiguous(),
+            skv[:, 0, ..., None].contiguous(),
+            skv[:, 1, ..., None].contiguous(), table, lens, bias=bias)
+        torch.cuda.synchronize()
+        r = _compare(dict(c, outputs=1), None, got, want)[0]
+        print(f"paged route {name}: standard layout at the serving shape, "
+              f"max abs err {r['max_abs_err']} (worst share "
+              f"{r['worst_share']} of the limit)", flush=True)
+    return results
 
 
 def _readings(c, args, got, want):
@@ -539,6 +675,80 @@ def check_small_reference(dev):
                                  f"by {fault_gap}, within the tolerance")
 
 
+def check_small_paged(dev):
+    """A tiny f32 model (f32 weights, int8 KV) served by the paged engine on
+    the card (the kernels) and on the CPU (their plain versions), through
+    each route: `kernel="chunked"` (window appends), `"ragged"` and
+    `"dense"`. Everything is f32, so the two differ only in summation order
+    and exp, and the served tokens must be identical; the smallest top-two
+    logit margin of the CPU's steps (over every slot, live or not) says how
+    far that is from a tie. Then the first two pages of every slot swapped
+    in what the paged kernel is given must change the served tokens."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.inference import engine, paged_engine, paged_kv
+    from flasht5_tpu_torch.models import t5
+
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+                        d_ff=256, num_layers=2, num_decoder_layers=2,
+                        dropout_rate=0.0, attention_scale=1.0,
+                        dtype="float32", attention_type="pallas_rpe",
+                        use_fused_layernorm=True)
+    cpu_params = t5.init_params(cfg, seed=4, device="cpu")
+    gpu_params = _to(cpu_params, dev)
+    rng = np.random.default_rng(1)
+    ids = [rng.integers(2, 512, size=(n,)).astype(np.int32)
+           for n in (12, 30, 7, 25, 16)]
+
+    def serve(params, device, kernel):
+        eng = paged_engine.PagedInferenceEngine(
+            cfg, params, paged_engine.PagedEngineConfig(
+                max_slots=3, page_size=8, num_pages=12, max_pages_per_slot=3,
+                max_encode_len=32, encode_buckets=(16, 32), kv_dtype="int8",
+                kernel=kernel, steps_per_sync=3), device=device)
+        return [r.result.tolist() for r in eng.run(
+            [engine.Request(uid=i, input_ids=x, max_new_tokens=17)
+             for i, x in enumerate(ids)])]
+
+    margins = []
+    real_argmax = torch.argmax
+
+    def recording_argmax(x, dim=None, keepdim=False):
+        top = x.float().topk(2, dim=-1).values
+        margins.append(float((top[..., 0] - top[..., 1]).min()))
+        return real_argmax(x, dim=dim, keepdim=keepdim)
+
+    real_paged = paged_kv.paged_attention
+
+    def swapped_pages(q, k, v, ks, vs, table, *args, **kw):
+        t = table.clone()
+        t[:, [0, 1]] = table[:, [1, 0]]
+        return real_paged(q, k, v, ks, vs, t, *args, **kw)
+
+    for kernel in ("chunked", "ragged", "dense"):
+        margins.clear()
+        with _patched(torch, "argmax", recording_argmax):
+            want = serve(cpu_params, "cpu", kernel)
+        ops_before = paged_kv.paged_attention.launches
+        got = serve(gpu_params, dev, kernel)
+        launched = paged_kv.paged_attention.launches - ops_before
+        if got != want or not launched:
+            raise AssertionError(f"tiny paged engine ({kernel}): card "
+                                 f"{got} != cpu {want} ({launched} "
+                                 f"launches)")
+        with _patched(paged_kv, "paged_attention", swapped_pages):
+            faulty = serve(gpu_params, dev, kernel)
+        moved = sum(a != b for a, b in zip(faulty, want))
+        print(f"small-paged ({kernel}): card tokens == cpu tokens for "
+              f"{len(ids)} requests ({sum(map(len, want))} tokens, "
+              f"{launched} paged kernel launches); smallest top-two margin "
+              f"{min(margins)}; planted fault, pages 0 and 1 swapped: "
+              f"{moved} of {len(ids)} requests served other tokens",
+              flush=True)
+        if not moved:
+            raise AssertionError(f"planted page swap ({kernel}) left the "
+                                 f"served tokens unchanged")
+
+
 def run_engine(dev):
     """The main path: the full-width FAT5-small engine serving requests."""
     from flasht5_tpu_torch import flagship_config, ops
@@ -566,7 +776,7 @@ def run_engine(dev):
 
     # launches of one prefill (8 x 512) and one decode step
     ops.reset_launch_counts()
-    eng._encode(np.zeros((slots, enc_len), np.int32))
+    engine.encode_cross(cfg, params, np.zeros((slots, enc_len), np.int32), dev)
     per_prefill = ops.launch_counts()
     torch.cuda.synchronize()
 
@@ -683,6 +893,165 @@ def run_engine(dev):
         tokens=median["tokens"], seconds=median["seconds"],
         per_prefill=per_prefill, per_step=per_step, step=step)
 
+
+PAGED_REQUESTS = 16   # tools/serving_paged_ab.py serves 32: halved for time
+
+
+def _check_results(done, cfg, max_new):
+    """Each request served 1..max_new in-vocabulary tokens ending in EOS;
+    returns the count."""
+    tokens = 0
+    for r in done:
+        res = r.result
+        if (res is None or not 1 <= len(res) <= max_new
+                or res[-1] != cfg.eos_token_id
+                or not ((res >= 0) & (res < cfg.vocab_size)).all()):
+            raise AssertionError(f"request {r.uid}: bad result {res}")
+        tokens += len(res)
+    return tokens
+
+
+def run_paged_engine(dev):
+    """The paged path: `PagedInferenceEngine.run` at full FAT5-small width
+    (int8 weights and KV; 8 slots, pages of 64, 40 pages, 5 a slot, encode
+    512, sync 64: tools/serving_paged_ab.py:39-59), 16 requests of 512
+    random tokens and up to 256 new ones. One warm run reads each decode
+    window's wall time and launches and profiles one window with committed
+    pages (device time, kernels by name); then three timed runs, each
+    beside a run of the slot engine at the same settings
+    (max_decode_len 258), every launch count set to 0 just before each and
+    read just after."""
+    from flasht5_tpu_torch import flagship_config, ops
+    from flasht5_tpu_torch.inference import engine, paged_engine
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.quantize import quantize_params
+    from torch.profiler import ProfilerActivity
+
+    cfg = flagship_config()
+    t0 = time.perf_counter()
+    params = quantize_params(t5.init_params(cfg, seed=0, device=dev), "int8")
+    slots, enc_len, max_new, sync = 8, 512, 256, 64
+    paged = paged_engine.PagedInferenceEngine(
+        cfg, params, paged_engine.PagedEngineConfig(
+            max_slots=slots, page_size=64, num_pages=40, max_pages_per_slot=5,
+            max_encode_len=enc_len, encode_buckets=(enc_len,),
+            kv_dtype="int8", steps_per_sync=sync), device=dev)
+    slot = engine.InferenceEngine(
+        cfg, params, engine.EngineConfig(
+            max_slots=slots, max_decode_len=max_new + 2,
+            max_encode_len=enc_len, encode_buckets=(enc_len,),
+            kv_dtype="int8", steps_per_sync=sync, use_decode_kernel=True),
+        device=dev)
+    paged.warmup()
+    slot.warmup()
+    torch.cuda.synchronize()
+    print(f"paged engine: FAT5-small int8 weights + int8 KV, {slots} slots, "
+          f"pages of 64, 40 pages, 5 a slot, sync {sync}; init, quantize and "
+          f"both engines' warmup {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    inputs = [rng.integers(2, cfg.vocab_size, size=(enc_len,)).astype(
+        np.int32) for _ in range(PAGED_REQUESTS)]
+
+    def requests():
+        return [engine.Request(uid=i, input_ids=x, max_new_tokens=max_new)
+                for i, x in enumerate(inputs)]
+
+    # the warm run, window by window
+    windows, kernels = [], {}
+    real_window = paged._window
+
+    def timed_window(released, committed):
+        ops.reset_launch_counts()
+        profile = committed and not kernels
+        t1 = time.perf_counter()
+        if profile:
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = real_window(released, committed)
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    t, n = kernels.get(e.name, (0.0, 0))
+                    kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3,
+                                       n + 1)
+        else:
+            out = real_window(released, committed)
+        windows.append(dict(wall_ms=(time.perf_counter() - t1) * 1e3,
+                            committed=committed, profiled=profile,
+                            launches=ops.launch_counts()))
+        return out
+
+    paged._window = timed_window
+    _check_results(paged.run(requests()), cfg, max_new)
+    del paged._window
+    device_ms = sum(t for t, _ in kernels.values())
+    plain_walls = [w["wall_ms"] for w in windows
+                   if w["committed"] and not w["profiled"]]
+    window = dict(
+        steps=sync, wall_ms=sorted(plain_walls)[len(plain_walls) // 2],
+        device_ms=device_ms, launches=next(
+            w["launches"] for w in windows if w["committed"]))
+    window["device_idle_share"] = 1.0 - device_ms / window["wall_ms"]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"paged decode window ({sync} steps, committed pages): "
+          f"{json.dumps(window)} (wall: median of the warm run's "
+          f"{len(plain_walls)} unprofiled windows with committed pages; "
+          f"device: the kernels of one profiled window); windows of the "
+          f"warm run, wall ms: "
+          f"{json.dumps([round(w['wall_ms'], 3) for w in windows])}",
+          flush=True)
+    print("profile of one paged window: " + json.dumps({
+        "kernels_per_step": sum(n for _, n in kernels.values()) / sync,
+        "top": [{"name": name[:80], "ms_per_step": t / sync,
+                 "launches_per_step": n / sync} for name, (t, n) in top]}),
+        flush=True)
+
+    runs = {"paged": [], "slot": []}
+    for attempt in range(3):
+        for tag, eng, path in (("paged", paged, PAGED),
+                               ("slot", slot, SERVING)):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            done = eng.run(requests())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = ops.launch_counts()
+            tokens = _check_results(done, cfg, max_new)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{tag} engine.run {attempt + 1} of 3: "
+                  f"{PAGED_REQUESTS} requests x {enc_len} tokens, max_new "
+                  f"{max_new}, sync {sync}: {tokens} tokens in {wall:.6f} s "
+                  f"= {tokens / wall:.3f} tokens/s; peak memory {peak} B; "
+                  f"launches {json.dumps(launches)}", flush=True)
+            missing = [name for name in path if launches[name] <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched in the {tag} "
+                                     f"run: {missing}")
+            runs[tag].append(dict(tokens=tokens, seconds=wall,
+                                  tokens_per_s=tokens / wall,
+                                  peak_memory_bytes=peak, launches=launches))
+    median = {tag: sorted(r, key=lambda x: x["tokens_per_s"])[1]
+              for tag, r in runs.items()}
+    # the decoder self-attention KV each engine holds (the peaks above
+    # count both engines and the weights)
+    kv_bytes = dict(
+        paged=sum(nbytes(*layer["pages_kv"]) for layer in paged.state.layers),
+        slot=sum(nbytes(*c.self_k, *c.self_v) for c in slot.state.layers))
+    result = dict(
+        requests=PAGED_REQUESTS, max_new=max_new, window=window,
+        tokens_per_s_median=median["paged"]["tokens_per_s"],
+        tokens_per_s=[r["tokens_per_s"] for r in runs["paged"]],
+        slot_tokens_per_s_median=median["slot"]["tokens_per_s"],
+        slot_tokens_per_s=[r["tokens_per_s"] for r in runs["slot"]],
+        paged_over_slot=(median["paged"]["tokens_per_s"]
+                         / median["slot"]["tokens_per_s"]),
+        peak_memory_bytes=median["paged"]["peak_memory_bytes"],
+        slot_peak_memory_bytes=median["slot"]["peak_memory_bytes"],
+        self_kv_bytes=kv_bytes)
+    print(f"paged / slot tokens/s (medians of 3, interleaved): "
+          f"{result['paged_over_slot']}", flush=True)
+    return median["paged"]["launches"], result
 
 
 # ---------------------------------------------------------------------------
@@ -1185,10 +1554,18 @@ KERNELS = {
                      "flasht5_tpu/ops/quant.py:196"),
     "decode_attention": ("cuda", "flasht5_tpu_torch/csrc/decode_attention.cu",
                          "flasht5_tpu/ops/decode_attention.py:285"),
+    # one kernel for the three paged kernels (:935, :377 and :825, the
+    # paged engine's default)
+    "paged_decode_attention": ("cuda",
+                               "flasht5_tpu_torch/csrc/"
+                               "paged_decode_attention.cu",
+                               "flasht5_tpu/inference/paged_kv.py:825"),
 }
 # the kernels each path runs, and must launch in each of its runs
 SERVING = ("rms_norm", "flash_attention_rpe", "quant_matmul",
            "decode_attention")
+PAGED = ("rms_norm", "flash_attention_rpe", "quant_matmul",
+         "paged_decode_attention")
 TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
             "flash_attention_bwd", "cross_entropy_fwd", "cross_entropy_bwd")
 
@@ -1219,10 +1596,14 @@ def main() -> int:
               + " | ".join(regs[:12]))
     print(f"kernel build {time.perf_counter() - t0:.3f} s", flush=True)
 
-    checks = check_kernels(dev) + check_training_kernels(dev)
+    checks = (check_kernels(dev) + check_paged_kernels(dev)
+              + check_training_kernels(dev))
     check_small_reference(dev)
+    check_small_paged(dev)
     check_small_training(dev)
     served_launches, served = run_engine(dev)
+    paged_launches, paged = run_paged_engine(dev)
+    torch.cuda.empty_cache()
     trained_launches, trained = run_training(dev)
 
     kernels = []
@@ -1232,10 +1613,13 @@ def main() -> int:
         by_path = {}
         if name in SERVING:
             by_path["serving"] = served_launches[name]
+        if name in PAGED:
+            by_path["paged"] = paged_launches[name]
         if name in TRAINING:
             by_path["training"] = trained_launches[name]
-        # launches_by_path: each path's median run (the engine's, the
-        # training loop's), counted from 0 just before it; launches: their
+        # launches_by_path: each path's median run (the slot engine's, the
+        # paged engine's, the training loop's), counted from 0 just before
+        # it; launches: their
         # sum over the paths that run the kernel
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
@@ -1245,6 +1629,7 @@ def main() -> int:
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], shape=main_case["shape"]))
     print(json.dumps({"engine": served}))
+    print(json.dumps({"paged_engine": paged}))
     print(json.dumps({"training": trained}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

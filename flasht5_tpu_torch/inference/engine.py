@@ -92,6 +92,36 @@ def _kv_make(x: torch.Tensor, quantized: bool) -> KVTensor:
     return KVTensor(*quantize_kv(x))
 
 
+def bucket_for(buckets: Tuple[int, ...], length: int) -> int:
+    """The smallest encode bucket that holds `length` (else the largest)."""
+    for b in buckets:
+        if length <= b:
+            return b
+    return buckets[-1]
+
+
+def prefill_batch(n: int, max_slots: int) -> int:
+    """Round a prefill batch up to a power of two (at most max_slots)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, max(1, max_slots))
+
+
+def encode_cross(config: FlashT5Config, params, ids: np.ndarray,
+                 device: torch.device) -> List[Tuple[torch.Tensor, ...]]:
+    """Batched prefill: encode (nb, bucket) ids in one pass and return each
+    decoder layer's cross K/V, (nb, H, bucket, d_kv) each."""
+    enc = t5.encode(config, params, torch.from_numpy(ids).to(device))
+    outs = []
+    for blk in params["decoder"]["block"]:
+        ca = blk["cross_attention_layer"]["cross_attention"]
+        h = ca["Wk"].shape[1] // config.d_kv
+        outs.append((kv_cache._proj_heads(enc, ca["Wk"], h, config.d_kv),
+                     kv_cache._proj_heads(enc, ca["Wv"], h, config.d_kv)))
+    return outs
+
+
 class BatchState:
     """Device-side slot pool: KV caches (written in place) and per-slot
     scalars."""
@@ -168,33 +198,6 @@ class InferenceEngine:
         self._windows = 0
 
     # -- prefill -----------------------------------------------------------
-
-    def _bucket_for(self, length: int) -> int:
-        for b in self.ecfg.encode_buckets:
-            if length <= b:
-                return b
-        return self.ecfg.encode_buckets[-1]
-
-    def _prefill_batch(self, n: int) -> int:
-        """Round a prefill batch up to a power of two (at most max_slots)."""
-        b = 1
-        while b < n:
-            b *= 2
-        return min(b, max(1, self.ecfg.max_slots))
-
-    def _encode(self, ids: np.ndarray) -> List[Tuple[torch.Tensor, ...]]:
-        """Batched prefill: encode (nb, bucket) ids in one pass and return
-        each decoder layer's cross K/V, (nb, H, bucket, d_kv) each."""
-        config = self.config
-        ids_t = torch.from_numpy(ids).to(self.device)
-        enc = t5.encode(config, self.params, ids_t)
-        outs = []
-        for blk in self.params["decoder"]["block"]:
-            ca = blk["cross_attention_layer"]["cross_attention"]
-            h = ca["Wk"].shape[1] // config.d_kv
-            outs.append((kv_cache._proj_heads(enc, ca["Wk"], h, config.d_kv),
-                         kv_cache._proj_heads(enc, ca["Wv"], h, config.d_kv)))
-        return outs
 
     def _insert(self, cross, row: int, slot: int, true_len: int,
                 max_new: int) -> None:
@@ -362,11 +365,13 @@ class InferenceEngine:
         compilation happen before serving; leaves the pool idle."""
         st = self.state
         for bucket in buckets or self.ecfg.encode_buckets:
-            nb = self._prefill_batch(1)
+            nb = 1
             while True:
-                cross = self._encode(np.zeros((nb, bucket), np.int32))
+                cross = encode_cross(self.config, self.params,
+                                     np.zeros((nb, bucket), np.int32),
+                                     self.device)
                 self._insert(cross, 0, 0, bucket, 1)
-                if nb >= self._prefill_batch(self.ecfg.max_slots):
+                if nb >= self.ecfg.max_slots:
                     break
                 nb *= 2
         host, event = self._window()
@@ -378,10 +383,11 @@ class InferenceEngine:
         """Prefill + insert one request into `slot` without running the
         scheduler loop (pairs with probe_step)."""
         L = min(len(req.input_ids), self.ecfg.max_encode_len)
-        bucket = self._bucket_for(L)
-        padded = np.zeros((self._prefill_batch(1), bucket), np.int32)
+        bucket = bucket_for(self.ecfg.encode_buckets, L)
+        padded = np.zeros((1, bucket), np.int32)
         padded[0, :L] = req.input_ids[:L]
-        self._insert(self._encode(padded), 0, slot, bucket,
+        self._insert(encode_cross(self.config, self.params, padded,
+                                  self.device), 0, slot, bucket,
                      min(req.max_new_tokens, self.ecfg.max_decode_len - 1))
 
     # -- host-side scheduler ----------------------------------------------
@@ -427,14 +433,16 @@ class InferenceEngine:
             by_bucket: Dict[int, list] = {}
             for req in take:
                 L = min(len(req.input_ids), ecfg.max_encode_len)
-                by_bucket.setdefault(self._bucket_for(L), []).append((req, L))
+                by_bucket.setdefault(bucket_for(ecfg.encode_buckets, L),
+                                     []).append((req, L))
             for bucket, items in by_bucket.items():
                 # ONE batched encode for every same-bucket waiting request
-                padded = np.zeros((self._prefill_batch(len(items)), bucket),
-                                  np.int32)
+                nb = prefill_batch(len(items), ecfg.max_slots)
+                padded = np.zeros((nb, bucket), np.int32)
                 for j, (req, L) in enumerate(items):
                     padded[j, :L] = req.input_ids[:L]
-                cross = self._encode(padded)
+                cross = encode_cross(self.config, self.params, padded,
+                                     self.device)
                 for j, (req, L) in enumerate(items):
                     i = free.pop(0)
                     # the cross length is the padded bucket (no mask), as

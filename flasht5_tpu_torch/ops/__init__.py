@@ -10,11 +10,14 @@ version for CPU tensors, and counts its launches in a `.launches` integer.
 - cross_entropy:       cross-entropy with z-loss, forward and backward (Triton)
 - quant:               INT8/FP8 weight-only dequant matmul (CUDA)
 - decode_attention:    single-query attention over int8/bf16/f32 caches (CUDA)
+- paged_attention:     single-query attention over paged int8/bf16/f32 pools
+                       (CUDA)
 - attn_ref:            plain attention oracle
 """
 
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
-                                   flash_attention_rpe, quant, rmsnorm)
+                                   flash_attention_rpe, paged_attention,
+                                   quant, rmsnorm)
 
 # name -> the wrapper that launches (and counts) the kernel
 KERNELS = {
@@ -26,6 +29,7 @@ KERNELS = {
     "cross_entropy_bwd": cross_entropy.cross_entropy_bwd,
     "quant_matmul": quant.quant_matmul,
     "decode_attention": decode_attention.decode_attention,
+    "paged_decode_attention": paged_attention.paged_attention,
 }
 
 

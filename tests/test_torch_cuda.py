@@ -14,6 +14,12 @@ near 0), and 2e-2 where P is also rounded to bf16 at values that differ
 (the kernel's online softmax rescales tiles that the plain version does in
 one pass).
 
+The paged decode kernel: 1e-4 for f32 and int8 pools (both compute in f32);
+a bf16 pool rounds q, K, P and V to bf16, and the kernel rounds P against a
+running maximum over chunks of 256 positions where the plain version uses
+one maximum, so 2e-2 for its output; m and l are fp32 sums of the same
+products in both: 1e-4.
+
 The backward kernels: f32 gradients within 1e-3 of the largest entry of
 each output (the kernels sum over up to 1024 keys or rows, and dW over
 millions of scores, in another order than the plain version); in bf16, P and
@@ -25,8 +31,10 @@ dtypes: 1e-3 of the largest entry.
 import pytest
 import torch
 
+from flasht5_tpu_torch.inference import paged_kv
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
-                                   flash_attention_rpe, quant, rmsnorm)
+                                   flash_attention_rpe, paged_attention,
+                                   quant, rmsnorm)
 
 pytestmark = pytest.mark.cuda
 
@@ -127,6 +135,75 @@ def test_decode_attention_kernel(dev, kv, L, with_bias):
     tol = 1e-4 if kv == "f32" else (1e-2 if L <= 512 else 2e-2)
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert torch.all(got[0] == 0)
+
+
+def _paged_case(dev, kv, d, layout, with_bias, b=6, h=4, P=16, maxp=40):
+    """A fragmented pool (random page order) and slots of lengths 0, 1, 17,
+    256, 300 and maxp * P: (q, kernel args, bias)."""
+    n = b * maxp + 16
+    k = torch.randn((n, h, P, d), device=dev)
+    v = torch.randn((n, h, P, d), device=dev)
+    if kv == "int8":
+        (k, ks), (v, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        k, v, ks, vs = k.to(dt), v.to(dt), None, None
+    if layout == "fused":
+        pages, scales = paged_kv.pack_kv_pages_fused(k, v, ks, vs)
+        args = [pages[:, 0], pages[:, 1]] + (
+            [None, None] if scales is None else [scales[:, 0], scales[:, 1]])
+    else:
+        args = [k, v] + ([None, None] if ks is None
+                         else [ks[..., 0], vs[..., 0]])
+    table = torch.randperm(n, device=dev)[:b * maxp].reshape(b, maxp)
+    lengths = torch.tensor([0, 1, 17, 256, 300, maxp * P], device=dev,
+                           dtype=torch.int32)
+    q = torch.randn((b, h, d), device=dev).to(
+        torch.bfloat16 if kv == "bf16" else torch.float32)
+    bias = torch.randn((b, h, maxp * P), device=dev) if with_bias else None
+    return q, args + [table.int(), lengths], bias
+
+
+@pytest.mark.parametrize("layout", ["standard", "fused"])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_paged_attention_kernel(dev, layout, kv, d, with_bias):
+    q, args, bias = _paged_case(dev, kv, d, layout, with_bias)
+    kw = dict(sm_scale=d ** -0.5, bias=bias, return_state=True)
+    got = paged_attention.paged_attention(q, *args, **kw)
+    want = paged_attention.paged_attention_plain(q, *args, **kw)
+    assert got[0].dtype == q.dtype and got[0].shape == q.shape
+    tol = 2e-2 if kv == "bf16" else 1e-4
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    # the empty slot: out 0, m -1e30, l 0
+    assert torch.all(got[0][0] == 0) and torch.all(got[1][0] == -1e30)
+    assert torch.all(got[2][0] == 0)
+    # without the state, the same output
+    out = paged_attention.paged_attention(q, *args, sm_scale=d ** -0.5,
+                                          bias=bias)
+    assert torch.equal(out, got[0])
+
+
+def test_paged_attention_refuses_what_it_does_not_take(dev):
+    q, args, _ = _paged_case(dev, "int8", 64, "standard", False)
+    k, v, ks, vs, table, lengths = args
+    with pytest.raises(ValueError, match="one CUDA device"):
+        paged_attention.paged_attention(q, k.cpu(), v.cpu(), ks.cpu(),
+                                        vs.cpu(), table, lengths)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        paged_attention.paged_attention(q, *args[:4], table.cpu(), lengths)
+    with pytest.raises(TypeError, match="scales"):
+        paged_attention.paged_attention(q, k, v, None, None, table, lengths)
+    with pytest.raises(ValueError, match="strides"):     # rows not contiguous
+        paged_attention.paged_attention(q, k.transpose(2, 3), v.transpose(2, 3),
+                                        ks, vs, table, lengths)
+    with pytest.raises(ValueError, match="strides"):     # K and V differ
+        paged_attention.paged_attention(
+            q, k, torch.stack([v, v], 1)[:, 0], ks, vs, table, lengths)
 
 
 def _close_to_max(got, want, tol):
