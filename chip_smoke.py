@@ -10,22 +10,25 @@ of JAX. In order:
 2. builds the CUDA kernels from `flasht5_tpu_torch/csrc/` (one `nvcc` per
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the full-width serving engine and train step give it, and times
+   shapes the full-width serving engine, train step and pretraining driver
+   give it, and times
    the kernel, the plain version and, where one exists, the one PyTorch
    call that computes the same function (`library_ms`, a yardstick the port
    never calls); each output is held entry by entry to a stated limit, and
    faults planted in the attention backward (the bucket one above), the
-   cross-entropy backward (its small entries flushed or doubled) and the
-   paged decode attention (two pages swapped, a length one short) must
-   fall beyond it;
+   cross-entropy backward (its small entries flushed or doubled), the
+   paged decode attention (two pages swapped, a length one short) and the
+   bias kernels (the bias rows shifted by one; dbias summed over the heads
+   as well as the batch) must fall beyond it;
 4. checks on a tiny model that the slot engine on the card serves the
    tokens the engine on the CPU (the plain versions) serves, and that two
    planted faults move its logits beyond the tolerance; and that the paged
    engine on the card serves exactly the CPU's tokens through each of its
    three routes, and other tokens with two pages swapped in its table;
 5. checks on a tiny model that one training step on the card gives the
-   loss and every gradient the CPU gives, and that three planted faults in
-   what the backward kernels are given move the gradients beyond the
+   loss and every gradient the CPU gives, on `pallas_rpe` and on `pallas`
+   with `use_masking`, and that planted faults in what the backward
+   kernels are given (three and two) move the gradients beyond the
    tolerance;
 6. times a full-width FAT5-small decode step (seeded random weights, int8
    weights and KV cache, the decode kernel) by wall clock and by device
@@ -45,9 +48,19 @@ of JAX. In order:
    before and read just after; each training kernel must have launched in
    each loop, every loss must be finite and the loss must fall; then the
    step's device time, its kernels by name and the optimizer's launches;
-10. prints JSON lines of the serving, paged serving and training results
-   and of the kernels (each with its launches in each path that runs it,
-   and their sum), the
+10. runs the pretraining driver (`train.cli.run`) on
+   `configs/fr/fat5-fr-small.yaml` at full width, batch 64 x (1024 + 256),
+   `pallas` attention on the three bias kernels: 4 steps with a checkpoint,
+   then a second run that resumes from it and takes steps 5-8 (a stub
+   tokenizer and ~2,000 synthetic rows stand in for the YAML's tokenizer
+   and corpus); every kernel of the path must launch in each run, losses
+   be finite and the restored state bit-equal to the saved one; then
+   tokens/s as the trainer logs it and between synchronized clock readings,
+   the collator's time, a step's wall and device time, its kernels, peak
+   memory;
+11. prints JSON lines of the serving, paged serving, training and
+   pretraining results and of the kernels (each with its launches in each
+   path that runs it, and their sum), the
    `nvidia-smi` name and power limit line, and, last,
    {"ok": true, "device": {...}}.
 
@@ -63,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -499,7 +513,7 @@ def run_checks(cases):
                    library=c.get("library_note"),
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=c["bytes"], ops=c["ops"])
+                   bytes=c["bytes"], ops=c["ops"], **c.get("extra", {}))
         print("kernel-check " + json.dumps(row), flush=True)
         results.append(row)
         del sets, arg_sets
@@ -1285,6 +1299,190 @@ def check_training_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# pretraining: the materialized-bias attention kernels
+# ---------------------------------------------------------------------------
+
+DBIAS_TOL = 1e-4          # of each dbias entry, plus as much of the largest
+
+
+def check_bias_kernels(dev):
+    """The three bias kernels (forward, dK/dV + dbias, dQ) against their
+    plain versions, entry by entry: at the pretraining driver's own shapes
+    (batch 64: the encoder's self-attention with the T5 bias of one table,
+    (1, 8, 1024, 1024), and the decoder's causal self-attention), at batch 8
+    (the training slice's shapes, to compare with its rows), on a ragged
+    causal shape with one bias for all heads, and on a per-batch
+    (B, H, M, N) bias with use_masking's padded query rows (-1e29 after the
+    clamp). The library yardstick: F.scaled_dot_product_attention with the
+    bias as a float attn_mask, and for the backward its autograd with the
+    mask requiring grad (dq, dk, dv and dbias in one call); the kernels it
+    runs are printed. Planted faults at the driver's encoder shape: the bias
+    rows shifted by one (each kernel), and dbias summed over the heads as
+    well as the batch."""
+    from flasht5_tpu_torch import positional
+    from flasht5_tpu_torch.ops import flash_attention as fa
+    from flasht5_tpu_torch.ops import flash_attention_rpe as rpe
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def t5_bias(m_len, n_len, causal):
+        table = randn(32, 8, dtype=torch.float32, scale=0.5)
+        return positional.t5_relative_bias(
+            {"relative_attention_bias": table}, m_len, n_len,
+            bidirectional=not causal)
+
+    def shifted(fn):
+        def fault(q, k, v, bias, *rest):
+            return fn(q, k, v, torch.roll(bias, 1, dims=2), *rest)
+        return fault
+
+    def wrong_axis(*args):
+        with _patched(fa, "_reduce", lambda full, shape: full.sum(
+                (0, 1), keepdim=True).expand(shape)):
+            return fa.flash_attention_bias_dkv(*args)
+
+    def fwd_lib(q, k, v, mask, *rest):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=1.0)
+
+    def bwd_lib(q, k, v, mask, out, ql, kl, vl, ml, do):
+        return torch.autograd.grad(out, (ql, kl, vl, ml), do,
+                                   retain_graph=True)
+
+    def grad_limits(*args):
+        """dk, dv: one bf16 ulp of each entry plus ATTN_BWD_TOL of the
+        largest; dbias (fp32 dS, summed by the same PyTorch sum on both
+        sides): DBIAS_TOL of each entry plus DBIAS_TOL of the largest."""
+        want = args[-1]
+        lims = [ATTN_BWD_TOL * t.float().abs().max()
+                + BF16_ULP * t.float().abs() for t in want[:2]]
+        lims.append(DBIAS_TOL * want[2].abs().max()
+                    + DBIAS_TOL * want[2].abs())
+        return lims
+
+    def dq_limits(*args):
+        dq = args[-1][0]
+        return [ATTN_BWD_TOL * dq.float().abs().max()
+                + BF16_ULP * dq.float().abs()]
+
+    cases, yardsticks = [], {}
+    shapes = [
+        ("encoder", 64, 1024, 1024, False, "t5", True),
+        ("decoder self", 64, 256, 256, True, "t5", False),
+        ("encoder", 8, 1024, 1024, False, "t5", False),
+        ("decoder self", 8, 256, 256, True, "t5", False),
+        ("ragged", 8, 300, 700, True, "11", False),
+        ("masked rows", 8, 512, 512, False, "bh", False),
+    ]
+    for tag, b, m_len, n_len, causal, form, main in shapes:
+        kw = dict(causal=causal, sm_scale=1.0)
+
+        def make(b=b, m_len=m_len, n_len=n_len, causal=causal, form=form,
+                 kw=kw):
+            q, do = randn(b, 8, m_len, 64), randn(b, 8, m_len, 64)
+            k, v = randn(b, 8, n_len, 64), randn(b, 8, n_len, 64)
+            if form == "t5":
+                bias = t5_bias(m_len, n_len, causal)
+            elif form == "11":
+                bias = randn(1, 1, m_len, n_len, dtype=torch.float32)
+            else:     # use_masking's fold of padded query rows, clamped
+                bias = t5_bias(m_len, n_len, causal).expand(
+                    b, -1, -1, -1).clone()
+                for i in range(b):
+                    bias[i, :, m_len - 37 * i:] = -1e29
+            o, lse = fa.flash_attention_bias_fwd(q, k, v, bias, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            mask = bias
+            if causal:
+                mask = torch.where(rpe._visible(m_len, n_len, True, dev),
+                                   bias, -1e30)
+            mask = mask.to(torch.bfloat16)
+            ql, kl, vl, ml = (t.detach().requires_grad_(True)
+                              for t in (q, k, v, mask))
+            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ml,
+                                                 scale=1.0)
+            return ((q, k, v, bias, lse, delta, do),
+                    (q, k, v, mask, out, ql, kl, vl, ml, do))
+
+        (q, k, v, bias, lse, delta, do), lib = make()
+        pairs = m_len * n_len
+        if causal:
+            pairs = int(rpe._visible(m_len, n_len, True, "cpu").sum())
+        bh_ops = b * 8 * pairs * 64
+        in_bytes = nbytes(q, k, v, do, lse, delta, bias) + nbytes(*lib[:4])
+        label = (f"{tag} q ({b},8,{m_len},64), k,v ({b},8,{n_len},64) bf16, "
+                 f"{'causal, ' if causal else ''}bias "
+                 f"{tuple(bias.shape)} f32")
+        if main:
+            yardsticks = dict(forward=(fwd_lib, lib), backward=(bwd_lib, lib))
+        bwd_note = ("autograd backward of F.scaled_dot_product_attention "
+                    "with the bf16 mask requiring grad (dq, dk, dv and dbias "
+                    "in one call)")
+        common = dict(label=label, make=make, in_bytes=in_bytes, main=main,
+                      ops_type="bf16")
+        cases.append(dict(
+            common, name="flash_attention_bias", outputs=2,
+            kernel=lambda q, k, v, bias, *rest, kw=kw:
+                fa.flash_attention_bias_fwd(q, k, v, bias, **kw),
+            plain=lambda q, k, v, bias, *rest, kw=kw:
+                fa.flash_attention_bias_plain(q, k, v, bias, **kw),
+            faults=([("bias rows shifted by one", shifted(
+                lambda q, k, v, bias, *rest:
+                    fa.flash_attention_bias_fwd(q, k, v, bias)))]
+                    if main else []),
+            library=fwd_lib,
+            library_note="F.scaled_dot_product_attention, the bias as a "
+                         "bf16 float mask",
+            atol=2e-2, rtol=BF16_ULP,
+            bytes=nbytes(q, k, v, bias) + nbytes(q) + nbytes(lse),
+            ops=4 * bh_ops,
+            why="bf16 output and P rounded to bf16 against per-tile maxima; "
+                "lse in fp32"))
+        cases.append(dict(
+            common, name="flash_attention_bias_dkv", outputs=3,
+            kernel=lambda *a, kw=kw: fa.flash_attention_bias_dkv(*a, **kw),
+            plain=lambda *a, kw=kw: fa.flash_attention_bias_dkv_plain(*a,
+                                                                     **kw),
+            faults=([("bias rows shifted by one",
+                      shifted(fa.flash_attention_bias_dkv)),
+                     ("dbias summed over the heads as well as the batch",
+                      wrong_axis)] if main else []),
+            library=bwd_lib, library_note=bwd_note, limits=grad_limits,
+            bytes=nbytes(q, k, v, do, lse, delta, bias) + nbytes(k, v)
+            + bias.numel() * 4, ops=8 * bh_ops,
+            extra=dict(dbias_per_batch_bytes=b * 8 * m_len * n_len * 4),
+            why=f"dk, dv in bf16: one bf16 ulp of each entry plus "
+                f"{ATTN_BWD_TOL} of the output's largest entry; dbias, fp32 "
+                f"dS summed by the same PyTorch sum on both sides: "
+                f"{DBIAS_TOL} of each entry plus {DBIAS_TOL} of the largest"))
+        cases.append(dict(
+            common, name="flash_attention_bias_dq", outputs=1,
+            kernel=lambda *a, kw=kw: fa.flash_attention_bias_dq(*a, **kw),
+            plain=lambda *a, kw=kw: fa.flash_attention_bias_dq_plain(*a,
+                                                                    **kw),
+            faults=([("bias rows shifted by one",
+                      shifted(fa.flash_attention_bias_dq))] if main else []),
+            library=bwd_lib, library_note=bwd_note, limits=dq_limits,
+            bytes=nbytes(q, k, v, do, lse, delta, bias) + nbytes(q),
+            ops=6 * bh_ops,
+            why=f"dq in bf16: one bf16 ulp of each entry plus "
+                f"{ATTN_BWD_TOL} of its largest entry"))
+        del q, k, v, bias, lse, delta, do, lib
+    results = run_checks(cases)
+    for way, (fn, args) in yardsticks.items():
+        by_name = _kernels_by_name(lambda: fn(*args))
+        top = sorted(by_name, key=lambda name: -by_name[name][0])[:2]
+        print(f"library yardstick at the driver's encoder shape, {way}: "
+              f"SDPA runs "
+              f"{[name[:60] for name in top]}", flush=True)
+    return results
+
+
+# ---------------------------------------------------------------------------
 # training: a tiny model's step on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1343,10 +1541,27 @@ def _training_faults():
     ]
 
 
+def _bias_training_faults():
+    """Faults in what the bias backward kernels are given: (name,
+    manager)."""
+    from flasht5_tpu_torch.ops import flash_attention as fa
+
+    def rows_shifted(real):
+        def fault(q, k, v, bias, *rest, **kw):
+            return real(q, k, v, torch.roll(bias, 1, dims=2), *rest, **kw)
+        fault.launches = 0     # the wrapper counts through this name
+        return fault
+    return [(f"{name} gets the bias rows shifted by one",
+             _patched(fa, name, rows_shifted(getattr(fa, name))))
+            for name in ("flash_attention_bias_dkv",
+                         "flash_attention_bias_dq")]
+
+
 def check_small_training(dev):
-    """One training step's loss and every gradient leaf of a tiny f32 model
-    on the flagship path (pallas_rpe, fused norm and CE, z-loss), on the
-    card (the kernels) against the CPU (their plain versions).
+    """One training step's loss and every gradient leaf of a tiny f32 model,
+    on the card (the kernels) against the CPU (their plain versions): on the
+    train step's path (pallas_rpe, fused norm and CE, z-loss) and on the
+    pretraining path's (pallas, with use_masking over a padded batch).
 
     Both compute in f32; the kernels sum in other orders and evaluate exp
     by other means, so the gradients agree to a few 1e-6 of each leaf's
@@ -1354,27 +1569,41 @@ def check_small_training(dev):
     and sits below the gap of each planted fault, read in the same run: a
     fault within the tolerance fails the check."""
     from flasht5_tpu_torch.config import FlashT5Config
-    from flasht5_tpu_torch.models import t5
 
-    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
-                        d_ff=256, num_layers=2, num_decoder_layers=2,
-                        dropout_rate=0.0, attention_scale=1.0,
-                        dtype="float32", attention_type="pallas_rpe",
-                        use_fused_layernorm=True, use_fused_crossentropy=True,
-                        z_loss=1e-4, pad_token_id=0)
-    cpu_params = t5.init_params(cfg, seed=5, device="cpu")
+    base = dict(vocab_size=512, d_model=128, d_kv=32, num_heads=4, d_ff=256,
+                num_layers=2, num_decoder_layers=2, dropout_rate=0.0,
+                attention_scale=1.0, dtype="float32",
+                use_fused_layernorm=True, use_fused_crossentropy=True,
+                z_loss=1e-4, pad_token_id=0)
     rng = np.random.default_rng(2)
     ids = torch.from_numpy(rng.integers(2, 512, (2, 96)).astype(np.int32))
     labels = torch.from_numpy(rng.integers(2, 512, (2, 40)).astype(np.int32))
     labels[:, -5:] = -100
+    mask = torch.ones(ids.shape, dtype=torch.bool)
+    mask[1, 70:] = False
+    _small_training_step(
+        dev, "pallas_rpe", FlashT5Config(**base, attention_type="pallas_rpe"),
+        dict(input_ids=ids, labels=labels), _training_faults())
+    _small_training_step(
+        dev, "pallas, use_masking", FlashT5Config(
+            **base, attention_type="pallas", use_masking=True,
+            use_full_bias_size=True),
+        dict(input_ids=torch.where(mask, ids, 0), attention_mask=mask,
+             labels=labels), _bias_training_faults())
+
+
+def _small_training_step(dev, tag, cfg, batch, faults):
+    from flasht5_tpu_torch.models import t5
+
+    cpu_params = t5.init_params(cfg, seed=5, device="cpu")
 
     def step(device):
         params = _to(copy.deepcopy(cpu_params), device)   # fresh leaves
         leaves = t5.tree_leaves_with_path(params)
         for _, p in leaves:
             p.requires_grad_(True)
-        loss = t5.forward(cfg, params, input_ids=ids.to(device),
-                          labels=labels.to(device))["loss"]
+        loss = t5.forward(cfg, params, **{k: v.to(device)
+                                          for k, v in batch.items()})["loss"]
         loss.backward()
         return float(loss.detach()), [(path, p.grad.cpu())
                                       for path, p in leaves]
@@ -1392,17 +1621,18 @@ def check_small_training(dev):
 
     got_loss, got = step(dev)
     worst, where = gap(got)
-    print(f"small-training: loss card {got_loss} cpu {want_loss}; "
+    print(f"small-training ({tag}): loss card {got_loss} cpu {want_loss}; "
           f"gradients card vs cpu: largest gap {worst} of the leaf's "
           f"largest entry, at {where} (tol {SMALL_GRAD_TOL})", flush=True)
     if not (abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
             and worst <= SMALL_GRAD_TOL):
-        raise AssertionError("tiny training step: card and cpu differ")
-    for name, fault in _training_faults():
+        raise AssertionError(f"tiny training step ({tag}): card and cpu "
+                             f"differ")
+    for name, fault in faults:
         with fault:
             fault_gap, fault_where = gap(step(dev)[1])
-        print(f"small-training: planted fault, {name}: gradients card vs "
-              f"cpu largest gap {fault_gap} at {fault_where} (tol "
+        print(f"small-training ({tag}): planted fault, {name}: gradients "
+              f"card vs cpu largest gap {fault_gap} at {fault_where} (tol "
               f"{SMALL_GRAD_TOL})", flush=True)
         if not fault_gap > SMALL_GRAD_TOL:
             raise AssertionError(f"planted fault ({name}) moves the "
@@ -1413,6 +1643,24 @@ def check_small_training(dev):
 # ---------------------------------------------------------------------------
 # training: the full-width FAT5-small train step through Trainer.train
 # ---------------------------------------------------------------------------
+
+def _kernels_by_name(fn):
+    """{kernel name: (device ms, launches)} of one profiled call of fn."""
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        # kernels only: a record_function range (the optimizer's step)
+        # also shows on the device's timeline, spanning its kernels
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
 
 def run_training(dev):
     """The training path: `Trainer(flagship_config(), ...).train(batches)`
@@ -1494,25 +1742,8 @@ def run_training(dev):
 
     # the kernels of one step by name and device time, and the optimizer's
     # launches alone
-    from torch.profiler import ProfilerActivity
-
-    def profiled(fn):
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            # kernels only: a record_function range (the optimizer's step)
-            # also shows on the device's timeline, spanning its kernels
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)):
-                t, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-        return by_name
-
-    by_name = profiled(lambda: trainer._step(db))
-    opt_kernels = profiled(trainer.optimizer.step)
+    by_name = _kernels_by_name(lambda: trainer._step(db))
+    opt_kernels = _kernels_by_name(trainer.optimizer.step)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     step["kernels_per_step"] = sum(n for _, n in by_name.values())
     step["kernel_ms_per_step"] = sum(t for t, _ in by_name.values())
@@ -1531,6 +1762,244 @@ def run_training(dev):
         peak_memory_bytes=peak, step=step,
         launches_per_step={k: n / 10 for k, n in median["launches"].items()})
     return median["launches"], result
+
+
+# ---------------------------------------------------------------------------
+# pretraining: the driver on configs/fr/fat5-fr-small.yaml at full width
+# ---------------------------------------------------------------------------
+
+PRETRAIN_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "fr", "fat5-fr-small.yaml")
+
+
+class StubTokenizer:
+    """The shape of FAT5's French tokenizer without its files (the YAML's
+    `tokenizer-flasht5-french` is not in the repository): 32,768 ids, pad 0,
+    eos 1, the task prefixes [R], [S] and [X] as ids 2-4, and 100 sentinels
+    at the top ids (<extra_id_0> = 32767, descending), as the collator reads
+    them."""
+    pad_token_id, eos_token_id = 0, 1
+    all_special_tokens = ([f"<extra_id_{i}>" for i in range(100)]
+                          + ["<pad>", "</s>"])
+    all_special_ids = [32767 - i for i in range(100)] + [0, 1]
+    _prefix = {"[R]": 2, "[S]": 3, "[X]": 4}
+
+    def __len__(self):
+        return 32768
+
+    def encode(self, text):
+        return [self._prefix[text], self.eos_token_id]
+
+
+def _synthetic_corpus(n_rows=2000, lo=300, hi=3000, seed=0):
+    """Pretokenized rows from the seed, in place of the YAML's `data/train`:
+    lengths uniform in [lo, hi], ids uniform over the ordinary vocabulary
+    (5 .. 32667), each row ending in eos."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, n_rows)
+    flat = rng.integers(5, 32768 - 100, int(lengths.sum()), dtype=np.int32)
+    rows = np.split(flat, np.cumsum(lengths)[:-1])
+    for row in rows:
+        row[-1] = 1
+    return [{"input_ids": row} for row in rows]
+
+
+def _state_tensors(trainer):
+    from flasht5_tpu_torch.models import t5
+    return ([p for _, p in t5.tree_leaves_with_path(trainer.params)]
+            + [t for st in trainer.optimizer.state_dict()["state"]
+               for t in st.values()])
+
+
+def _check_checkpoint(trainer, step_dir):
+    """Save and load times of the run's checkpoint, and the state a new
+    trainer restores from it: bit-equal to the saved trainer's, which
+    differs from the seed's initial parameters."""
+    from flasht5_tpu_torch.train import Trainer
+    from flasht5_tpu_torch.train.trainer import CHECKPOINT_FILE
+
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(trainer.step_num)      # the same state again
+    save_s = time.perf_counter() - t0
+    fresh = Trainer(trainer.config, trainer.tcfg, device=trainer.device)
+    changed = sum(not torch.equal(a, b) for a, b in zip(
+        _state_tensors(fresh), _state_tensors(trainer)))
+    t0 = time.perf_counter()
+    step = fresh.restore_checkpoint(step_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        _state_tensors(fresh), _state_tensors(trainer)))
+    info = dict(bytes=os.path.getsize(os.path.join(step_dir,
+                                                   CHECKPOINT_FILE)),
+                save_s=save_s, load_s=load_s, restored_step=step,
+                optimizer_step_count=fresh.optimizer.step_count,
+                tensors_changed_from_init=changed, restored_bit_equal=equal)
+    print(f"checkpoint {step_dir}: {json.dumps(info)}", flush=True)
+    if not (equal and changed and step == trainer.step_num
+            == fresh.optimizer.step_count):
+        raise AssertionError(f"checkpoint round trip: {info}")
+    return info
+
+
+def run_pretraining(dev):
+    """The pretraining driver: `train.cli.run` on configs/fr/fat5-fr-small.yaml
+    at full width (batch 64 x (1024 + 256), pallas attention on the bias
+    kernels), with only max_steps (4, then 8), save_steps (4), logging_steps
+    (1) and output_dir (a temporary directory) changed, a stub tokenizer and
+    ~2,000 synthetic rows from the seed. The second run must resume from
+    step 4 and take steps 5-8; every kernel of the path must launch in each
+    run (counts set to 0 just before, read just after), losses be finite,
+    and the checkpoint restore bit-equal. Then: tokens/s of each run's
+    steps after its first over a wall time read after a synchronize (the
+    trainer's logged rate reads its clock before a step's backward is done,
+    so it leads the card by up to one step), the collator's time a batch
+    and its non-pad share, a step's wall and device time, its kernels by
+    name, peak memory."""
+    import tempfile
+
+    from flasht5_tpu_torch import ops
+    from flasht5_tpu_torch.config import load_run_config
+    from flasht5_tpu_torch.train import cli
+
+    tok = StubTokenizer()
+    corpus = _synthetic_corpus()
+    yaml_cfg = load_run_config(PRETRAIN_YAML)
+    runs, total = [], {}
+    with tempfile.TemporaryDirectory(prefix="fat5-fr-small-") as out:
+        def run_cfg(max_steps):
+            return dict(yaml_cfg, training_args=dict(
+                yaml_cfg["training_args"], max_steps=max_steps, save_steps=4,
+                logging_steps=1, output_dir=out))
+
+        torch.cuda.reset_peak_memory_stats()
+        for max_steps in (4, 8):
+            first = max_steps - 3
+            lines, synced = [], {}
+
+            def log(entry, first=first, max_steps=max_steps, synced=synced):
+                # the trainer reads its clock once the step's loss is ready,
+                # before the step's backward has run on the card; the synced
+                # rate reads the clock after the first and the last step
+                # have run to their end (one collation then waits on the
+                # card instead of overlapping it)
+                if isinstance(entry, dict) and entry["step"] in (first,
+                                                                 max_steps):
+                    torch.cuda.synchronize()
+                    synced[entry["step"]] = time.perf_counter()
+                lines.append(entry)
+
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer, res = cli.run(run_cfg(max_steps), tok, corpus,
+                                   device=dev, log_fn=log)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            logs = [e for e in lines if isinstance(e, dict)]
+            said = [e for e in lines if isinstance(e, str)]
+            losses = [e["loss"] for e in logs]
+            synced_s = synced[max_steps] - synced[first]
+            print(f"pretraining run {len(runs) + 1} of 2 (max_steps "
+                  f"{max_steps}): {said}; steps {[e['step'] for e in logs]}; "
+                  f"losses {json.dumps(losses)}; tokens/s as logged "
+                  f"{json.dumps([e['tokens_per_sec'] for e in logs])}; "
+                  f"steps {first + 1}-{max_steps} in {synced_s:.4f} s between "
+                  f"synchronized clock readings; "
+                  f"{wall:.3f} s with set-up, collation and checkpoints; "
+                  f"launches {json.dumps(launches)}", flush=True)
+            missing = [name for name in PRETRAIN if launches[name] <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched while "
+                                     f"pretraining: {missing}")
+            resumed = [x for x in said if x.startswith("resuming from")]
+            if (not all(np.isfinite(losses))
+                    or [e["step"] for e in logs] != list(range(first,
+                                                               first + 4))
+                    or resumed != ([] if max_steps == 4 else [
+                        f"resuming from {os.path.join(out, 'step_4')}"])):
+                raise AssertionError(f"pretraining run to {max_steps}: "
+                                     f"{said} {logs}")
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            runs.append(dict(steps=[e["step"] for e in logs], losses=losses,
+                             tokens_per_s=[e["tokens_per_sec"] for e in logs],
+                             synced_steps=max_steps - first,
+                             synced_s=synced_s, seconds=wall,
+                             launches=launches))
+            if max_steps == 4:
+                checkpoint = _check_checkpoint(trainer,
+                                               os.path.join(out, "step_4"))
+                del trainer
+                torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+
+    # the collator alone, and what its batches hold
+    collator = cli.make_collator(run_cfg(8), tok, trainer.config)
+    batches = cli.batch_iterator(corpus, collator, collator.batch_size,
+                                 seed=1)
+    t0 = time.perf_counter()
+    sample = [next(batches) for _ in range(4)]
+    collate_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+    tokens_per_step = collator.batch_size * (collator.max_length
+                                             + collator.max_labels_length)
+    for r in runs:
+        r["tokens_per_s_synced"] = (r["synced_steps"] * tokens_per_step
+                                    / r["synced_s"])
+    print(f"tokens/s synced (the steps after each run's first, between "
+          f"clock readings taken after torch.cuda.synchronize()): "
+          f"{json.dumps([r['tokens_per_s_synced'] for r in runs])}",
+          flush=True)
+    shares = dict(
+        input_non_pad=float(np.mean([b["attention_mask"].mean()
+                                     for b in sample])),
+        label_non_pad=float(np.mean([(b["labels"] != -100).mean()
+                                     for b in sample])))
+    print(f"collator: {collate_ms:.3f} ms a batch of "
+          f"{collator.batch_size} x ({collator.max_length} + "
+          f"{collator.max_labels_length}); non-pad shares "
+          f"{json.dumps(shares)}", flush=True)
+
+    # one step's wall time (each ended by a synchronize), its device time
+    # (queued behind a sleep), and its kernels by name
+    db = trainer._device_batch(sample[0])
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer._step(db)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step = dict(wall_ms=sorted(walls)[1])
+    busys = []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * step["wall_ms"]
+                                                  + 5.0)))
+        start.record()
+        trainer._step(db)
+        end.record()
+        end.synchronize()
+        busys.append(start.elapsed_time(end))
+    step["device_ms"] = sum(busys) / len(busys)
+    step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+    by_name = _kernels_by_name(lambda: trainer._step(db))
+    step["kernels_per_step"] = sum(n for _, n in by_name.values())
+    step["kernel_ms_per_step"] = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    print(f"pretrain step: {json.dumps(step)} (wall: median of 3 steps; "
+          f"device: mean of 2 steps queued behind a sleep; kernels: one "
+          f"profiled step); peak memory {peak} B", flush=True)
+    print("profile of one pretrain step: " + json.dumps(
+        [{"name": name[:80], "ms": t, "launches": n}
+         for name, (t, n) in top]), flush=True)
+    result = dict(
+        batch=collator.batch_size, tokens_per_step=tokens_per_step,
+        runs=runs, checkpoint=checkpoint, collate_ms=collate_ms,
+        non_pad_shares=shares, step=step, peak_memory_bytes=peak,
+        corpus_rows=len(corpus),
+        corpus_tokens=int(sum(len(r["input_ids"]) for r in corpus)))
+    return total, result
 
 
 # ---------------------------------------------------------------------------
@@ -1560,6 +2029,15 @@ KERNELS = {
                                "flasht5_tpu_torch/csrc/"
                                "paged_decode_attention.cu",
                                "flasht5_tpu/inference/paged_kv.py:825"),
+    "flash_attention_bias": ("cuda",
+                             "flasht5_tpu_torch/csrc/flash_attention_bias.cu",
+                             "flasht5_tpu/ops/flash_attention.py:325"),
+    "flash_attention_bias_dkv": ("cuda", "flasht5_tpu_torch/csrc/"
+                                 "flash_attention_bias.cu",
+                                 "flasht5_tpu/ops/flash_attention.py:766"),
+    "flash_attention_bias_dq": ("cuda", "flasht5_tpu_torch/csrc/"
+                                "flash_attention_bias.cu",
+                                "flasht5_tpu/ops/flash_attention.py:798"),
 }
 # the kernels each path runs, and must launch in each of its runs
 SERVING = ("rms_norm", "flash_attention_rpe", "quant_matmul",
@@ -1568,6 +2046,12 @@ PAGED = ("rms_norm", "flash_attention_rpe", "quant_matmul",
          "paged_decode_attention")
 TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
             "flash_attention_bwd", "cross_entropy_fwd", "cross_entropy_bwd")
+# the pretraining driver on `pallas`: the bias kernels for self-attention,
+# the RPE kernels without a table for the cross-attention
+PRETRAIN = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
+            "flash_attention_bwd", "flash_attention_bias",
+            "flash_attention_bias_dkv", "flash_attention_bias_dq",
+            "cross_entropy_fwd", "cross_entropy_bwd")
 
 
 def main() -> int:
@@ -1597,7 +2081,7 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.3f} s", flush=True)
 
     checks = (check_kernels(dev) + check_paged_kernels(dev)
-              + check_training_kernels(dev))
+              + check_training_kernels(dev) + check_bias_kernels(dev))
     check_small_reference(dev)
     check_small_paged(dev)
     check_small_training(dev)
@@ -1605,6 +2089,8 @@ def main() -> int:
     paged_launches, paged = run_paged_engine(dev)
     torch.cuda.empty_cache()
     trained_launches, trained = run_training(dev)
+    torch.cuda.empty_cache()
+    pretrain_launches, pretrained = run_pretraining(dev)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -1617,10 +2103,12 @@ def main() -> int:
             by_path["paged"] = paged_launches[name]
         if name in TRAINING:
             by_path["training"] = trained_launches[name]
+        if name in PRETRAIN:
+            by_path["pretraining"] = pretrain_launches[name]
         # launches_by_path: each path's median run (the slot engine's, the
-        # paged engine's, the training loop's), counted from 0 just before
-        # it; launches: their
-        # sum over the paths that run the kernel
+        # paged engine's, the training loop's) or, for the pretraining
+        # driver, its two runs, each counted from 0 just before it;
+        # launches: their sum over the paths that run the kernel
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=sum(by_path.values()),
@@ -1631,6 +2119,7 @@ def main() -> int:
     print(json.dumps({"engine": served}))
     print(json.dumps({"paged_engine": paged}))
     print(json.dumps({"training": trained}))
+    print(json.dumps({"pretraining": pretrained}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,8 @@ import yaml
 
 # Canonical attention backends; the reference's names are accepted as aliases.
 #   "ref"               -> plain PyTorch attention (ops/attn_ref.py)
-#   "triton"/"fa2_bias" -> "pallas"      (materialized bias; not ported yet)
+#   "triton"/"fa2_bias" -> "pallas"      (the bias materialized and read by
+#                                         the Hopper bias kernels)
 #   "fa2_rpe"           -> "pallas_rpe"  (bias from the bucket table inside
 #                                         the Hopper kernel, linear memory)
 _ATTENTION_ALIASES = {
@@ -165,3 +166,13 @@ def flagship_config() -> FlashT5Config:
         use_fused_layernorm=True, use_fused_crossentropy=True,
         use_fused_lm_head_ce=False, z_loss=1e-4, label_smoothing=0.0,
         pad_token_id=0)
+
+
+def load_run_config(path: str) -> dict:
+    """A run's YAML in the reference's three-section layout: {"model_args",
+    "training_args", "collator_args"}, a missing section as {} (the JAX
+    package's `load_run_config`; reference train_flash_t5.py:32-65)."""
+    with open(path) as f:
+        cfg = yaml.safe_load(f) or {}
+    return {key: cfg.get(key, {}) for key in
+            ("model_args", "training_args", "collator_args")}

@@ -1,0 +1,147 @@
+// Flash attention with an additive bias tensor: the materialized T5 bias of
+// attention_type="pallas", with a padding mask folded in where use_masking
+// asks for it. Forward, and the backward's two kernels.
+//
+// Replaces the bias uses of flasht5_tpu/ops/flash_attention.py: the forward
+// _fwd_kernel (:90, pallas_call :325) with has_bias, the dK/dV + dbias kernel
+// _bwd_dkv_kernel (:395, pallas_call :766, want_dbias) and the dQ kernel
+// _bwd_dq_kernel (:561, pallas_call :798) given the bias. The three are
+// attention.cuh's fwd_kernel, dkdv_kernel and dq_kernel, the bodies the RPE
+// kernels run, on the bias source below (TensorBias).
+//
+// The bias is (B|1, H|1, M, N) f32 with a contiguous last axis, read through
+// its batch, head and row strides: a stride of 0 broadcasts that axis, so a
+// (1, H, M, N) bias is never expanded in memory. Every tile pair stages its
+// (64 x 64) block of the bias into shared memory with coalesced row reads,
+// in place of the RPE kernels' 127-entry window gathered from the table. The
+// block's row stride is 68 floats: the forward's and dQ's warps read 8 rows
+// of it at once, and 68 puts those rows in distinct banks.
+//
+// dbias: the dK/dV kernel writes dS (fp32) of every (batch, head, row, col)
+// into a (B, H, M, N) array, each tile from shared memory with coalesced row
+// writes and zeros for the tiles a causal mask skips; the wrapper sums it
+// over the bias's broadcast axes, as the TPU path does (:811-822).
+// Deterministic, no atomics.
+//
+// Bound on the H100, at the encoder's shape of the pretraining batch (B 64,
+// H 8, M = N = 1024, D 64): the forward does 4 B H M N D = 137 GFLOP over
+// ~0.3 GB, so operations bound it (0.14 ms at the bf16 tensor-core rate);
+// the dK/dV kernel does 8 B H M N D (QK^T, dO V^T, P^T dO, dS^T q) and the
+// dQ kernel 6 B H M N D. The per-batch dbias adds 2.1 GB of writes (and the
+// wrapper's reduction reads them again) that a (1, H, M, N) dbias does not
+// need. These first forms do the products on the CUDA cores in fp32, like
+// the RPE kernels; wgmma, and reducing dbias over the batch on chip, are
+// later work.
+
+#include "attention.cuh"
+
+using namespace ft5::attn;
+
+namespace {
+
+constexpr int kTileLd = kBN + 4;
+
+struct TensorBias {
+  const float* ptr;        // the bias
+  long long sb, sh, sm;    // element strides of batch, head, row (0 on a
+                           // broadcast axis); the last axis is contiguous
+  float* dbias;            // dK/dV: (B, H, M, N) f32, or null
+  const float* base;       // the (b, h) plane of the bias
+  float* db;               // the (b, h) plane of dbias
+  float* bt;               // shared: kBM x kTileLd, the tile pair's bias
+
+  __host__ int smem_floats(int) const { return kBM * kTileLd; }
+  __device__ void init(float* smem, int b, int h, int H, int M, int N) {
+    bt = smem;
+    base = ptr + b * sb + h * sh;
+    if (dbias) db = dbias + (static_cast<size_t>(b) * H + h) * M * N;
+  }
+  // entries outside [0, M) x [0, N) only meet masked scores
+  __device__ void stage(int i0, int j0, int M, int N) {
+    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
+      const int r = idx / kBN, c = idx - r * kBN;
+      const int row = i0 + r, col = j0 + c;
+      bt[r * kTileLd + c] =
+          (row < M && col < N) ? base[static_cast<long long>(row) * sm + col]
+                               : 0.f;
+    }
+  }
+  __device__ float at(int ii, int jj) const { return bt[ii * kTileLd + jj]; }
+  __device__ bool keeps_ds() const { return true; }
+  // the rows above i_begin see none of the tile's keys: their dS is 0
+  __device__ void skip(int i_begin, int j0, int, int N) {
+    for (int idx = threadIdx.x; idx < i_begin * kBN; idx += kThreads) {
+      const int row = idx / kBN, c = j0 + idx - row * kBN;
+      if (c < N) db[static_cast<size_t>(row) * N + c] = 0.f;
+    }
+  }
+  __device__ void sink(const float* ds_s, int i0, int j0, int M, int N) {
+    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
+      const int r = idx / kBN, c = idx - r * kBN;
+      if (i0 + r < M && j0 + c < N)
+        db[static_cast<size_t>(i0 + r) * N + j0 + c] = ds_s[r * kLd + c];
+    }
+  }
+  __device__ void finish(float*, size_t, int, int, int) {}
+};
+
+}  // namespace
+
+// q, dout (B,H,M,D) and k, v (B,H,N,D) in `dtype`, contiguous; bias f32 with
+// element strides bias_sb, bias_sh, bias_sm of its batch, head and row (0 on
+// a broadcast axis) and a contiguous last axis; o like q; lse, delta (B,H,M)
+// f32 (delta = rowsum(dout * o)); dq, dk, dv like q, k, v; dbias (B,H,M,N)
+// f32, contiguous.
+FT5_EXPORT int ft5_flash_attention_bias_fwd(
+    const void* q, const void* k, const void* v, const float* bias,
+    long long bias_sb, long long bias_sh, long long bias_sm, void* o,
+    float* lse, int B, int H, int M, int N, int D, float sm_scale, int causal,
+    int dtype, void* stream) {
+  const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, nullptr};
+  return dispatch(dtype, D, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(d)::value;
+    return launch(fwd_kernel<T, kD, TensorBias>, query_grid(B, H, M),
+                  fwd_smem_floats<kD>() + bv.smem_floats(M), stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), bv, static_cast<T*>(o), lse, H, M,
+                  N, sm_scale, causal);
+  });
+}
+
+FT5_EXPORT int ft5_flash_attention_bias_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const float* bias,
+    long long bias_sb, long long bias_sh, long long bias_sm, void* dk,
+    void* dv, float* dbias, int B, int H, int M, int N, int D,
+    float sm_scale, int causal, int dtype, void* stream) {
+  const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, dbias};
+  return dispatch(dtype, D, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(d)::value;
+    return launch(dkdv_kernel<T, kD, TensorBias>, key_grid(B, H, N),
+                  dkdv_smem_floats<kD>() + bv.smem_floats(M), stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+                  delta, bv, static_cast<T*>(dk), static_cast<T*>(dv), H, M,
+                  N, sm_scale, causal);
+  });
+}
+
+FT5_EXPORT int ft5_flash_attention_bias_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const float* bias,
+    long long bias_sb, long long bias_sh, long long bias_sm, void* dq, int B,
+    int H, int M, int N, int D, float sm_scale, int causal, int dtype,
+    void* stream) {
+  const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, nullptr};
+  return dispatch(dtype, D, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(d)::value;
+    return launch(dq_kernel<T, kD, TensorBias>, query_grid(B, H, M),
+                  dq_smem_floats<kD>() + bv.smem_floats(M), stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+                  delta, bv, static_cast<T*>(dq), H, M, N, sm_scale, causal);
+  });
+}

@@ -16,7 +16,14 @@ carries across one-to-one (convert/from_jax.py):
     lm_head
 
 Linear weights are stored (in, out), applied as `x @ W`. Only the T5
-relative bias is ported. Gradients come from autograd, through the kernels'
+relative bias is ported, on the three attention types: `ref` (plain
+attention on the materialized bias), `pallas` (the materialized bias through
+the bias kernels of `ops/flash_attention.py`) and `pallas_rpe` (the bucket
+table inside the RPE kernels). Block 0 builds the bias, or owns the table,
+and every later block reuses it, so the table's gradient sums every layer's.
+`use_full_bias_size` and `use_masking` behave as in the JAX package (the
+padding mask folded into the bias as query rows; on `pallas_rpe` the
+post-kernel select). Gradients come from autograd, through the kernels'
 backward where the path has one (`rms_norm`, attention, cross-entropy).
 Dropout draws from a `torch.Generator` the caller passes down; its bits are
 not the JAX package's.
@@ -34,6 +41,7 @@ from flasht5_tpu_torch.config import FlashT5Config
 from flasht5_tpu_torch.ops.attn_ref import attn_ref
 from flasht5_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
                                                  cross_entropy_loss_ref)
+from flasht5_tpu_torch.ops.flash_attention import flash_attention
 from flasht5_tpu_torch.ops.flash_attention_rpe import flash_attention_rpe
 from flasht5_tpu_torch.ops.quant import QuantizedTensor, quant_matmul
 from flasht5_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_ref
@@ -47,12 +55,15 @@ def check_supported(config: FlashT5Config) -> None:
         raise NotImplementedError(
             f"{config.position_encoding_type} position encoding is not "
             f"ported yet")
-    if config.attention_type == "pallas":
-        raise NotImplementedError("attention_type='pallas' is not ported yet")
+    if (config.use_randomized_position_encoding
+            and config.attention_type != "pallas_rpe"):
+        # the JAX package randomizes the materialized bias's positions
+        # whenever a training rng is passed (its t5.py:274-283)
+        raise NotImplementedError(
+            "use_randomized_position_encoding on the materialized-bias "
+            "paths ('ref', 'pallas') is not ported yet")
     if config.tp_axis is not None:
         raise NotImplementedError("tensor parallelism is not ported yet")
-    if config.use_masking:
-        raise NotImplementedError("use_masking is not ported yet")
     if config.use_fused_lm_head_ce:
         raise NotImplementedError(
             "use_fused_lm_head_ce (ops/fused_linear_ce.py) is not ported yet")
@@ -218,15 +229,44 @@ def _heads(y: torch.Tensor, n_heads: int, d_kv: int) -> torch.Tensor:
     return y.reshape(b, n, n_heads, d_kv).transpose(1, 2)
 
 
+def _fold_mask(bias: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The reference's fold of a padding mask into the bias
+    (modeling:266-270, JAX t5.py:394-403): a (B, N) mask becomes
+    (B, 1, N, 1), which for self-attention masks query rows."""
+    mm = mask[:, None]
+    if mm.dim() == 3:
+        mm = mm[..., None]
+    return torch.where(mm.bool(), bias, torch.finfo(bias.dtype).min)
+
+
+def _uniform_masked_rows(out: torch.Tensor, v: torch.Tensor,
+                         mask: torch.Tensor, causal: bool) -> torch.Tensor:
+    """`use_masking` on `pallas_rpe` (JAX t5.py:455-487): a masked query
+    row takes the uniform attention the reference's folded bias gives it,
+    the mean of V (the running mean under the causal mask), selected after
+    the kernel. Forward-exact; the q/k gradient of those rows is zeroed
+    where the reference propagates it (ROADMAP Queue 3)."""
+    if causal:
+        denom = torch.arange(1, v.shape[2] + 1, dtype=torch.float32,
+                             device=v.device)
+        uni = (torch.cumsum(v.float(), dim=2) / denom[:, None]).to(out.dtype)
+    else:
+        uni = v.float().mean(dim=2, keepdim=True).to(out.dtype)
+    return torch.where(mask.bool()[:, None, :, None], out, uni)
+
+
 def _attention(config: FlashT5Config, params: Params,
                hidden_states: torch.Tensor, *,
+               mask: Optional[torch.Tensor] = None,
                key_value_states: Optional[torch.Tensor] = None,
                position_bias: Optional[torch.Tensor] = None,
                has_pe: bool, is_causal: bool, bidirectional: bool,
                rpe_table: Optional[torch.Tensor] = None,
                deterministic: bool = True):
     """Multi-head attention (reference: modeling_flash_t5.py:232-294);
-    returns (output, position_bias) so the stack threads block 0's bias."""
+    returns (output, position_bias) so the stack threads block 0's bias.
+    `mask` is the padding mask of the queries' side (B, N), used only with
+    `use_masking`; cross-attention has no bias to fold it into."""
     b, m = hidden_states.shape[:2]
     kv_src = hidden_states if key_value_states is None else key_value_states
     dkv = config.d_kv
@@ -237,6 +277,17 @@ def _attention(config: FlashT5Config, params: Params,
     n = k.shape[2]
     pe_params = params.get("pe_encoding")
     scale = config.softmax_scale
+    if config.attention_type != "pallas_rpe":
+        if position_bias is None and has_pe and pe_params is not None:
+            position_bias = positional.t5_relative_bias(
+                pe_params, m, n, bidirectional=bidirectional,
+                num_buckets=config.relative_attention_num_buckets,
+                max_distance=config.relative_attention_max_distance)
+        if position_bias is not None and config.use_full_bias_size:
+            position_bias = position_bias.expand(b, h, m, n)
+        if position_bias is not None and mask is not None and \
+                config.use_masking:
+            position_bias = _fold_mask(position_bias, mask)
 
     if config.attention_type == "pallas_rpe":
         # every layer uses block 0's bucket table (T5 semantics,
@@ -250,15 +301,16 @@ def _attention(config: FlashT5Config, params: Params,
             bidirectional=bidirectional,
             num_buckets=config.relative_attention_num_buckets,
             max_distance=config.relative_attention_max_distance)
+        if (config.use_masking and mask is not None and mask.dim() == 2
+                and key_value_states is None):
+            out = _uniform_masked_rows(out, v, mask, is_causal)
+    elif config.attention_type == "pallas":
+        out = flash_attention(q, k, v, position_bias, causal=is_causal,
+                              sm_scale=scale)
     else:
         if not deterministic and config.attention_dropout_rate > 0.0:
             raise NotImplementedError(
                 "attention dropout on the ref path is not ported yet")
-        if position_bias is None and has_pe and pe_params is not None:
-            position_bias = positional.t5_relative_bias(
-                pe_params, m, n, bidirectional=bidirectional,
-                num_buckets=config.relative_attention_num_buckets,
-                max_distance=config.relative_attention_max_distance)
         out = attn_ref(q, k, v, position_bias, sm_scale=scale,
                        causal=is_causal)
     out = out.transpose(1, 2).reshape(b, m, h * dkv)
@@ -267,7 +319,8 @@ def _attention(config: FlashT5Config, params: Params,
 
 def _block_apply(config: FlashT5Config, block_params: Params,
                  hidden_states: torch.Tensor, *, is_decoder: bool,
-                 has_pe: bool, position_bias=None, encoder_hidden_states=None,
+                 has_pe: bool, attention_mask=None, position_bias=None,
+                 encoder_hidden_states=None, encoder_attention_mask=None,
                  rpe_table=None, generator=None, deterministic=True):
     def drop(t):
         return _dropout(generator, config.dropout_rate, t, deterministic)
@@ -275,15 +328,17 @@ def _block_apply(config: FlashT5Config, block_params: Params,
     sa = block_params["self_attention_layer"]
     normed = _layer_norm(config, sa["layer_norm"]["weight"], hidden_states)
     attn_out, position_bias = _attention(
-        config, sa["self_attention"], normed, position_bias=position_bias,
-        has_pe=has_pe, is_causal=is_decoder, bidirectional=not is_decoder,
-        rpe_table=rpe_table, deterministic=deterministic)
+        config, sa["self_attention"], normed, mask=attention_mask,
+        position_bias=position_bias, has_pe=has_pe, is_causal=is_decoder,
+        bidirectional=not is_decoder, rpe_table=rpe_table,
+        deterministic=deterministic)
     hidden_states = hidden_states + drop(attn_out)
     if is_decoder and encoder_hidden_states is not None:
         ca = block_params["cross_attention_layer"]
         normed = _layer_norm(config, ca["layer_norm"]["weight"], hidden_states)
         attn_out, _ = _attention(
             config, ca["cross_attention"], normed,
+            mask=encoder_attention_mask,
             key_value_states=encoder_hidden_states, has_pe=False,
             is_causal=False, bidirectional=True, deterministic=deterministic)
         hidden_states = hidden_states + drop(attn_out)
@@ -297,15 +352,14 @@ def stack_apply(config: FlashT5Config, stack_params: Params,
                 is_decoder: bool,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
+                encoder_attention_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = True) -> torch.Tensor:
     """Embed + N blocks + final norm (reference: modeling_flash_t5.py:410-464).
 
-    Block 0 owns the positional encoding; its bias (the `ref` path) or its
-    bucket table (the `pallas_rpe` path) applies in every block.
-    `attention_mask` is accepted and ignored: the JAX package applies it only
-    through `use_masking`, which `check_supported` refuses."""
-    del attention_mask
+    Block 0 owns the positional encoding; its bias (`ref`, `pallas`) or its
+    bucket table (`pallas_rpe`) applies in every block. The masks act only
+    through `use_masking`, as in the JAX package."""
     check_supported(config)
     x = embedding[input_ids.long()].to(runtime.torch_dtype(config.dtype))
     x = _dropout(generator, config.dropout_rate, x, deterministic)
@@ -319,8 +373,10 @@ def stack_apply(config: FlashT5Config, stack_params: Params,
     for i, block_params in enumerate(stack_params["block"]):
         x, position_bias = _block_apply(
             config, block_params, x, is_decoder=is_decoder, has_pe=(i == 0),
-            position_bias=position_bias,
-            encoder_hidden_states=encoder_hidden_states, rpe_table=rpe_table,
+            attention_mask=attention_mask, position_bias=position_bias,
+            encoder_hidden_states=encoder_hidden_states,
+            encoder_attention_mask=encoder_attention_mask,
+            rpe_table=rpe_table,
             generator=generator, deterministic=deterministic)
     x = _layer_norm(config, stack_params["final_layer_norm"]["weight"], x)
     return _dropout(generator, config.dropout_rate, x, deterministic)
@@ -367,8 +423,8 @@ def encode(config: FlashT5Config, params: Params, input_ids: torch.Tensor,
            attention_mask: Optional[torch.Tensor] = None, *,
            generator: Optional[torch.Generator] = None,
            deterministic: bool = True) -> torch.Tensor:
-    """Encoder hidden states (B, S, d_model). `attention_mask` is ignored
-    unless `use_masking`, which is not ported yet (as in the JAX package)."""
+    """Encoder hidden states (B, S, d_model). `attention_mask` acts only
+    through `use_masking` (as in the JAX package)."""
     return stack_apply(config, params["encoder"],
                        params["shared"]["embedding"], input_ids,
                        is_decoder=False, attention_mask=attention_mask,
@@ -398,6 +454,7 @@ def forward(config: FlashT5Config, params: Params,
                       params["shared"]["embedding"], decoder_input_ids,
                       is_decoder=True, attention_mask=decoder_attention_mask,
                       encoder_hidden_states=encoder_hidden_states,
+                      encoder_attention_mask=attention_mask,
                       generator=generator, deterministic=deterministic)
     if config.tie_word_embeddings:
         lm_logits = _matmul(dec, params["shared"]["embedding"].t())
@@ -423,6 +480,7 @@ def model_forward(config: FlashT5Config, params: Params,
     dec = stack_apply(config, params["decoder"],
                       params["shared"]["embedding"], decoder_input_ids,
                       is_decoder=True, attention_mask=decoder_attention_mask,
-                      encoder_hidden_states=enc, generator=generator,
-                      deterministic=deterministic)
+                      encoder_hidden_states=enc,
+                      encoder_attention_mask=attention_mask,
+                      generator=generator, deterministic=deterministic)
     return {"last_hidden_state": dec, "encoder_last_hidden_state": enc}

@@ -6,7 +6,9 @@ version for CPU tensors, and counts its launches in a `.launches` integer.
 - rmsnorm:             RMS norm forward and backward (Triton)
 - flash_attention_rpe: attention with the T5 bias from the bucket table, or
                        none, forward and backward (CUDA)
-- flash_attention:     the no-bias attention of the decoder's cross-attention
+- flash_attention:     attention with an additive bias tensor (the
+                       materialized T5 bias), forward, dK/dV + dbias and dQ
+                       (CUDA); without a bias, the RPE kernels given no table
 - cross_entropy:       cross-entropy with z-loss, forward and backward (Triton)
 - quant:               INT8/FP8 weight-only dequant matmul (CUDA)
 - decode_attention:    single-query attention over int8/bf16/f32 caches (CUDA)
@@ -16,8 +18,8 @@ version for CPU tensors, and counts its launches in a `.launches` integer.
 """
 
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
-                                   flash_attention_rpe, paged_attention,
-                                   quant, rmsnorm)
+                                   flash_attention, flash_attention_rpe,
+                                   paged_attention, quant, rmsnorm)
 
 # name -> the wrapper that launches (and counts) the kernel
 KERNELS = {
@@ -25,6 +27,9 @@ KERNELS = {
     "rms_norm_bwd": rmsnorm.rms_norm_bwd,
     "flash_attention_rpe": flash_attention_rpe.flash_attention_rpe_fwd,
     "flash_attention_bwd": flash_attention_rpe.flash_attention_bwd,
+    "flash_attention_bias": flash_attention.flash_attention_bias_fwd,
+    "flash_attention_bias_dkv": flash_attention.flash_attention_bias_dkv,
+    "flash_attention_bias_dq": flash_attention.flash_attention_bias_dq,
     "cross_entropy_fwd": cross_entropy.cross_entropy_fwd,
     "cross_entropy_bwd": cross_entropy.cross_entropy_bwd,
     "quant_matmul": quant.quant_matmul,

@@ -49,21 +49,18 @@ def _visible(m_len, n_len, causal, device):
     return col <= row + (n_len - m_len)
 
 
-def flash_attention_rpe_plain(q, k, v, rpe_weights, *, causal=False,
-                              sm_scale=1.0, bidirectional=True,
-                              num_buckets=32, max_distance=128):
-    """The forward kernel's function in plain PyTorch: (o in q.dtype, fp32
-    lse). `rpe_weights=None` adds no bias.
+def attention_plain(q, k, v, bias, *, causal=False, sm_scale=1.0):
+    """The forward kernels' function in plain PyTorch: (o in q.dtype, fp32
+    lse). `bias` is an fp32 tensor broadcastable to (B, H, M, N), or 0.0.
 
-    Mirrors the TPU kernel's rounding points: products of the input values
+    Mirrors the TPU kernels' rounding points: products of the input values
     summed in fp32, the bias added in fp32, softmax in fp32, P rounded to
     v's dtype before the PV product, O rounded once. Causal masking is
     bottom-right aligned; a row with no visible key gives 0 and lse -1e30.
     """
     m_len, n_len = q.shape[2], k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    s = s + _bias(rpe_weights, m_len, n_len, bidirectional, num_buckets,
-                  max_distance)
+    s = s + bias
     mask = _visible(m_len, n_len, causal, q.device)
     s = torch.where(mask, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -75,6 +72,17 @@ def flash_attention_rpe_plain(q, k, v, rpe_weights, *, causal=False,
     o = (pv / l_safe).to(q.dtype)
     lse = torch.where(l > 0.0, m_safe + torch.log(l_safe), _NEG_INF)
     return o, lse[..., 0]
+
+
+def flash_attention_rpe_plain(q, k, v, rpe_weights, *, causal=False,
+                              sm_scale=1.0, bidirectional=True,
+                              num_buckets=32, max_distance=128):
+    """The forward kernel's function in plain PyTorch (`attention_plain`
+    with the bias gathered from the table): (o in q.dtype, fp32 lse).
+    `rpe_weights=None` adds no bias."""
+    bias = _bias(rpe_weights, q.shape[2], k.shape[2], bidirectional,
+                 num_buckets, max_distance)
+    return attention_plain(q, k, v, bias, causal=causal, sm_scale=sm_scale)
 
 
 def flash_attention_bwd_plain(q, k, v, rpe_weights, lse, delta, do, *,
@@ -118,11 +126,20 @@ def flash_attention_dw_abs_plain(q, k, v, rpe_weights, lse, delta, do, *,
 
 def _scores_grad_plain(q, k, v, rpe_weights, lse, delta, do, causal,
                        sm_scale, bidirectional, num_buckets, max_distance):
-    """P and dS = P (dO v^T - delta) in fp32, (B, H, M, N) each."""
+    bias = _bias(rpe_weights, q.shape[2], k.shape[2], bidirectional,
+                 num_buckets, max_distance)
+    return scores_grad_plain(q, k, v, bias, lse, delta, do, causal=causal,
+                             sm_scale=sm_scale)
+
+
+def scores_grad_plain(q, k, v, bias, lse, delta, do, *, causal=False,
+                      sm_scale=1.0):
+    """P and dS = P (dO v^T - delta) in fp32, (B, H, M, N) each, with P
+    recomputed from the forward's lse as the backward kernels do. `bias` is
+    an fp32 tensor broadcastable to (B, H, M, N), or 0.0."""
     m_len, n_len = q.shape[2], k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    s = s + _bias(rpe_weights, m_len, n_len, bidirectional, num_buckets,
-                  max_distance)
+    s = s + bias
     lse4 = lse[..., None]
     ok = _visible(m_len, n_len, causal, q.device) & (lse4 > _NEG_INF / 2)
     p = torch.where(ok, torch.exp(s - torch.where(ok, lse4, 0.0)), 0.0)

@@ -66,6 +66,28 @@ class AdamWScale(torch.optim.Optimizer):
         self.step_count = 0
         self._sqrt_numel = {}
 
+    def state_dict(self) -> dict:
+        """The step count and each parameter's state (m, v and, where kept,
+        the Kahan compensation), parameters in the groups' order."""
+        return {"step_count": self.step_count,
+                "state": [dict(self.state[p]) for group in self.param_groups
+                          for p in group["params"]]}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restores `state_dict()` in place, in the dtypes this optimizer
+        keeps (torch's own loader would cast the state to each parameter's
+        dtype, which `state_dtype` may differ from)."""
+        params = [p for group in self.param_groups for p in group["params"]]
+        if len(params) != len(state_dict["state"]):
+            raise ValueError(f"optimizer state for {len(state_dict['state'])}"
+                             f" parameters, this optimizer has {len(params)}")
+        for p, saved in zip(params, state_dict["state"]):
+            if saved:
+                state = self._state(p)
+                for key, value in saved.items():
+                    state[key].copy_(value)
+        self.step_count = int(state_dict["step_count"])
+
     def lr_at(self, step: int) -> float:
         return self.lr(step) if callable(self.lr) else self.lr
 

@@ -3,18 +3,22 @@
 The counterpart of `flasht5_tpu/train/trainer.py`: the same `TrainerConfig`
 fields, the same step (forward with the loss, backward, optional clipping by
 the global gradient norm, the AdamWScale update with the no-decay grouping),
-the same token count and logged fields, masked-accuracy evaluation and the
-callback hooks. The step runs eagerly on the card through the port's
-kernels; autograd replaces `jax.value_and_grad`.
+the same token count and logged fields, masked-accuracy evaluation, the
+callback hooks, and checkpoints with resume: every `save_steps` steps (and
+on KeyboardInterrupt) `output_dir/step_<n>/checkpoint.pt` in `torch.save`
+format, where the JAX package writes Orbax, with `config.json` and a
+`train_log.jsonl` beside them. The step runs eagerly on the card through the
+port's kernels; autograd replaces `jax.value_and_grad`.
 
 Not ported yet, and refused with NotImplementedError: data, tensor and
-pipeline parallelism (`parallel/`), gradient accumulation, and checkpoints
-(`save_steps > 0`).
+pipeline parallelism (`parallel/`) and gradient accumulation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
@@ -72,9 +76,9 @@ def _refuse_unported(tcfg: TrainerConfig) -> None:
                                       f"not ported yet")
     if tcfg.gradient_accumulation_steps > 1:
         raise NotImplementedError("gradient accumulation is not ported yet")
-    if tcfg.save_steps:
-        raise NotImplementedError("checkpoints (save_steps > 0) are not "
-                                  "ported yet")
+
+
+CHECKPOINT_FILE = "checkpoint.pt"
 
 
 class Trainer:
@@ -160,6 +164,71 @@ class Trainer:
         self.optimizer.step()
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
+    # -- checkpoints -------------------------------------------------------
+
+    def save_checkpoint(self, step: int) -> str:
+        """Write `output_dir/step_<step>/checkpoint.pt` (the parameters, the
+        AdamWScale state and the step, `torch.save`) and the model's
+        `output_dir/config.json`; returns the step directory."""
+        path = os.path.abspath(os.path.join(self.tcfg.output_dir,
+                                            f"step_{step}"))
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+        torch.save({"params": _tree_map(torch.Tensor.detach, self.params),
+                    "opt_state": self.optimizer.state_dict(),
+                    "step": step}, tmp)
+        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+        with open(os.path.join(self.tcfg.output_dir, "config.json"), "w") as f:
+            f.write(self.config.to_json())
+        return path
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Load a `save_checkpoint` directory into this trainer's parameters
+        and optimizer, in place; returns the restored step."""
+        ckpt = torch.load(os.path.join(path, CHECKPOINT_FILE),
+                          map_location=self.device, weights_only=True)
+        saved = t5.tree_leaves_with_path(ckpt["params"])
+        mine = t5.tree_leaves_with_path(self.params)
+        if [p for p, _ in saved] != [p for p, _ in mine]:
+            raise ValueError(f"{path}: the checkpoint's parameter tree is "
+                             f"not this model's")
+        with torch.no_grad():
+            for (_, dst), (_, src) in zip(mine, saved):
+                dst.copy_(src)
+        self.optimizer.load_state_dict(ckpt["opt_state"])
+        self.step_num = int(ckpt["step"])
+        return self.step_num
+
+    @staticmethod
+    def latest_checkpoint(output_dir: str) -> Optional[str]:
+        """The `step_<n>` directory of the largest n in `output_dir` that
+        holds a finished checkpoint, or None (the JAX package's glob,
+        examples/minipile/train_fat5_minipile.py:115-116 in the reference).
+        A save cut short leaves only `checkpoint.pt.tmp` in its directory,
+        which is passed over."""
+        if not os.path.isdir(output_dir):
+            return None
+        steps = [int(name[5:]) for name in os.listdir(output_dir)
+                 if name.startswith("step_") and name[5:].isdigit()
+                 and os.path.isfile(os.path.join(output_dir, name,
+                                                 CHECKPOINT_FILE))]
+        if not steps:
+            return None
+        return os.path.join(output_dir, f"step_{max(steps)}")
+
+    # -- loops ---------------------------------------------------------------
+
+    def _jsonl_logger(self) -> Callable[[Dict], None]:
+        """Append each logged entry to `output_dir/train_log.jsonl`."""
+        os.makedirs(self.tcfg.output_dir, exist_ok=True)
+        path = os.path.join(self.tcfg.output_dir, "train_log.jsonl")
+
+        def log(entry):
+            with open(path, "a") as f:
+                f.write(json.dumps(entry) + "\n")
+
+        return log
+
     def _dispatch(self, hook: str, *args) -> None:
         for cb in self.callbacks:
             getattr(cb, hook)(self, *args)
@@ -169,32 +238,46 @@ class Trainer:
         logs = []
         tokens_seen = 0
         t_start = time.perf_counter()
+        save_steps = self.tcfg.save_steps
+        jsonl = self._jsonl_logger() if save_steps else None
         self._dispatch("on_train_begin")
-        for batch in train_iter:
-            if self.step_num >= self.tcfg.max_steps:
-                break
-            metrics = self._step(self._device_batch(batch))
-            self.step_num += 1
-            tokens_seen += int(np.prod(np.shape(batch["input_ids"]))) + \
-                int(np.prod(np.shape(batch["labels"])))
+        try:
+            for batch in train_iter:
+                if self.step_num >= self.tcfg.max_steps:
+                    break
+                metrics = self._step(self._device_batch(batch))
+                self.step_num += 1
+                tokens_seen += int(np.prod(np.shape(batch["input_ids"]))) + \
+                    int(np.prod(np.shape(batch["labels"])))
 
-            if self.step_num % self.tcfg.logging_steps == 0 or \
-                    self.step_num == self.tcfg.max_steps:
-                dt = time.perf_counter() - t_start
-                entry = {"step": self.step_num,
-                         "loss": float(metrics["loss"]),
-                         "grad_norm": float(metrics["grad_norm"]),
-                         "tokens_per_sec": tokens_seen / max(dt, 1e-9)}
-                self._dispatch("on_log", entry)
-                logs.append(entry)
-                if log_fn:
-                    log_fn(entry)
+                if self.step_num % self.tcfg.logging_steps == 0 or \
+                        self.step_num == self.tcfg.max_steps:
+                    dt = time.perf_counter() - t_start
+                    entry = {"step": self.step_num,
+                             "loss": float(metrics["loss"]),
+                             "grad_norm": float(metrics["grad_norm"]),
+                             "tokens_per_sec": tokens_seen / max(dt, 1e-9)}
+                    self._dispatch("on_log", entry)
+                    logs.append(entry)
+                    if log_fn:
+                        log_fn(entry)
+                    if jsonl:
+                        jsonl(entry)
 
-            if (self.tcfg.eval_steps and eval_iter is not None
-                    and self.step_num % self.tcfg.eval_steps == 0):
-                ev = {"step": self.step_num, **self.evaluate(eval_iter)}
-                self._dispatch("on_eval", ev)
-                logs.append(ev)
+                if (self.tcfg.eval_steps and eval_iter is not None
+                        and self.step_num % self.tcfg.eval_steps == 0):
+                    ev = {"step": self.step_num, **self.evaluate(eval_iter)}
+                    self._dispatch("on_eval", ev)
+                    logs.append(ev)
+
+                if save_steps and self.step_num % save_steps == 0:
+                    self._dispatch("on_save",
+                                   self.save_checkpoint(self.step_num))
+        except KeyboardInterrupt:
+            # keep the latest state before the interrupt propagates
+            if save_steps:
+                self.save_checkpoint(self.step_num)
+            raise
         result = {"final_step": self.step_num, "logs": logs}
         self._dispatch("on_train_end", result)
         return result

@@ -25,7 +25,9 @@ each output (the kernels sum over up to 1024 keys or rows, and dW over
 millions of scores, in another order than the plain version); in bf16, P and
 dS are rounded to bf16 at values that may differ by an f32 ulp, so 3e-2 of
 the largest entry. dW and the rms_norm weight gradient are fp32 sums in both
-dtypes: 1e-3 of the largest entry.
+dtypes: 1e-3 of the largest entry. The bias kernels' dbias is dS itself, in
+fp32 for both input types, summed over the bias's broadcast axes by the same
+PyTorch sum on both sides: 1e-3 of its largest entry.
 """
 
 import pytest
@@ -33,8 +35,8 @@ import torch
 
 from flasht5_tpu_torch.inference import paged_kv
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
-                                   flash_attention_rpe, paged_attention,
-                                   quant, rmsnorm)
+                                   flash_attention, flash_attention_rpe,
+                                   paged_attention, quant, rmsnorm)
 
 pytestmark = pytest.mark.cuda
 
@@ -316,3 +318,124 @@ def test_cross_entropy_kernels(dev, rows, v, dtype, smoothing):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert torch.all(got[::7] == 0)
+
+
+# bias shapes: per head, per batch and head, one for all, per batch, and a
+# (1, H, M, N) bias expanded to (B, H, M, N) with stride 0 (use_full_bias_size)
+_BIAS_FORMS = {"1h": (1, 4), "bh": (2, 4), "11": (1, 1), "b1": (2, 1),
+               "expanded": (1, 4)}
+
+
+def _bias_inputs(dev, m_len, n_len, d, dtype, form, masked_rows=False):
+    q, do = (torch.randn((2, 4, m_len, d), device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((2, 4, n_len, d), device=dev).to(dtype)
+            for _ in range(2))
+    bias = torch.randn((*_BIAS_FORMS[form], m_len, n_len), device=dev)
+    if form == "expanded":
+        bias = bias.expand(2, -1, -1, -1)
+    if masked_rows:     # use_masking's fold, then the wrapper's clamp
+        rows = torch.zeros((2, 1, m_len, 1), dtype=torch.bool, device=dev)
+        rows[0, 0, 3] = rows[1, 0, m_len // 2:] = True
+        bias = torch.where(rows, -1e29, bias)
+    return q, k, v, bias, do
+
+
+@pytest.mark.parametrize("form", list(_BIAS_FORMS))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("m_len,n_len,d", [(77, 77, 32), (100, 300, 64),
+                                           (300, 100, 64), (130, 70, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bias_kernels(dev, form, causal, m_len, n_len, d,
+                                      dtype):
+    q, k, v, bias, do = _bias_inputs(dev, m_len, n_len, d, dtype, form)
+    kw = dict(causal=causal, sm_scale=d ** -0.5)
+    o, lse = flash_attention.flash_attention_bias_fwd(q, k, v, bias, **kw)
+    o0, lse0 = flash_attention.flash_attention_bias_plain(q, k, v, bias, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, lse, delta, do)
+    dk, dv, dbias = flash_attention.flash_attention_bias_dkv(*args, **kw)
+    dk0, dv0, dbias0 = flash_attention.flash_attention_bias_dkv_plain(*args,
+                                                                      **kw)
+    dq = flash_attention.flash_attention_bias_dq(*args, **kw)
+    dq0 = flash_attention.flash_attention_bias_dq_plain(*args, **kw)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for g, g0 in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert g.dtype == dtype
+        _close_to_max(g, g0, tol)
+    assert dbias.dtype == torch.float32 and dbias.shape == dbias0.shape
+    assert dbias.shape == (2 if form in ("bh", "b1", "expanded") else 1,
+                           1 if form in ("11", "b1") else 4, m_len, n_len)
+    _close_to_max(dbias, dbias0, 1e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bias_masked_rows(dev, causal):
+    """Rows whose bias is -1e29 throughout (use_masking's padded queries
+    after the clamp) attend uniformly, and the kernels recompute P = 1
+    there from the absorbed lse, as the plain versions do."""
+    q, k, v, bias, do = _bias_inputs(dev, 96, 96, 64, torch.float32, "bh",
+                                     masked_rows=True)
+    kw = dict(causal=causal, sm_scale=1.0)
+    o, lse = flash_attention.flash_attention_bias_fwd(q, k, v, bias, **kw)
+    o0, lse0 = flash_attention.flash_attention_bias_plain(q, k, v, bias, **kw)
+    torch.testing.assert_close(o, o0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+    if not causal:     # uniform: the mean of V
+        torch.testing.assert_close(o[0, :, 3], v[0].mean(1), rtol=1e-4,
+                                   atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, lse, delta, do)
+    got = flash_attention.flash_attention_bias_dkv(*args, **kw) + (
+        flash_attention.flash_attention_bias_dq(*args, **kw),)
+    want = flash_attention.flash_attention_bias_dkv_plain(*args, **kw) + (
+        flash_attention.flash_attention_bias_dq_plain(*args, **kw),)
+    for g, g0 in zip(got, want):
+        _close_to_max(g, g0, 1e-3)
+
+
+def test_flash_attention_bias_is_deterministic(dev):
+    q, k, v, bias, do = _bias_inputs(dev, 256, 256, 64, torch.bfloat16, "1h")
+    o, lse = flash_attention.flash_attention_bias_fwd(q, k, v, bias)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [flash_attention.flash_attention_bias_dkv(q, k, v, bias, lse,
+                                                     delta, do)
+            for _ in range(3)]
+    for r in runs[1:]:
+        for a, b in zip(r, runs[0]):
+            assert torch.equal(a, b)
+
+
+def test_flash_attention_with_bias_end_to_end(dev):
+    """The differentiable `flash_attention` on the card against the same
+    call on the CPU (the plain versions), bias clamped and differentiated."""
+    q, k, v, bias, do = _bias_inputs(dev, 128, 200, 64, torch.float32, "1h")
+    bias = bias.clone()
+    bias[0, 0, 5] = torch.finfo(torch.float32).min
+    grads = []
+    for device in (dev, "cpu"):
+        ts = [t.detach().to(device).requires_grad_(True)
+              for t in (q, k, v, bias)]
+        o = flash_attention.flash_attention(*ts, causal=True, sm_scale=0.5)
+        o.backward(do.to(device))
+        grads.append([o.detach().cpu()] + [t.grad.cpu() for t in ts])
+    for g, g0 in zip(*grads):
+        _close_to_max(g, g0, 1e-3)
+    assert torch.all(grads[0][4][0, 0, 5] == 0)   # clamped: no gradient
+
+
+def test_flash_attention_bias_refuses_what_it_does_not_take(dev):
+    q, k, v, bias, do = _bias_inputs(dev, 64, 64, 64, torch.float32, "1h")
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention.flash_attention_bias_fwd(q, k, v, bias[:, :, :32])
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention.flash_attention_bias_fwd(
+            q, k, v, torch.zeros((1, 3, 64, 64), device=dev))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention.flash_attention_bias_fwd(q, k, v, bias.cpu())
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_bias_fwd(q.half(), k.half(), v.half(),
+                                                 bias)

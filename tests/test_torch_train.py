@@ -328,7 +328,7 @@ def test_trainer_refuses_what_is_not_ported():
             Trainer(cfg, TrainerConfig())
     for kw in (dict(data_parallel=2), dict(tensor_parallel=2),
                dict(pipeline_parallel=2),
-               dict(gradient_accumulation_steps=2), dict(save_steps=5)):
+               dict(gradient_accumulation_steps=2)):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, TrainerConfig(**kw), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -342,15 +342,12 @@ def test_trainer_refuses_what_is_not_ported():
 # the original PyTorch FAT5 goldens through the port's forward
 # ---------------------------------------------------------------------------
 
-# ref_t5_masking waits for use_masking, which the port refuses; the other
-# T5 goldens run here (the RoPE, ALiBi and FIRE ones wait for their
-# positional encodings). Tolerances are those of tests/test_golden_reference.py
-# (ref: 1e-4 on hidden states and logits, 2e-5 on the loss; the kernel
-# path: 5e-4 and 1e-4).
-T5_GOLDENS = sorted(
-    p for p in glob.glob(os.path.join(os.path.dirname(__file__), "golden",
-                                      "ref_t5_*.npz"))
-    if not p.endswith("masking.npz"))
+# The T5 goldens, ref_t5_masking among them, run here on all three attention
+# paths (the RoPE, ALiBi and FIRE ones wait for their positional encodings).
+# Tolerances are those of tests/test_golden_reference.py (ref: 1e-4 on hidden
+# states and logits, 2e-5 on the loss; the kernel paths: 5e-4 and 1e-4).
+T5_GOLDENS = sorted(glob.glob(os.path.join(os.path.dirname(__file__),
+                                           "golden", "ref_t5_*.npz")))
 
 
 def _load(path):
@@ -363,13 +360,17 @@ def _load(path):
     return cfg, sd, z
 
 
-@pytest.mark.parametrize("attention", ["ref", "pallas_rpe"])
+@pytest.mark.parametrize("attention", ["ref", "pallas", "pallas_rpe"])
 @pytest.mark.parametrize("path", T5_GOLDENS,
                          ids=[os.path.basename(p)[4:-4] for p in T5_GOLDENS])
 def test_goldens_through_the_port(path, attention):
     cfg_json, sd, z = _load(path)
+    # use_masking asks for use_full_bias_size, as
+    # tests/test_golden_reference.py:98 sets it on pallas_rpe
     d = dict(cfg_json, dtype="float32", param_dtype="float32",
-             attention_type=attention)
+             attention_type=attention,
+             use_full_bias_size=bool(cfg_json.get("use_full_bias_size")
+                                     or cfg_json.get("use_masking")))
     cfg = FlashT5Config.from_dict(d)
     params = params_from_numpy(
         _numpy_tree(state_dict_to_params(sd, dtype=jnp.float32)),
