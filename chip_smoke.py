@@ -10,26 +10,30 @@ of JAX. In order:
 2. builds the CUDA kernels from `flasht5_tpu_torch/csrc/` (one `nvcc` per
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the full-width serving engine, train step and pretraining driver
-   give it, and times
+   shapes the full-width serving engine, train step, pretraining driver
+   and scoring path give it, and times
    the kernel, the plain version and, where one exists, the one PyTorch
    call that computes the same function (`library_ms`, a yardstick the port
-   never calls); each output is held entry by entry to a stated limit, and
+   never calls; for the fused lm_head+CE kernels the two calls F.linear
+   and F.cross_entropy, with the port's own unfused path beside them);
+   each output is held entry by entry to a stated limit, and
    faults planted in the attention backward (the bucket one above), the
    cross-entropy backward (its small entries flushed or doubled), the
-   paged decode attention (two pages swapped, a length one short) and the
+   paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
-   as well as the batch) must fall beyond it;
+   as well as the batch) and the fused lm_head+CE kernels (the last vocab
+   split dropped from the merge; the z-loss term left out of dlogits; the
+   dW columns shifted by one) must fall beyond it;
 4. checks on a tiny model that the slot engine on the card serves the
    tokens the engine on the CPU (the plain versions) serves, and that two
    planted faults move its logits beyond the tolerance; and that the paged
    engine on the card serves exactly the CPU's tokens through each of its
    three routes, and other tokens with two pages swapped in its table;
 5. checks on a tiny model that one training step on the card gives the
-   loss and every gradient the CPU gives, on `pallas_rpe` and on `pallas`
-   with `use_masking`, and that planted faults in what the backward
-   kernels are given (three and two) move the gradients beyond the
-   tolerance;
+   loss and every gradient the CPU gives, on `pallas_rpe` (with and
+   without `use_fused_lm_head_ce`) and on `pallas` with `use_masking`, and
+   that planted faults in what the backward kernels are given move the
+   gradients beyond the tolerance;
 6. times a full-width FAT5-small decode step (seeded random weights, int8
    weights and KV cache, the decode kernel) by wall clock and by device
    time, and lists the kernels one decode window launches (`torch.profiler`);
@@ -43,12 +47,20 @@ of JAX. In order:
    launch counts set to 0 just before and read just after; each paged-path
    kernel must have launched in each paged run;
 9. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
-   256) tokens a step, one seeded batch repeated): 3 warm-up steps, then
-   three loops of 10 steps, each with the launch counts set to 0 just
-   before and read just after; each training kernel must have launched in
-   each loop, every loss must be finite and the loss must fall; then the
-   step's device time, its kernels by name and the optimizer's launches;
-10. runs the pretraining driver (`train.cli.run`) on
+   256) tokens a step, one seeded batch repeated), beside a second trainer
+   with `use_fused_lm_head_ce`: 3 warm-up steps each, then three loops of
+   10 steps each, the two in turns, each with the launch counts set to 0
+   just before and read just after; each kernel of a path must have
+   launched in each of its loops, every loss must be finite and the loss
+   must fall; then each step's device time, its kernels by name and the
+   optimizer's launches;
+10. scores a FAT5-small checkpoint (seeded weights, written as FAT5-named
+   safetensors by the port's exporter to a temporary directory) through
+   `quality.main` on the card: full precision on the fused lm_head+CE
+   forward, int8 and fp8, per-channel and g64, on `quant_matmul`; the
+   full-precision perplexity must match the CPU's (the plain versions)
+   within a stated limit, and a planted fault must not;
+11. runs the pretraining driver (`train.cli.run`) on
    `configs/fr/fat5-fr-small.yaml` at full width, batch 64 x (1024 + 256),
    `pallas` attention on the three bias kernels: 4 steps with a checkpoint,
    then a second run that resumes from it and takes steps 5-8 (a stub
@@ -58,7 +70,7 @@ of JAX. In order:
    tokens/s as the trainer logs it and between synchronized clock readings,
    the collator's time, a step's wall and device time, its kernels, peak
    memory;
-11. prints JSON lines of the serving, paged serving, training and
+12. prints JSON lines of the serving, paged serving, training, scoring and
    pretraining results and of the kernels (each with its launches in each
    path that runs it, and their sum), the
    `nvidia-smi` name and power limit line, and, last,
@@ -503,6 +515,10 @@ def run_checks(cases):
         plain_ms = device_ms(c["plain"], arg_sets, max(10, iters // 4))
         lib_ms = (device_ms(c["library"], [lb for _, lb in sets], iters)
                   if c["library"] is not None else None)
+        unfused = ({} if "unfused" not in c else dict(
+            unfused_port_ms=device_ms(c["unfused"], [lb for _, lb in sets],
+                                      iters),
+            unfused_port=c["unfused_note"]))
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = c["ops"] / PEAK_OPS_PER_S[c["ops_type"]] * 1e3
         row = dict(name=c["name"], shape=c["label"], main=c["main"],
@@ -513,7 +529,8 @@ def run_checks(cases):
                    library=c.get("library_note"),
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=c["bytes"], ops=c["ops"], **c.get("extra", {}))
+                   bytes=c["bytes"], ops=c["ops"], **unfused,
+                   **c.get("extra", {}))
         print("kernel-check " + json.dumps(row), flush=True)
         results.append(row)
         del sets, arg_sets
@@ -1483,6 +1500,187 @@ def check_bias_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# scoring and the fused train step: the fused lm_head + CE kernels
+# ---------------------------------------------------------------------------
+
+SCORING_ROWS = 4 * 64      # bench_quality.py:89-93: 4 x 64 label rows
+
+
+def _flce_limits(kw, bf16):
+    """Per-entry limits of the fused lm_head+CE kernels' outputs against
+    their plain versions (`check_flce_kernels`)."""
+    from flasht5_tpu_torch.ops import fused_linear_ce as flce
+    from flasht5_tpu_torch.ops.cross_entropy import cross_entropy_bwd_plain
+
+    full = dict(lse_square_scale=kw.get("lse_square_scale", 0.0),
+                label_smoothing=kw.get("label_smoothing", 0.0),
+                logit_scale=kw.get("logit_scale", 1.0), ignore_index=-100,
+                total_classes=None)
+
+    def fwd(x, w, labels, lse, dloss, dz, want):
+        # lse: f32 sums of the same products in another order; the row sum
+        # of the logits: 1e-6 of the row's sum of |logits|
+        lse, total = want
+        lim = [1e-5 + 1e-5 * lse.abs(), None]
+        if total is not None:
+            lim[1] = 1e-6 * flce._logits(x, w, full["logit_scale"]).abs() \
+                .sum(-1)
+        return lim
+
+    def bwd(x, w, labels, lse, dloss, dz, want):
+        # a dlogit whose two f32 values straddle a bf16 rounding boundary
+        # rounds one ulp apart (up to 2^-7 relative), in any term of a sum:
+        # two such flips (2^-6) times the largest |term factor| pair of
+        # each entry's sum (the tensor cores' f32 sums of the logits differ
+        # from cuBLAS's in their last bits, and an entry of dW sums 2048
+        # terms), plus 1e-4 of the entry (f32 sums in another order), plus
+        # one bf16 ulp of a bf16 dx; in f32, 1e-5 for the sums' order
+        dl = cross_entropy_bwd_plain(flce._logits(x, w, 1.0), labels, lse,
+                                     dloss, dz, **full).to(x.dtype).float()
+        dla = dl.abs()
+        wa = w.to(x.dtype).float().abs()
+        xa = x.float().abs()
+        flip = 2.0 ** -6 if bf16 else 1e-5
+        dx_lim = (flip * dla.amax(1)[:, None] * wa.amax(1)[None, :]
+                  + (2.0 ** -7 if bf16 else 1e-4) * want[0].float().abs())
+        dw_lim = (flip * xa.amax(0)[:, None] * dla.amax(0)[None, :]
+                  + 1e-4 * want[1].float().abs())
+        return [dx_lim, dw_lim]
+    return fwd, bwd
+
+
+def check_flce_kernels(dev):
+    """The fused lm_head+CE kernels at the train step's shape (2048 rows,
+    d 512, V 32768, bf16 activations, the f32 lm_head, z-loss 1e-4), at
+    the scoring batches' 256 rows, and a ragged f32 case (300 rows, V
+    32128, smoothing 0.1, logit_scale 2.0, a quarter of the rows ignored).
+    Library yardstick: the unfused composition of two PyTorch calls,
+    F.linear and F.cross_entropy (no z-loss), forward or autograd's
+    backward; beside it the port's own unfused path (torch.matmul of the
+    cast weight and the port's Triton CE kernels), `unfused_port_ms`.
+    Planted faults: the last vocab split dropped from the merge; the
+    z-loss term left out of dlogits; the dW columns shifted by one."""
+    from flasht5_tpu_torch.ops import cross_entropy
+    from flasht5_tpu_torch.ops import fused_linear_ce as flce
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+
+    def shape_cases(rows, v, x_dtype, kw, label, main, faults):
+        d = 512
+        fkw = dict(logit_scale=kw.get("logit_scale", 1.0),
+                   label_smoothing=kw.get("label_smoothing", 0.0))
+        ls = kw.get("label_smoothing", 0.0)
+
+        def make():
+            x = torch.randn((rows, d), generator=gen, device=dev).to(x_dtype)
+            w = torch.randn((d, v), generator=gen, device=dev) * d ** -0.5
+            labels = torch.randint(0, v, (rows,), generator=gen, device=dev)
+            if rows == 300:
+                labels[torch.rand(rows, generator=gen, device=dev)
+                       < 0.25] = -100
+            lse = flce.fused_linear_ce_fwd_plain(x, w, **fkw)[0]
+            dloss = torch.full((rows,), 1.0 / rows, device=dev)
+            dz = torch.zeros((rows,), device=dev)
+            # the yardsticks' inputs and graphs, built here, not timed
+            xr = x.detach().requires_grad_(True)
+            wt = w.t().to(x_dtype).contiguous().requires_grad_(True)
+            lib_loss = F.cross_entropy(F.linear(xr, wt) * fkw["logit_scale"],
+                                       labels, reduction="none",
+                                       label_smoothing=ls)
+            wr = w.detach().requires_grad_(True)
+            port_loss, _ = cross_entropy.cross_entropy_loss(
+                torch.matmul(xr, wr.to(x_dtype)), labels,
+                kw.get("lse_square_scale", 0.0), ls, fkw["logit_scale"])
+            return ((x, w, labels, lse, dloss, dz),
+                    (x, wt, labels, dloss, xr, lib_loss, wr, port_loss))
+        (x, w, labels, lse, dloss, dz), _ = make()
+        fwd_lim, bwd_lim = _flce_limits(kw, x_dtype == torch.bfloat16)
+        in_bytes = 2 * nbytes(x, w, labels)
+        flops = 2 * rows * d * v
+        ops_type = "bf16" if x_dtype == torch.bfloat16 else "f32"
+        why = ("f32 sums of the same products in another order; dlogits "
+               "that round to another bf16 value (2^-8 relative) where the "
+               "two f32 values straddle a rounding boundary")
+
+        def fwd(x, w, *rest):
+            return flce.fused_linear_ce_fwd(x, w, **fkw)
+
+        def split_dropped(x, w, *rest):
+            part = flce.fwd_partials(x, w, **fkw)
+            lse, total = flce.merge_partials(part, part.shape[1] - 1)
+            return lse, (total if ls > 0.0 else None)
+
+        def bwd(x, w, labels, lse, dloss, dz):
+            return flce.fused_linear_ce_bwd(x, w, labels, lse, dloss, dz,
+                                            **kw)
+
+        def no_zloss(x, w, labels, lse, dloss, dz):
+            return flce.fused_linear_ce_bwd(
+                x, w, labels, lse, dloss, dz, **dict(kw, lse_square_scale=0.0))
+
+        def dw_shifted(*args):
+            dx, dw = bwd(*args)
+            return dx, torch.roll(dw, 1, dims=1)
+
+        cases.append(dict(
+            name="fused_linear_ce_fwd", label=label, make=make,
+            in_bytes=in_bytes, kernel=fwd,
+            plain=lambda x, w, *rest: flce.fused_linear_ce_fwd_plain(
+                x, w, **fkw),
+            library=lambda x, wt, labels, *rest: F.cross_entropy(
+                F.linear(x, wt) * fkw["logit_scale"], labels,
+                reduction="none", label_smoothing=ls),
+            library_note="F.linear + F.cross_entropy, two calls (no z-loss)",
+            unfused=lambda x, wt, labels, dloss, xr, ll, wr, pl:
+                cross_entropy.cross_entropy_loss(
+                    torch.matmul(x, wr.detach().to(x.dtype)), labels,
+                    kw.get("lse_square_scale", 0.0), ls, fkw["logit_scale"]),
+            unfused_note="torch.matmul(x, w cast) + the port's Triton CE "
+                         "forward and loss assembly",
+            outputs=2, limits=fwd_lim,
+            faults=[("the last vocab split dropped from the merge",
+                     split_dropped)] if faults else [],
+            bytes=nbytes(x, w) + rows * 8, ops=flops, ops_type=ops_type,
+            main=main, why=why))
+        cases.append(dict(
+            name="fused_linear_ce_bwd", label=label, make=make,
+            in_bytes=in_bytes, kernel=bwd,
+            plain=lambda *args: flce.fused_linear_ce_bwd_plain(*args, **kw),
+            library=lambda x, wt, labels, dloss, xr, ll, wr, pl:
+                torch.autograd.grad(ll, (xr, wt), dloss, retain_graph=True),
+            library_note="autograd backward of F.linear + F.cross_entropy "
+                         "(no z-loss)",
+            unfused=lambda x, wt, labels, dloss, xr, ll, wr, pl:
+                torch.autograd.grad(pl, (xr, wr), dloss, retain_graph=True),
+            unfused_note="autograd backward of the port's unfused path (its "
+                         "Triton CE backward, two cuBLAS products, the "
+                         "weight cast's backward)",
+            outputs=2, limits=bwd_lim,
+            faults=[("the z-loss term left out of dlogits", no_zloss),
+                    ("the dW columns shifted by one", dw_shifted)]
+            if faults else [],
+            bytes=(nbytes(x, w, lse, dloss, dz) + rows * 4
+                   + nbytes(x, w)), ops=3 * flops, ops_type=ops_type,
+            main=main, why=why))
+
+    zkw = dict(lse_square_scale=1e-4)
+    shape_cases(TRAIN_B * TRAIN_DEC, 32768, torch.bfloat16, zkw,
+                "x (2048, 512) bf16 @ w (512, 32768) f32, z-loss 1e-4",
+                main=True, faults=True)
+    shape_cases(SCORING_ROWS, 32768, torch.bfloat16, zkw,
+                "scoring: x (256, 512) bf16 @ w (512, 32768) f32",
+                main=False, faults=True)
+    shape_cases(300, 32128, torch.float32,
+                dict(lse_square_scale=1e-4, label_smoothing=0.1,
+                     logit_scale=2.0),
+                "ragged: x (300, 512) f32 @ w (512, 32128) f32, smoothing "
+                "0.1, logit_scale 2, a quarter of the rows ignored",
+                main=False, faults=True)
+    return run_checks(cases)
+
+
+# ---------------------------------------------------------------------------
 # training: a tiny model's step on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1541,6 +1739,19 @@ def _training_faults():
     ]
 
 
+def _fused_ce_faults():
+    """A fault in what the fused lm_head+CE backward kernels are given."""
+    from flasht5_tpu_torch.ops import fused_linear_ce as flce
+
+    real = flce.fused_linear_ce_bwd
+
+    def lse_rolled(x, w, labels, lse, dloss, dz, **kw):
+        return real(x, w, labels, torch.roll(lse, 1), dloss, dz, **kw)
+    lse_rolled.launches = 0     # the wrapper counts through this name
+    return [("fused_linear_ce_bwd gets each row's lse one row down",
+             _patched(flce, "fused_linear_ce_bwd", lse_rolled))]
+
+
 def _bias_training_faults():
     """Faults in what the bias backward kernels are given: (name,
     manager)."""
@@ -1560,8 +1771,9 @@ def _bias_training_faults():
 def check_small_training(dev):
     """One training step's loss and every gradient leaf of a tiny f32 model,
     on the card (the kernels) against the CPU (their plain versions): on the
-    train step's path (pallas_rpe, fused norm and CE, z-loss) and on the
-    pretraining path's (pallas, with use_masking over a padded batch).
+    train step's path (pallas_rpe, fused norm and CE, z-loss), on it with
+    the fused lm_head+CE, and on the pretraining path's (pallas, with
+    use_masking over a padded batch).
 
     Both compute in f32; the kernels sum in other orders and evaluate exp
     by other means, so the gradients agree to a few 1e-6 of each leaf's
@@ -1584,6 +1796,10 @@ def check_small_training(dev):
     _small_training_step(
         dev, "pallas_rpe", FlashT5Config(**base, attention_type="pallas_rpe"),
         dict(input_ids=ids, labels=labels), _training_faults())
+    _small_training_step(
+        dev, "pallas_rpe, fused lm_head+CE", FlashT5Config(
+            **base, attention_type="pallas_rpe", use_fused_lm_head_ce=True),
+        dict(input_ids=ids, labels=labels), _fused_ce_faults())
     _small_training_step(
         dev, "pallas, use_masking", FlashT5Config(
             **base, attention_type="pallas", use_masking=True,
@@ -1662,12 +1878,31 @@ def _kernels_by_name(fn):
     return by_name
 
 
+def _step_device_ms(trainer, db, wall_ms):
+    """Mean device time of 3 steps, each queued behind a sleep so the
+    device never waits for the host (as the decode step's is measured)."""
+    busys = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * wall_ms + 5.0)))
+        start.record()
+        trainer._step(db)
+        end.record()
+        end.synchronize()
+        busys.append(start.elapsed_time(end))
+    return sum(busys) / 3
+
+
 def run_training(dev):
     """The training path: `Trainer(flagship_config(), ...).train(batches)`
     on one random batch of 8 x (1024 + 256) tokens repeated, AdamWScale at
-    lr 1e-3 with no weight decay (bench.py:45-58). Three warm-up steps,
-    then three timed loops of 10 steps; every training kernel must launch
-    in each loop and the loss on the repeated batch must fall."""
+    lr 1e-3 with no weight decay (bench.py:45-58), beside the same trainer
+    with `use_fused_lm_head_ce` (the A/B of `__graft_entry__.py:37-49`).
+    Three warm-up steps each, then three timed loops of 10 steps each, the
+    two in turns; every kernel of each path must launch in each of its
+    loops, the fused loops must launch no unfused CE kernel, and the loss
+    on the repeated batch must fall on both."""
     from flasht5_tpu_torch import flagship_config, ops
     from flasht5_tpu_torch.train import Trainer, TrainerConfig
 
@@ -1676,92 +1911,233 @@ def run_training(dev):
                          lr_scheduler="constant", max_steps=10 ** 6,
                          logging_steps=1, seed=0)
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, tcfg, device=dev)
+    trainers = {"unfused": Trainer(cfg, tcfg, device=dev),
+                "fused": Trainer(cfg.replace(use_fused_lm_head_ce=True),
+                                 tcfg, device=dev)}
     rng = np.random.default_rng(0)
     batch = {"input_ids": rng.integers(0, cfg.vocab_size, (
                  TRAIN_B, TRAIN_ENC)).astype(np.int32),
              "labels": rng.integers(0, cfg.vocab_size, (
                  TRAIN_B, TRAIN_DEC)).astype(np.int32)}
     tokens_per_step = TRAIN_B * (TRAIN_ENC + TRAIN_DEC)     # bench.py:108
-    losses = [e["loss"] for e in trainer.train([batch] * 3)["logs"]]
+    losses = {way: [e["loss"] for e in tr.train([batch] * 3)["logs"]]
+              for way, tr in trainers.items()}
     torch.cuda.synchronize()
     print(f"training: FAT5-small {cfg.num_layers}+{cfg.num_decoder_layers} "
           f"layers, batch {TRAIN_B} x ({TRAIN_ENC} + {TRAIN_DEC}), "
-          f"{cfg.dtype} activations, fp32 params; init and 3 warm-up steps "
+          f"{cfg.dtype} activations, fp32 params; unfused and fused "
+          f"lm_head+CE trainers, init and 3 warm-up steps each "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    loops = []
+    paths = {"unfused": TRAINING, "fused": FUSED_TRAINING}
+    loops = {way: [] for way in trainers}
     torch.cuda.reset_peak_memory_stats()
     for attempt in range(3):
+        for way, trainer in trainers.items():
+            prefix = "training" if way == "unfused" else "fused training"
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            logs = trainer.train([batch] * 10)["logs"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = ops.launch_counts()
+            loop_losses = [e["loss"] for e in logs]
+            losses[way] += loop_losses
+            print(f"{prefix} loop {attempt + 1} of 3: 10 steps, "
+                  f"{10 * tokens_per_step} tokens in {wall:.6f} s = "
+                  f"{10 * tokens_per_step / wall:.3f} tokens/s; losses "
+                  f"{json.dumps(loop_losses)}; launches per step "
+                  f"{json.dumps({k: n / 10 for k, n in launches.items()})}",
+                  flush=True)
+            missing = [name for name in paths[way] if launches[name] <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched in {prefix}: "
+                                     f"{missing}")
+            if way == "fused" and (launches["cross_entropy_fwd"]
+                                   or launches["cross_entropy_bwd"]):
+                raise AssertionError("fused training launched the unfused "
+                                     "CE kernels")
+            clocks = sh("nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                        "temperature.gpu", "--format=csv,noheader")
+            print(f"{prefix} loop {attempt + 1}: card after it (SM clock, "
+                  f"power, temperature): {clocks}", flush=True)
+            loops[way].append(dict(seconds=wall, launches=launches,
+                                   tokens_per_s=10 * tokens_per_step / wall,
+                                   card_after=clocks))
+    peak = torch.cuda.max_memory_allocated()
+    for way, ls in losses.items():
+        if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+            raise AssertionError(f"{way} training losses {ls}")
+    median = {way: sorted(rs, key=lambda r: r["tokens_per_s"])[1]
+              for way, rs in loops.items()}
+
+    db = trainers["unfused"]._device_batch(batch)
+    steps = {}
+    for way, trainer in trainers.items():
+        step_wall = median[way]["seconds"] / 10 * 1e3
+        step = dict(wall_ms=step_wall,
+                    device_ms=_step_device_ms(trainer, db, step_wall))
+        step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+        # the kernels of one step by name and device time
+        by_name = _kernels_by_name(lambda: trainer._step(db))
+        step["kernels_per_step"] = sum(n for _, n in by_name.values())
+        step["kernel_ms_per_step"] = sum(t for t, _ in by_name.values())
+        if way == "unfused":       # the optimizer's launches alone
+            opt_kernels = _kernels_by_name(trainer.optimizer.step)
+            step["optimizer_launches"] = sum(
+                n for _, n in opt_kernels.values())
+            step["optimizer_kernel_ms"] = sum(
+                t for t, _ in opt_kernels.values())
+        prefix = "train step" if way == "unfused" else "fused train step"
+        print(f"{prefix}: {json.dumps(step)} (wall: median loop / 10; "
+              f"device: mean of 3 steps queued behind a sleep; kernels: one "
+              f"profiled step)", flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+        print(f"profile of one {prefix}: " + json.dumps(
+            [{"name": name[:80], "ms": t, "launches": n}
+             for name, (t, n) in top]), flush=True)
+        steps[way] = step
+    tps = {way: [r["tokens_per_s"] for r in rs] for way, rs in loops.items()}
+    fused_tps, unfused_tps = (median[way]["tokens_per_s"]
+                       for way in ("fused", "unfused"))
+    print(f"fused / unfused train step: tokens/s medians {fused_tps} / "
+          f"{unfused_tps} = {fused_tps / unfused_tps}; device ms "
+          f"{steps['fused']['device_ms']} / {steps['unfused']['device_ms']}",
+          flush=True)
+    result = dict(
+        tokens_per_s_median=median["unfused"]["tokens_per_s"],
+        tokens_per_s=tps["unfused"], tokens_per_step=tokens_per_step,
+        losses=losses["unfused"], peak_memory_bytes=peak,
+        step=steps["unfused"],
+        launches_per_step={k: n / 10 for k, n in
+                           median["unfused"]["launches"].items()},
+        fused=dict(tokens_per_s_median=median["fused"]["tokens_per_s"],
+                   tokens_per_s=tps["fused"], losses=losses["fused"],
+                   step=steps["fused"],
+                   launches_per_step={k: n / 10 for k, n in
+                                      median["fused"]["launches"].items()}))
+    return median["unfused"]["launches"], median["fused"]["launches"], result
+
+
+# ---------------------------------------------------------------------------
+# scoring: bench_quality's counterpart on a FAT5-small checkpoint
+# ---------------------------------------------------------------------------
+
+# the card's full-precision perplexity against the CPU's (the plain
+# versions), relative: both run bf16 activations through 12 + 12 layers,
+# and a value one f32 ulp apart on the two sides may round to another bf16
+# value; averaged over 1,024 label tokens that moved the perplexity by
+# 6.9e-4 (H100, two runs), and the planted fault (one vocab split of 128
+# dropped) moves it by ~0.7%
+SCORING_TOL = 2e-3
+
+
+def run_scoring(dev):
+    """The scoring path at full width: a FAT5-named safetensors file of
+    `init_params(flagship_config(), seed=0)` written by the port's exporter
+    to a temporary directory, then `quality.main([file])` on the card (the
+    full-precision perplexity on the fused lm_head+CE forward kernel, the
+    four quantized variants on `quant_matmul`), with the launch counts set
+    to 0 just before and read just after; the same perplexity on the CPU
+    (the plain versions) must agree within SCORING_TOL, and a planted
+    fault (the last vocab split dropped from the merge) must not."""
+    import tempfile
+
+    from flasht5_tpu_torch import flagship_config, ops, quality
+    from flasht5_tpu_torch.convert import (load_fat5_safetensors,
+                                           params_to_fat5_state_dict,
+                                           safetensors_file)
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.ops import fused_linear_ce as flce
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fat5-small.safetensors")
+        t0 = time.perf_counter()
+        params = t5.init_params(flagship_config(), seed=0, device=dev)
+        safetensors_file.save_file(params_to_fat5_state_dict(params), path)
+        del params
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+
         ops.reset_launch_counts()
         t1 = time.perf_counter()
-        logs = trainer.train([batch] * 10)["logs"]
+        lines = quality.main([path])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
+        main_s = time.perf_counter() - t1
         launches = ops.launch_counts()
-        loop_losses = [e["loss"] for e in logs]
-        losses += loop_losses
-        print(f"training loop {attempt + 1} of 3: 10 steps, "
-              f"{10 * tokens_per_step} tokens in {wall:.6f} s = "
-              f"{10 * tokens_per_step / wall:.3f} tokens/s; losses "
-              f"{json.dumps(loop_losses)}; launches per step "
-              f"{json.dumps({k: n / 10 for k, n in launches.items()})}",
-              flush=True)
-        missing = [name for name in TRAINING if launches[name] <= 0]
+        missing = [name for name in SCORING if launches[name] <= 0]
         if missing:
-            raise AssertionError(f"kernels not launched while training: "
+            raise AssertionError(f"kernels not launched while scoring: "
                                  f"{missing}")
-        clocks = sh("nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
-                    "temperature.gpu", "--format=csv,noheader")
-        print(f"training loop {attempt + 1}: card after it (SM clock, power, "
-              f"temperature): {clocks}", flush=True)
-        loops.append(dict(seconds=wall, launches=launches,
-                          tokens_per_s=10 * tokens_per_step / wall,
-                          card_after=clocks))
-    peak = torch.cuda.max_memory_allocated()
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training losses {losses}")
-    median = sorted(loops, key=lambda r: r["tokens_per_s"])[1]
+        # one fused forward a batch, in the full-precision run only (the
+        # quantized lm_head takes the unfused path)
+        if launches["fused_linear_ce_fwd"] != 4:
+            raise AssertionError(f"fused_linear_ce_fwd launched "
+                                 f"{launches['fused_linear_ce_fwd']} times, "
+                                 f"not once per batch")
+        if [ln["metric"] for ln in lines] != [
+                f"delta_ppl_{tag}" for tag, *_ in quality.VARIANTS] or \
+                not all(np.isfinite([ln["ppl_fp"], ln["ppl_quant"]]).all()
+                        for ln in lines):
+            raise AssertionError(f"scoring lines {lines}")
 
-    # one step queued behind a sleep, so the device never waits for the
-    # host: its device time (as the decode step's is measured)
-    db = trainer._device_batch(batch)
-    step_wall = median["seconds"] / 10 * 1e3
-    busys = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * step_wall + 5.0)))
-        start.record()
-        trainer._step(db)
-        end.record()
-        end.synchronize()
-        busys.append(start.elapsed_time(end))
-    step = dict(wall_ms=step_wall, device_ms=sum(busys) / 3)
-    step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+        card_params = load_fat5_safetensors(path, device=dev)
+        config = quality.checkpoint_config(card_params)
+        batches = quality.checkpoint_batches(config)
+        ppl_card = quality.eval_ppl(config, card_params, batches)
+        # the scoring's wall time on the fused and the unfused path, in
+        # turns (each ends in a host read of each batch's loss)
+        dev_batches = [(torch.from_numpy(i).to(dev), torch.from_numpy(l).to(
+            dev)) for i, l in batches]
 
-    # the kernels of one step by name and device time, and the optimizer's
-    # launches alone
-    by_name = _kernels_by_name(lambda: trainer._step(db))
-    opt_kernels = _kernels_by_name(trainer.optimizer.step)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
-    step["kernels_per_step"] = sum(n for _, n in by_name.values())
-    step["kernel_ms_per_step"] = sum(t for t, _ in by_name.values())
-    step["optimizer_launches"] = sum(n for _, n in opt_kernels.values())
-    step["optimizer_kernel_ms"] = sum(t for t, _ in opt_kernels.values())
-    print(f"train step: {json.dumps(step)} (wall: median loop / 10; device: "
-          f"mean of 3 steps queued behind a sleep; kernels: one profiled "
-          f"step)", flush=True)
-    print("profile of one train step: " + json.dumps(
-        [{"name": name[:80], "ms": t, "launches": n}
-         for name, (t, n) in top]), flush=True)
-    result = dict(
-        tokens_per_s_median=median["tokens_per_s"],
-        tokens_per_s=[r["tokens_per_s"] for r in loops],
-        tokens_per_step=tokens_per_step, losses=losses,
-        peak_memory_bytes=peak, step=step,
-        launches_per_step={k: n / 10 for k, n in median["launches"].items()})
-    return median["launches"], result
+        def score(cfg):
+            with torch.no_grad():
+                return [float(t5.forward(cfg, card_params, input_ids=i,
+                                         labels=l)["loss"])
+                        for i, l in dev_batches]
+        ways = {"fused": config.replace(use_fused_lm_head_ce=True),
+                "unfused": config.replace(use_fused_lm_head_ce=False)}
+        walls = {way: [] for way in ways}
+        for _ in range(3):
+            for way in ("unfused", "fused", "fused", "unfused"):
+                t2 = time.perf_counter()
+                score(ways[way])
+                walls[way].append((time.perf_counter() - t2) * 1e3)
+        real_merge = flce.merge_partials
+        with _patched(flce, "merge_partials",
+                      lambda part, n: real_merge(part, n - 1)):
+            ppl_fault = quality.eval_ppl(config, card_params, batches)
+        del card_params
+        torch.cuda.empty_cache()
+
+        t3 = time.perf_counter()
+        cpu_params = load_fat5_safetensors(path, device="cpu")
+        ppl_cpu = quality.eval_ppl(config, cpu_params, batches)
+        cpu_s = time.perf_counter() - t3
+        del cpu_params
+    gap = abs(ppl_card - ppl_cpu) / ppl_cpu
+    fault_gap = abs(ppl_fault - ppl_cpu) / ppl_cpu
+    print(f"scoring: FAT5-small checkpoint {size} B written in "
+          f"{write_s:.3f} s; quality.main on the card {main_s:.3f} s; "
+          f"launches {json.dumps({k: launches[k] for k in SCORING})}; "
+          f"full-precision ppl card {ppl_card} cpu {ppl_cpu} (cpu "
+          f"{cpu_s:.3f} s): relative gap {gap} (tol {SCORING_TOL}); planted "
+          f"fault (last vocab split dropped): ppl {ppl_fault}, gap "
+          f"{fault_gap}", flush=True)
+    print("scoring wall ms per eval_ppl (4 batches of 4 x (128 + 64)), "
+          "fused vs unfused lm_head+CE, in turns: " + json.dumps(walls),
+          flush=True)
+    if not gap <= SCORING_TOL:
+        raise AssertionError(f"scoring: card perplexity {ppl_card} vs cpu "
+                             f"{ppl_cpu}")
+    if not fault_gap > SCORING_TOL:
+        raise AssertionError(f"scoring: planted fault within the tolerance "
+                             f"({fault_gap})")
+    result = dict(lines=lines, ppl_card=ppl_card, ppl_cpu=ppl_cpu,
+                  relative_gap=gap, fault_gap=fault_gap,
+                  checkpoint_bytes=size, write_s=write_s, main_s=main_s,
+                  cpu_s=cpu_s, eval_wall_ms=walls)
+    return launches, result
 
 
 # ---------------------------------------------------------------------------
@@ -2038,6 +2414,12 @@ KERNELS = {
     "flash_attention_bias_dq": ("cuda", "flasht5_tpu_torch/csrc/"
                                 "flash_attention_bias.cu",
                                 "flasht5_tpu/ops/flash_attention.py:798"),
+    "fused_linear_ce_fwd": ("cuda", "flasht5_tpu_torch/csrc/"
+                            "fused_linear_ce.cu",
+                            "flasht5_tpu/ops/fused_linear_ce.py:253"),
+    "fused_linear_ce_bwd": ("cuda", "flasht5_tpu_torch/csrc/"
+                            "fused_linear_ce.cu",
+                            "flasht5_tpu/ops/fused_linear_ce.py:320"),
 }
 # the kernels each path runs, and must launch in each of its runs
 SERVING = ("rms_norm", "flash_attention_rpe", "quant_matmul",
@@ -2052,6 +2434,13 @@ PRETRAIN = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
             "flash_attention_bwd", "flash_attention_bias",
             "flash_attention_bias_dkv", "flash_attention_bias_dq",
             "cross_entropy_fwd", "cross_entropy_bwd")
+# the scoring path on a checkpoint (`ref` attention, unfused norms): the
+# fused forward in full precision, quant_matmul in the quantized variants
+SCORING = ("fused_linear_ce_fwd", "quant_matmul")
+# the train step with use_fused_lm_head_ce
+FUSED_TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
+                  "flash_attention_bwd", "fused_linear_ce_fwd",
+                  "fused_linear_ce_bwd")
 
 
 def main() -> int:
@@ -2081,14 +2470,17 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.3f} s", flush=True)
 
     checks = (check_kernels(dev) + check_paged_kernels(dev)
-              + check_training_kernels(dev) + check_bias_kernels(dev))
+              + check_training_kernels(dev) + check_bias_kernels(dev)
+              + check_flce_kernels(dev))
     check_small_reference(dev)
     check_small_paged(dev)
     check_small_training(dev)
     served_launches, served = run_engine(dev)
     paged_launches, paged = run_paged_engine(dev)
     torch.cuda.empty_cache()
-    trained_launches, trained = run_training(dev)
+    trained_launches, fused_launches, trained = run_training(dev)
+    torch.cuda.empty_cache()
+    scored_launches, scored = run_scoring(dev)
     torch.cuda.empty_cache()
     pretrain_launches, pretrained = run_pretraining(dev)
 
@@ -2105,9 +2497,14 @@ def main() -> int:
             by_path["training"] = trained_launches[name]
         if name in PRETRAIN:
             by_path["pretraining"] = pretrain_launches[name]
+        if name in SCORING:
+            by_path["scoring"] = scored_launches[name]
+        if name in FUSED_TRAINING:
+            by_path["fused_training"] = fused_launches[name]
         # launches_by_path: each path's median run (the slot engine's, the
-        # paged engine's, the training loop's) or, for the pretraining
-        # driver, its two runs, each counted from 0 just before it;
+        # paged engine's, the training loops', unfused and fused), the
+        # scoring's one run, or, for the pretraining driver, its two runs,
+        # each counted from 0 just before it;
         # launches: their sum over the paths that run the kernel
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
@@ -2119,6 +2516,7 @@ def main() -> int:
     print(json.dumps({"engine": served}))
     print(json.dumps({"paged_engine": paged}))
     print(json.dumps({"training": trained}))
+    print(json.dumps({"scoring": scored}))
     print(json.dumps({"pretraining": pretrained}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -24,7 +24,8 @@ and every later block reuses it, so the table's gradient sums every layer's.
 `use_full_bias_size` and `use_masking` behave as in the JAX package (the
 padding mask folded into the bias as query rows; on `pallas_rpe` the
 post-kernel select). Gradients come from autograd, through the kernels'
-backward where the path has one (`rms_norm`, attention, cross-entropy).
+backward where the path has one (`rms_norm`, attention, cross-entropy,
+the fused lm_head+CE).
 Dropout draws from a `torch.Generator` the caller passes down; its bits are
 not the JAX package's.
 """
@@ -43,6 +44,7 @@ from flasht5_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
                                                  cross_entropy_loss_ref)
 from flasht5_tpu_torch.ops.flash_attention import flash_attention
 from flasht5_tpu_torch.ops.flash_attention_rpe import flash_attention_rpe
+from flasht5_tpu_torch.ops.fused_linear_ce import fused_linear_cross_entropy
 from flasht5_tpu_torch.ops.quant import QuantizedTensor, quant_matmul
 from flasht5_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_ref
 
@@ -64,9 +66,6 @@ def check_supported(config: FlashT5Config) -> None:
             "paths ('ref', 'pallas') is not ported yet")
     if config.tp_axis is not None:
         raise NotImplementedError("tensor parallelism is not ported yet")
-    if config.use_fused_lm_head_ce:
-        raise NotImplementedError(
-            "use_fused_lm_head_ce (ops/fused_linear_ce.py) is not ported yet")
 
 
 def tree_leaves_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -431,6 +430,24 @@ def encode(config: FlashT5Config, params: Params, input_ids: torch.Tensor,
                        generator=generator, deterministic=deterministic)
 
 
+class Outputs(dict):
+    """`forward`'s results. On the fused lm_head+CE path the (rows x V)
+    logits, which the loss does not need, are computed only when a caller
+    first reads `out["logits"]` (eager PyTorch would not drop the dead
+    matmul that the JAX package leaves to XLA); until then "logits" is not
+    among the keys."""
+
+    def __init__(self, logits_fn, **items):
+        super().__init__(**items)
+        self._logits_fn = logits_fn
+
+    def __missing__(self, key):
+        if key != "logits" or self._logits_fn is None:
+            raise KeyError(key)
+        self["logits"] = logits = self._logits_fn()
+        return logits
+
+
 def forward(config: FlashT5Config, params: Params,
             input_ids: Optional[torch.Tensor] = None,
             attention_mask: Optional[torch.Tensor] = None,
@@ -442,8 +459,10 @@ def forward(config: FlashT5Config, params: Params,
             deterministic: bool = True) -> Dict[str, torch.Tensor]:
     """Conditional-generation forward (reference: modeling:692-736).
 
-    Returns dict(loss?, logits, encoder_hidden_states). Dropout (training,
-    `deterministic=False`) draws from `generator`."""
+    Returns Outputs(loss?, logits, encoder_hidden_states), a dict. With
+    labels and `use_fused_lm_head_ce` (untied, plain lm_head) the loss comes
+    from the fused lm_head+CE kernels and the logits only on demand.
+    Dropout (training, `deterministic=False`) draws from `generator`."""
     if encoder_hidden_states is None:
         encoder_hidden_states = encode(config, params, input_ids,
                                        attention_mask, generator=generator,
@@ -457,10 +476,23 @@ def forward(config: FlashT5Config, params: Params,
                       encoder_attention_mask=attention_mask,
                       generator=generator, deterministic=deterministic)
     if config.tie_word_embeddings:
-        lm_logits = _matmul(dec, params["shared"]["embedding"].t())
+        head = params["shared"]["embedding"].t()
     else:
-        lm_logits = _matmul(dec, params["lm_head"])
-    out = {"logits": lm_logits, "encoder_hidden_states": encoder_hidden_states}
+        head = params["lm_head"]
+    if (labels is not None and config.use_fused_lm_head_ce
+            and not config.tie_word_embeddings
+            and isinstance(head, torch.Tensor)):
+        # lm_head + CE in one kernel, straight from the decoder's hidden
+        # states; the same reduction as compute_loss's fused path: the mean
+        # over ALL rows (reference modeling:68)
+        losses, _ = fused_linear_cross_entropy(
+            dec.reshape(-1, dec.shape[-1]), head, labels.reshape(-1),
+            config.z_loss or 0.0, config.label_smoothing)
+        return Outputs(lambda: _matmul(dec, head), loss=torch.mean(losses),
+                       encoder_hidden_states=encoder_hidden_states)
+    lm_logits = _matmul(dec, head)
+    out = Outputs(None, logits=lm_logits,
+                  encoder_hidden_states=encoder_hidden_states)
     if labels is not None:
         out["loss"] = compute_loss(config, lm_logits, labels)
     return out

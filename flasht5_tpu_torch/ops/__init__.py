@@ -10,6 +10,8 @@ version for CPU tensors, and counts its launches in a `.launches` integer.
                        materialized T5 bias), forward, dK/dV + dbias and dQ
                        (CUDA); without a bias, the RPE kernels given no table
 - cross_entropy:       cross-entropy with z-loss, forward and backward (Triton)
+- fused_linear_ce:     the lm_head matmul fused with cross-entropy, forward
+                       (split vocab + merge) and backward (dx, dW) (CUDA)
 - quant:               INT8/FP8 weight-only dequant matmul (CUDA)
 - decode_attention:    single-query attention over int8/bf16/f32 caches (CUDA)
 - paged_attention:     single-query attention over paged int8/bf16/f32 pools
@@ -19,7 +21,8 @@ version for CPU tensors, and counts its launches in a `.launches` integer.
 
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
                                    flash_attention, flash_attention_rpe,
-                                   paged_attention, quant, rmsnorm)
+                                   fused_linear_ce, paged_attention, quant,
+                                   rmsnorm)
 
 # name -> the wrapper that launches (and counts) the kernel
 KERNELS = {
@@ -32,6 +35,8 @@ KERNELS = {
     "flash_attention_bias_dq": flash_attention.flash_attention_bias_dq,
     "cross_entropy_fwd": cross_entropy.cross_entropy_fwd,
     "cross_entropy_bwd": cross_entropy.cross_entropy_bwd,
+    "fused_linear_ce_fwd": fused_linear_ce.fused_linear_ce_fwd,
+    "fused_linear_ce_bwd": fused_linear_ce.fused_linear_ce_bwd,
     "quant_matmul": quant.quant_matmul,
     "decode_attention": decode_attention.decode_attention,
     "paged_decode_attention": paged_attention.paged_attention,

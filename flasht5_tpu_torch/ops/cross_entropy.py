@@ -75,10 +75,12 @@ def cross_entropy_fwd_plain(logits: torch.Tensor, *, logit_scale: float = 1.0,
 
 def cross_entropy_bwd_plain(logits, labels, lse, dloss, dz, *,
                             lse_square_scale=0.0, label_smoothing=0.0,
-                            logit_scale=1.0, ignore_index=_IGNORE):
+                            logit_scale=1.0, ignore_index=_IGNORE,
+                            total_classes=None):
     """dlogits in the logits' dtype: the backward kernel's function,
     dloss (p - (1 - ls) onehot - ls / V) + (dloss + dz) 2 s lse p, scaled
-    by `logit_scale`; ignored rows are zero."""
+    by `logit_scale`; ignored rows are zero. V is `total_classes`, by
+    default the logits' width."""
     x = logits.float() * logit_scale
     v = x.shape[1]
     ignored = labels == ignore_index
@@ -88,7 +90,7 @@ def cross_entropy_bwd_plain(logits, labels, lse, dloss, dz, *,
     onehot = (torch.arange(v, device=x.device)[None, :]
               == labels.long()[:, None])
     if label_smoothing > 0.0:
-        ce_grad = (probs - label_smoothing / v
+        ce_grad = (probs - label_smoothing / (total_classes or v)
                    - torch.where(onehot, 1.0 - label_smoothing, 0.0))
     else:
         ce_grad = probs - torch.where(onehot, 1.0, 0.0)

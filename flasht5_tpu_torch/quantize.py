@@ -15,8 +15,8 @@ from typing import Any, Optional
 
 import torch
 
-from flasht5_tpu_torch.ops.quant import (QuantizedTensor, quantize_fp8,
-                                         quantize_int8)
+from flasht5_tpu_torch.ops.quant import (QuantizedTensor, dequantize,
+                                         quantize_fp8, quantize_int8)
 
 _QUANT_KEYS = ("'Wq'", "'Wk'", "'Wv'", "['o']", "'wi'", "'wi_0'", "'wi_1'",
                "'wo'", "lm_head")
@@ -65,3 +65,48 @@ def quantize_params(params: Any, mode: str = "int8",
             f"divisible by group_size={group_size} fell back to per-channel "
             f"scales (first: {fallbacks[0]})", stacklevel=2)
     return out
+
+
+def count_group_fallbacks(params: Any, group_size: int) -> int:
+    """Number of quantizable weights whose input dim is not divisible by
+    `group_size` (these fall back to per-channel scales in
+    quantize_params)."""
+    n = 0
+
+    def leaf(path, x):
+        nonlocal n
+        if _should_quantize(path, x) and x.shape[0] % group_size != 0:
+            n += 1
+        return x
+
+    _map_with_path(leaf, params)
+    return n
+
+
+def dequantize_params(params: Any, dtype: Optional[torch.dtype] = None
+                      ) -> Any:
+    """Every QuantizedTensor back to a plain tensor (in `dtype`, default its
+    scales' dtype); other leaves unchanged."""
+    def leaf(path, x):
+        if isinstance(x, QuantizedTensor):
+            return dequantize(x, dtype or x.scales.dtype)
+        return x
+
+    return _map_with_path(leaf, params)
+
+
+def quantized_bytes(params: Any) -> int:
+    """Bytes of the tree's leaves: a QuantizedTensor's one-byte values and
+    f32 scales, every other tensor at its dtype's size."""
+    total = 0
+
+    def leaf(path, x):
+        nonlocal total
+        if isinstance(x, QuantizedTensor):
+            total += x.qvalues.numel() + x.scales.numel() * 4
+        else:
+            total += x.numel() * x.element_size()
+        return x
+
+    _map_with_path(leaf, params)
+    return total

@@ -28,6 +28,13 @@ the largest entry. dW and the rms_norm weight gradient are fp32 sums in both
 dtypes: 1e-3 of the largest entry. The bias kernels' dbias is dS itself, in
 fp32 for both input types, summed over the bias's broadcast axes by the same
 PyTorch sum on both sides: 1e-3 of its largest entry.
+
+The fused lm_head+CE kernels: lse to 1e-5 relative plus 1e-5 (f32 sums of
+the same products in another order), the row sum of the logits to 1e-6 of
+the row's sum of |logits|; dx and dW to 1e-4 of their largest entry in f32
+and, with bf16 activations (dlogits rounded to bf16 at values that may
+differ by an f32 ulp, dx rounded to bf16), one bf16 ulp of each entry plus
+1e-3 of the largest.
 """
 
 import pytest
@@ -36,7 +43,8 @@ import torch
 from flasht5_tpu_torch.inference import paged_kv
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
                                    flash_attention, flash_attention_rpe,
-                                   paged_attention, quant, rmsnorm)
+                                   fused_linear_ce, paged_attention, quant,
+                                   rmsnorm)
 
 pytestmark = pytest.mark.cuda
 
@@ -439,3 +447,112 @@ def test_flash_attention_bias_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         flash_attention.flash_attention_bias_fwd(q.half(), k.half(), v.half(),
                                                  bias)
+
+
+# ---------------------------------------------------------------------------
+# fused lm_head + cross-entropy
+# ---------------------------------------------------------------------------
+
+def _flce_inputs(dev, rows, d, v, x_dtype, w_dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((rows, d), generator=g, device=dev)).to(x_dtype)
+    w = (torch.randn((d, v), generator=g, device=dev) * d ** -0.5).to(w_dtype)
+    labels = torch.randint(0, v, (rows,), generator=g, device=dev)
+    labels[torch.rand(rows, generator=g, device=dev) < 0.25] = -100
+    dloss = torch.rand(rows, generator=g, device=dev)
+    dz = torch.rand(rows, generator=g, device=dev)
+    return x, w, labels, dloss, dz
+
+
+_FLCE_TYPES = {"f32": (torch.float32, torch.float32),
+               "bf16": (torch.bfloat16, torch.bfloat16),
+               "bf16_w32": (torch.bfloat16, torch.float32)}
+
+
+def _flce_close(got, want, bf16):
+    scale = float(want.float().abs().max()) or 1.0
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=2.0 ** -7 if bf16 else 0,
+        atol=(1e-3 if bf16 else 1e-4) * scale)
+
+
+@pytest.mark.parametrize("rows,d,v", [(256, 512, 32768), (300, 128, 32128),
+                                      (37, 64, 300), (64, 384, 384)])
+@pytest.mark.parametrize("types", list(_FLCE_TYPES))
+@pytest.mark.parametrize("kw", [dict(lse_square_scale=1e-4),
+                                dict(label_smoothing=0.1, logit_scale=2.0,
+                                     lse_square_scale=1e-4)],
+                         ids=["zloss", "smoothing_scale"])
+def test_fused_linear_ce_kernels(dev, rows, d, v, types, kw):
+    x, w, labels, dloss, dz = _flce_inputs(dev, rows, d, v,
+                                           *_FLCE_TYPES[types])
+    fkw = dict(logit_scale=kw.get("logit_scale", 1.0),
+               label_smoothing=kw.get("label_smoothing", 0.0))
+    lse, total = fused_linear_ce.fused_linear_ce_fwd(x, w, **fkw)
+    lse0, total0 = fused_linear_ce.fused_linear_ce_fwd_plain(x, w, **fkw)
+    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-5)
+    if fkw["label_smoothing"]:
+        abs_sum = fused_linear_ce._logits(x, w, fkw["logit_scale"]).abs() \
+            .sum(-1)
+        assert bool(((total - total0).abs() <= 1e-6 * abs_sum).all())
+    else:
+        assert total is None and total0 is None
+    dx, dw = fused_linear_ce.fused_linear_ce_bwd(x, w, labels, lse0, dloss,
+                                                 dz, **kw)
+    dx0, dw0 = fused_linear_ce.fused_linear_ce_bwd_plain(x, w, labels, lse0,
+                                                         dloss, dz, **kw)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    bf16 = x.dtype == torch.bfloat16
+    _flce_close(dx, dx0, bf16)
+    _flce_close(dw, dw0, bf16)
+
+
+def test_fused_linear_ce_is_deterministic(dev):
+    x, w, labels, dloss, dz = _flce_inputs(dev, 300, 512, 32128,
+                                           torch.bfloat16, torch.float32)
+    runs = []
+    for _ in range(2):
+        lse, _ = fused_linear_ce.fused_linear_ce_fwd(x, w)
+        runs.append((lse,) + fused_linear_ce.fused_linear_ce_bwd(
+            x, w, labels, lse, dloss, dz, lse_square_scale=1e-4))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("upstream", ["weighted", "loss_sum", "z_sum",
+                                      "loss_and_z_sums"])
+def test_fused_linear_ce_autograd_against_the_cpu(dev, upstream):
+    """A `.sum()` hands the backward a stride-0 upstream gradient (and the
+    labels are int64), so the wrapper converts per-row inputs before the
+    launch; the gradients must match the CPU's either way."""
+    x, w, labels, dloss, _ = _flce_inputs(dev, 200, 128, 1000,
+                                          torch.float32, torch.float32)
+    grads = []
+    for device in (dev, "cpu"):
+        xt = x.detach().to(device).requires_grad_(True)
+        wt = w.detach().to(device).requires_grad_(True)
+        loss, z = fused_linear_ce.fused_linear_cross_entropy(
+            xt, wt, labels.to(device), 1e-4, 0.1)
+        out = {"weighted": lambda: (loss * dloss.to(device)).sum(),
+               "loss_sum": loss.sum, "z_sum": z.sum,
+               "loss_and_z_sums": lambda: loss.sum() + z.sum()}[upstream]()
+        out.backward()
+        grads.append([t.detach().cpu() for t in (loss, z, xt.grad, wt.grad)])
+    for g, g0 in zip(*grads):
+        _close_to_max(g, g0, 1e-4)
+
+
+def test_fused_linear_ce_refuses_what_it_does_not_take(dev):
+    x, w, *_ = _flce_inputs(dev, 16, 128, 256, torch.float32, torch.float32)
+    with pytest.raises(ValueError, match="d = 96"):
+        fused_linear_ce.fused_linear_ce_fwd(x[:, :96], w[:96])
+    with pytest.raises(ValueError, match="d = 640"):
+        fused_linear_ce.fused_linear_ce_fwd(
+            torch.zeros((4, 640), device=dev), torch.zeros((640, 8),
+                                                           device=dev))
+    with pytest.raises(TypeError):
+        fused_linear_ce.fused_linear_ce_fwd(x, w.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        fused_linear_ce.fused_linear_ce_fwd(x.half(), w.half())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_linear_ce.fused_linear_ce_fwd(x, w.cpu())

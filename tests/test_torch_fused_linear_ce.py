@@ -1,0 +1,192 @@
+"""The port's fused lm_head+CE (`flasht5_tpu_torch/ops/fused_linear_ce.py`)
+against the JAX package's `fused_linear_cross_entropy`, and the port's
+`t5.forward` with `use_fused_lm_head_ce` against the JAX package's.
+
+Inputs come from a numpy seed and go to both. The JAX op runs its Pallas
+kernels in interpret mode (tests/conftest.py), as tests/test_fused_linear_ce.py
+runs it; the port runs on the CPU, i.e. the plain versions of its kernels.
+
+Tolerances, with their reasons:
+- f32: both sides form the same f32 products and differ only in the order
+  of their sums: loss and z to 1e-5, as the JAX package's own test holds
+  its op; dx and dw to rtol 1e-5, atol 1e-6.
+- bf16 activations: dlogits are rounded to bf16 on both sides, and a value
+  one f32 ulp apart may round to the neighbouring bf16 value (2^-8
+  relative), so dx (bf16) is held to one bf16 ulp of each entry (rtol
+  2^-7) and dw (f32 sums of 64 such terms) to 1e-3 of its largest entry.
+- the model (two encoder and two decoder layers): f32 loss to 1e-5
+  relative, each gradient leaf to 1e-4 of its largest entry.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flasht5_tpu.config import FlashT5Config as JaxConfig
+from flasht5_tpu.models import t5 as jt5
+from flasht5_tpu.ops.fused_linear_ce import (
+    fused_linear_cross_entropy as jax_flce)
+from flasht5_tpu_torch.config import FlashT5Config
+from flasht5_tpu_torch.convert import params_from_numpy
+from flasht5_tpu_torch.models import t5
+from flasht5_tpu_torch.ops import fused_linear_ce as flce
+
+# the kwarg cases of tests/test_fused_linear_ce.py
+CASES = [
+    dict(),
+    dict(lse_square_scale=1e-4),
+    dict(label_smoothing=0.1),
+    dict(logit_scale=0.5),
+    dict(lse_square_scale=1e-4, label_smoothing=0.1, logit_scale=2.0),
+]
+CASE_IDS = ["plain", "zloss", "smoothing", "scale", "all"]
+
+
+def _make(rows, d, v, seed=0, ignore_frac=0.25):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, d)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((d, v)) * d ** -0.5).astype(np.float32)
+    labels = rng.integers(0, v, rows).astype(np.int32)
+    labels[rng.random(rows) < ignore_frac] = -100
+    dloss = rng.random(rows).astype(np.float32)
+    dz = rng.random(rows).astype(np.float32)
+    return x, w, labels, dloss, dz
+
+
+def _jax(x, w, labels, dloss, dz, kw, dtype=jnp.float32):
+    def f(x, w):
+        return jax_flce(x, w, jnp.asarray(labels), **kw)
+    (loss, z), vjp = jax.vjp(f, jnp.asarray(x, dtype), jnp.asarray(w))
+    dx, dw = vjp((jnp.asarray(dloss), jnp.asarray(dz)))
+    return [np.asarray(a, np.float32) for a in (loss, z, dx, dw)]
+
+
+def _port(x, w, labels, dloss, dz, kw, dtype=torch.float32):
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    loss, z = flce.fused_linear_cross_entropy(xt, wt, torch.from_numpy(labels),
+                                              **kw)
+    torch.autograd.backward((loss, z), (torch.from_numpy(dloss),
+                                        torch.from_numpy(dz)))
+    assert xt.grad.dtype == dtype and wt.grad.dtype == torch.float32
+    return [a.detach().float().numpy()
+            for a in (loss, z, xt.grad, wt.grad)]
+
+
+@pytest.mark.parametrize("kw", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("shape", [(64, 128, 384), (48, 128, 512),
+                                   (37, 128, 300)],
+                         ids=["64x128x384", "48x128x512", "ragged"])
+def test_op_matches_jax(kw, shape):
+    args = _make(*shape)
+    loss, z, dx, dw = _port(*args, kw)
+    jloss, jz, jdx, jdw = _jax(*args, kw)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(z, jz, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dx, jdx, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(dw, jdw, rtol=1e-5, atol=1e-6)
+
+
+def test_bf16_activations_match_jax():
+    args = _make(64, 128, 384)
+    kw = dict(lse_square_scale=1e-4)
+    loss, z, dx, dw = _port(*args, kw, dtype=torch.bfloat16)
+    jloss, jz, jdx, jdw = _jax(*args, kw, dtype=jnp.bfloat16)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(z, jz, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dx, jdx, rtol=2.0 ** -7, atol=0)
+    np.testing.assert_allclose(dw, jdw, rtol=0,
+                               atol=1e-3 * np.abs(jdw).max())
+
+
+def test_all_rows_ignored():
+    x, w, _, dloss, dz = _make(16, 128, 256)
+    labels = np.full(16, -100, np.int32)
+    loss, z, dx, dw = _port(x, w, labels, dloss, dz,
+                            dict(lse_square_scale=1e-4))
+    jloss, jz, jdx, jdw = _jax(x, w, labels, dloss, dz,
+                               dict(lse_square_scale=1e-4))
+    for got, want in ((loss, jloss), (z, jz), (dx, jdx), (dw, jdw)):
+        assert not np.any(got) and not np.any(want)
+
+
+def test_plain_versions_are_the_kernels_functions():
+    """The forward's plain lse against logsumexp of the materialized
+    logits, and the wrappers on CPU tensors taking the plain versions."""
+    x, w, labels, dloss, dz = _make(40, 64, 200)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    lse, total = flce.fused_linear_ce_fwd(xt, wt, logit_scale=2.0,
+                                          label_smoothing=0.1)
+    logits = (xt @ wt) * 2.0
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), rtol=1e-6,
+                               atol=1e-5)
+    torch.testing.assert_close(total, logits.sum(-1), rtol=1e-5, atol=1e-4)
+    assert flce.fused_linear_ce_fwd(xt, wt)[1] is None
+
+
+# ---------------------------------------------------------------------------
+# the model with use_fused_lm_head_ce
+# ---------------------------------------------------------------------------
+
+TINY = dict(vocab_size=384, d_model=64, d_kv=16, num_heads=4, d_ff=128,
+            num_layers=2, num_decoder_layers=2, dropout_rate=0.0,
+            z_loss=1e-4, pad_token_id=0, dtype="float32",
+            use_fused_lm_head_ce=True)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_model_loss_and_gradients_match_jax(smoothing):
+    jcfg = JaxConfig(**TINY, label_smoothing=smoothing)
+    cfg = FlashT5Config(**TINY, label_smoothing=smoothing)
+    jparams = jt5.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(2, 384, (2, 24)).astype(np.int32)
+    labels = rng.integers(2, 384, (2, 12)).astype(np.int32)
+    labels[:, -3:] = -100
+
+    def loss_fn(p):
+        return jt5.forward(jcfg, p, input_ids=jnp.asarray(ids),
+                           labels=jnp.asarray(labels))["loss"]
+    jloss, jgrads = jax.value_and_grad(loss_fn)(jparams)
+
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               device="cpu")
+    leaves = t5.tree_leaves_with_path(params)
+    for _, p in leaves:
+        p.requires_grad_(True)
+    out = t5.forward(cfg, params, input_ids=torch.from_numpy(ids),
+                     labels=torch.from_numpy(labels))
+    assert "logits" not in out          # not computed: the loss needs none
+    out["loss"].backward()
+    np.testing.assert_allclose(float(out["loss"].detach()), float(jloss),
+                               rtol=1e-5)
+    want = jax.tree_util.tree_leaves_with_path(jgrads)
+    assert [p for p, _ in leaves] == [jax.tree_util.keystr(p)
+                                      for p, _ in want]
+    for (path, p), (_, g) in zip(leaves, want):
+        g = np.asarray(g, np.float32)
+        np.testing.assert_allclose(p.grad.numpy(), g, rtol=0,
+                                   atol=1e-4 * np.abs(g).max(), err_msg=path)
+
+
+def test_model_logits_on_demand():
+    """Reading out["logits"] on the fused path computes the unfused path's
+    logits; the unfused path returns them at once."""
+    cfg = FlashT5Config(**TINY)
+    params = t5.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(2, 384, (2, 16)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(2, 384, (2, 8)).astype(np.int32))
+    with torch.no_grad():
+        fused = t5.forward(cfg, params, input_ids=ids, labels=labels)
+        plain = t5.forward(cfg.replace(use_fused_lm_head_ce=False), params,
+                           input_ids=ids, labels=labels)
+    assert "logits" not in fused and "logits" in plain
+    torch.testing.assert_close(fused["logits"], plain["logits"])
+    assert "logits" in fused
+    # the unfused path here means over the non-ignored rows, the fused one
+    # over all rows; no label is ignored, so the two agree
+    torch.testing.assert_close(fused["loss"], plain["loss"], rtol=1e-5,
+                               atol=1e-6)

@@ -332,8 +332,7 @@ def test_trainer_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError):
             Trainer(cfg, TrainerConfig(**kw), device="cpu")
     with pytest.raises(NotImplementedError):
-        Trainer(cfg.replace(use_fused_lm_head_ce=True), TrainerConfig(),
-                device="cpu")
+        Trainer(cfg.replace(tp_axis="model"), TrainerConfig(), device="cpu")
     with pytest.raises(ValueError):
         Trainer(cfg, TrainerConfig(), device="meta")
 
