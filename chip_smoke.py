@@ -17,7 +17,9 @@ of JAX. In order:
    never calls; for the fused lm_head+CE kernels the two calls F.linear
    and F.cross_entropy, with the port's own unfused path beside them);
    each output is held entry by entry to a stated limit, and
-   faults planted in the attention backward (the bucket one above), the
+   faults planted in the attention forward (the keys rolled by one
+   position), `quant_matmul` at prefill (each column's scales taken from
+   its neighbour), the attention backward (the bucket one above), the
    cross-entropy backward (its small entries flushed or doubled), the
    paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
@@ -52,14 +54,16 @@ of JAX. In order:
    10 steps each, the two in turns, each with the launch counts set to 0
    just before and read just after; each kernel of a path must have
    launched in each of its loops, every loss must be finite and the loss
-   must fall; then each step's device time, its kernels by name and the
-   optimizer's launches;
-10. scores a FAT5-small checkpoint (seeded weights, written as FAT5-named
-   safetensors by the port's exporter to a temporary directory) through
-   `quality.main` on the card: full precision on the fused lm_head+CE
-   forward, int8 and fp8, per-channel and g64, on `quant_matmul`; the
-   full-precision perplexity must match the CPU's (the plain versions)
-   within a stated limit, and a planted fault must not;
+   must fall; then each step's device time (the sum of one profiled
+   step's kernel times), its kernels by name and the optimizer's launches;
+10. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
+   12 heads, vocabulary 32128: the fused lm_head+CE kernels in chunks of
+   d), seeded weights written as FAT5-named safetensors by the port's
+   exporter to a temporary directory, through `quality.main` on the card:
+   full precision on the fused lm_head+CE forward, int8 and fp8,
+   per-channel and g64, on `quant_matmul`; the full-precision perplexity
+   must match the CPU's (the plain versions) within a stated limit, and a
+   planted fault must not;
 11. runs the pretraining driver (`train.cli.run`) on
    `configs/fr/fat5-fr-small.yaml` at full width, batch 64 x (1024 + 256),
    `pallas` attention on the three bias kernels: 4 steps with a checkpoint,
@@ -68,8 +72,8 @@ of JAX. In order:
    and corpus); every kernel of the path must launch in each run, losses
    be finite and the restored state bit-equal to the saved one; then
    tokens/s as the trainer logs it and between synchronized clock readings,
-   the collator's time, a step's wall and device time, its kernels, peak
-   memory;
+   the collator's time, a step's wall and device time (its profiled
+   kernels' sum), its kernels, peak memory;
 12. prints JSON lines of the serving, paged serving, training, scoring and
    pretraining results and of the kernels (each with its launches in each
    path that runs it, and their sum), the
@@ -169,6 +173,16 @@ def copies_for(make, n_bytes: int):
 # kernel checks
 # ---------------------------------------------------------------------------
 
+def _keys_rolled():
+    """A planted fault of an attention forward: the kernel on its keys
+    rolled by one position (q, k, v first in its arguments)."""
+    def fault(q, k, v, *rest):
+        from flasht5_tpu_torch.ops import flash_attention_rpe
+        return flash_attention_rpe.flash_attention_rpe_fwd(
+            q, torch.roll(k, 1, dims=2), v, *rest)
+    return ("the keys rolled by one position", fault)
+
+
 def check_kernels(dev):
     """Each case's `make()` gives one input set: (kernel args, library
     args); the kernel and its plain version take the first, the library
@@ -231,15 +245,21 @@ def check_kernels(dev):
             q, k, v, attn_mask=bias, scale=1.0),
         atol=2e-2, rtol=BF16_ULP, bytes=nbytes(q, k, v, table) + nbytes(q)
         + b * h * s * 4 + (2 * s - 1) * 4, ops=4 * b * h * s * s * d,
-        ops_type="bf16", main=True,
+        ops_type="bf16", main=True, faults=[_keys_rolled()],
         why="bf16 output and P rounded to bf16 against per-tile maxima"))
 
     # -- C. quant_matmul (CUDA): every projection and the lm_head ---------
-    def qmm_case(m, k_dim, n, label, main=False):
+    def scales_rolled(x, qt):
+        """A planted fault: each column's scales taken from its neighbour."""
+        return quant.quant_matmul(x, quant.QuantizedTensor(
+            qt.qvalues, torch.roll(qt.scales, 1, dims=-1)))
+
+    def qmm_case(m, k_dim, n, label, main=False, group_size=None):
         def make():
             x = randn(m, k_dim)
             qt = quant.quantize_int8(
-                randn(k_dim, n, dtype=torch.float32, scale=k_dim ** -0.5))
+                randn(k_dim, n, dtype=torch.float32, scale=k_dim ** -0.5),
+                group_size)
             return (x, qt), (x, quant.dequantize(qt, torch.bfloat16))
         (x, qt), _ = make()
         cases.append(dict(
@@ -250,6 +270,8 @@ def check_kernels(dev):
             atol=1e-3, rtol=BF16_ULP,
             bytes=nbytes(x, qt.qvalues, qt.scales) + m * n * 2,
             ops=2 * m * k_dim * n, ops_type="bf16", main=main,
+            faults=([("the scales of each column taken from its neighbour",
+                      scales_rolled)] if m > 32 else []),
             why="bf16 output: one bf16 ulp, and fp32 sums in another order"))
 
     qmm_case(8, 512, 32768, "decode lm_head x (8, 512) @ int8 (512, 32768)")
@@ -262,6 +284,8 @@ def check_kernels(dev):
     qmm_case(4096, 512, 512, "prefill Wq/Wk/Wv/o x (4096, 512) @ int8 "
              "(512, 512)")
     qmm_case(4096, 2048, 512, "prefill wo x (4096, 2048) @ int8 (2048, 512)")
+    qmm_case(4096, 2048, 512, "prefill wo x (4096, 2048) @ int8 (2048, 512), "
+             "scale groups of 64 (scoring's g64)", group_size=64)
 
     # -- D. decode_attention (CUDA): decoder self- and cross-attention ----
     def dec_case(L, lengths, with_bias, label, main=False):
@@ -1250,8 +1274,8 @@ def check_training_kernels(dev):
             atol=2e-2, rtol=BF16_ULP, bytes=nbytes(q, k, v) + nbytes(q)
             + TRAIN_B * 8 * m_len * 4 + (nbytes(w) if table else 0),
             ops=4 * TRAIN_B * 8 * m_len * TRAIN_ENC * 64, ops_type="bf16",
-            main=False, why="bf16 output and P rounded to bf16 against "
-                            "per-tile maxima"))
+            main=False, faults=[_keys_rolled()],
+            why="bf16 output and P rounded to bf16 against per-tile maxima"))
 
     fwd_case(TRAIN_ENC, True, "encoder forward q,k,v (8,8,1024,64) bf16, "
              "bidirectional, table")
@@ -1566,8 +1590,7 @@ def check_flce_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = []
 
-    def shape_cases(rows, v, x_dtype, kw, label, main, faults):
-        d = 512
+    def shape_cases(rows, v, x_dtype, kw, label, main, faults, d=512):
         fkw = dict(logit_scale=kw.get("logit_scale", 1.0),
                    label_smoothing=kw.get("label_smoothing", 0.0))
         ls = kw.get("label_smoothing", 0.0)
@@ -1677,6 +1700,14 @@ def check_flce_kernels(dev):
                 "ragged: x (300, 512) f32 @ w (512, 32128) f32, smoothing "
                 "0.1, logit_scale 2, a quarter of the rows ignored",
                 main=False, faults=True)
+    # the FAT5-base scoring's width (d 768, the flan vocabulary) and the
+    # FAT5-XL width (d 2048) at the train step's rows: chunks of d
+    shape_cases(SCORING_ROWS, 32128, torch.bfloat16, zkw,
+                "FAT5-base scoring: x (256, 768) bf16 @ w (768, 32128) f32",
+                main=False, faults=True, d=768)
+    shape_cases(TRAIN_B * TRAIN_DEC, 32128, torch.bfloat16, zkw,
+                "FAT5-XL width: x (2048, 2048) bf16 @ w (2048, 32128) f32, "
+                "z-loss 1e-4", main=False, faults=True, d=2048)
     return run_checks(cases)
 
 
@@ -1878,22 +1909,6 @@ def _kernels_by_name(fn):
     return by_name
 
 
-def _step_device_ms(trainer, db, wall_ms):
-    """Mean device time of 3 steps, each queued behind a sleep so the
-    device never waits for the host (as the decode step's is measured)."""
-    busys = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * wall_ms + 5.0)))
-        start.record()
-        trainer._step(db)
-        end.record()
-        end.synchronize()
-        busys.append(start.elapsed_time(end))
-    return sum(busys) / 3
-
-
 def run_training(dev):
     """The training path: `Trainer(flagship_config(), ...).train(batches)`
     on one random batch of 8 x (1024 + 256) tokens repeated, AdamWScale at
@@ -1974,14 +1989,14 @@ def run_training(dev):
     db = trainers["unfused"]._device_batch(batch)
     steps = {}
     for way, trainer in trainers.items():
-        step_wall = median[way]["seconds"] / 10 * 1e3
-        step = dict(wall_ms=step_wall,
-                    device_ms=_step_device_ms(trainer, db, step_wall))
-        step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
-        # the kernels of one step by name and device time
+        step = dict(wall_ms=median[way]["seconds"] / 10 * 1e3)
+        # the kernels of one step by name and device time; the step's
+        # device time is their sum (a step queued behind a sleep overstated
+        # it where the host could not queue the step within the sleep)
         by_name = _kernels_by_name(lambda: trainer._step(db))
         step["kernels_per_step"] = sum(n for _, n in by_name.values())
-        step["kernel_ms_per_step"] = sum(t for t, _ in by_name.values())
+        step["device_ms"] = sum(t for t, _ in by_name.values())
+        step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
         if way == "unfused":       # the optimizer's launches alone
             opt_kernels = _kernels_by_name(trainer.optimizer.step)
             step["optimizer_launches"] = sum(
@@ -1990,8 +2005,8 @@ def run_training(dev):
                 t for t, _ in opt_kernels.values())
         prefix = "train step" if way == "unfused" else "fused train step"
         print(f"{prefix}: {json.dumps(step)} (wall: median loop / 10; "
-              f"device: mean of 3 steps queued behind a sleep; kernels: one "
-              f"profiled step)", flush=True)
+              f"device: the sum of one profiled step's kernel times)",
+              flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
         print(f"profile of one {prefix}: " + json.dumps(
             [{"name": name[:80], "ms": t, "launches": n}
@@ -2032,9 +2047,20 @@ def run_training(dev):
 SCORING_TOL = 2e-3
 
 
-def run_scoring(dev):
+def flan_base_config():
+    """FAT5-flan-base's widths (configs/flan/fat5-flan-base.yaml: d_model
+    768, d_kv 64, d_ff 2048, 12 heads, 12 + 12 layers, the flan-t5
+    vocabulary of 32128) on FAT5-small's other settings; what the
+    checkpoint mode reads back from the file's shapes is the same."""
+    from flasht5_tpu_torch import flagship_config
+    return flagship_config().replace(d_model=768, num_heads=12,
+                                     vocab_size=32128)
+
+
+def run_scoring(dev, model="FAT5-small"):
     """The scoring path at full width: a FAT5-named safetensors file of
-    `init_params(flagship_config(), seed=0)` written by the port's exporter
+    `init_params(config, seed=0)` (`flagship_config()` for FAT5-small,
+    `flan_base_config()` for FAT5-flan-base) written by the port's exporter
     to a temporary directory, then `quality.main([file])` on the card (the
     full-precision perplexity on the fused lm_head+CE forward kernel, the
     four quantized variants on `quant_matmul`), with the launch counts set
@@ -2050,10 +2076,12 @@ def run_scoring(dev):
     from flasht5_tpu_torch.models import t5
     from flasht5_tpu_torch.ops import fused_linear_ce as flce
 
+    model_config = {"FAT5-small": flagship_config,
+                    "FAT5-flan-base": flan_base_config}[model]()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "fat5-small.safetensors")
+        path = os.path.join(tmp, "checkpoint.safetensors")
         t0 = time.perf_counter()
-        params = t5.init_params(flagship_config(), seed=0, device=dev)
+        params = t5.init_params(model_config, seed=0, device=dev)
         safetensors_file.save_file(params_to_fat5_state_dict(params), path)
         del params
         write_s = time.perf_counter() - t0
@@ -2083,6 +2111,11 @@ def run_scoring(dev):
 
         card_params = load_fat5_safetensors(path, device=dev)
         config = quality.checkpoint_config(card_params)
+        if (config.d_model, config.num_heads, config.vocab_size) != (
+                model_config.d_model, model_config.num_heads,
+                model_config.vocab_size):
+            raise AssertionError(f"{model}: the checkpoint reads back as "
+                                 f"{config}")
         batches = quality.checkpoint_batches(config)
         ppl_card = quality.eval_ppl(config, card_params, batches)
         # the scoring's wall time on the fused and the unfused path, in
@@ -2117,23 +2150,24 @@ def run_scoring(dev):
         del cpu_params
     gap = abs(ppl_card - ppl_cpu) / ppl_cpu
     fault_gap = abs(ppl_fault - ppl_cpu) / ppl_cpu
-    print(f"scoring: FAT5-small checkpoint {size} B written in "
+    print(f"scoring: {model} checkpoint {size} B written in "
           f"{write_s:.3f} s; quality.main on the card {main_s:.3f} s; "
           f"launches {json.dumps({k: launches[k] for k in SCORING})}; "
           f"full-precision ppl card {ppl_card} cpu {ppl_cpu} (cpu "
           f"{cpu_s:.3f} s): relative gap {gap} (tol {SCORING_TOL}); planted "
           f"fault (last vocab split dropped): ppl {ppl_fault}, gap "
           f"{fault_gap}", flush=True)
-    print("scoring wall ms per eval_ppl (4 batches of 4 x (128 + 64)), "
-          "fused vs unfused lm_head+CE, in turns: " + json.dumps(walls),
-          flush=True)
+    print(f"scoring ({model}) wall ms per eval_ppl (4 batches of 4 x (128 "
+          f"+ 64)), fused vs unfused lm_head+CE, in turns: "
+          + json.dumps(walls), flush=True)
     if not gap <= SCORING_TOL:
-        raise AssertionError(f"scoring: card perplexity {ppl_card} vs cpu "
-                             f"{ppl_cpu}")
+        raise AssertionError(f"scoring {model}: card perplexity {ppl_card} "
+                             f"vs cpu {ppl_cpu}")
     if not fault_gap > SCORING_TOL:
-        raise AssertionError(f"scoring: planted fault within the tolerance "
-                             f"({fault_gap})")
-    result = dict(lines=lines, ppl_card=ppl_card, ppl_cpu=ppl_cpu,
+        raise AssertionError(f"scoring {model}: planted fault within the "
+                             f"tolerance ({fault_gap})")
+    result = dict(model=model, d_model=config.d_model, lines=lines,
+                  ppl_card=ppl_card, ppl_cpu=ppl_cpu,
                   relative_gap=gap, fault_gap=fault_gap,
                   checkpoint_bytes=size, write_s=write_s, main_s=main_s,
                   cpu_s=cpu_s, eval_wall_ms=walls)
@@ -2336,8 +2370,8 @@ def run_pretraining(dev):
           f"{collator.max_labels_length}); non-pad shares "
           f"{json.dumps(shares)}", flush=True)
 
-    # one step's wall time (each ended by a synchronize), its device time
-    # (queued behind a sleep), and its kernels by name
+    # one step's wall time (each ended by a synchronize), and its kernels
+    # by name, whose sum is its device time
     db = trainer._device_batch(sample[0])
     walls = []
     for _ in range(3):
@@ -2346,26 +2380,14 @@ def run_pretraining(dev):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     step = dict(wall_ms=sorted(walls)[1])
-    busys = []
-    for _ in range(2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * step["wall_ms"]
-                                                  + 5.0)))
-        start.record()
-        trainer._step(db)
-        end.record()
-        end.synchronize()
-        busys.append(start.elapsed_time(end))
-    step["device_ms"] = sum(busys) / len(busys)
-    step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
     by_name = _kernels_by_name(lambda: trainer._step(db))
     step["kernels_per_step"] = sum(n for _, n in by_name.values())
-    step["kernel_ms_per_step"] = sum(t for t, _ in by_name.values())
+    step["device_ms"] = sum(t for t, _ in by_name.values())
+    step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     print(f"pretrain step: {json.dumps(step)} (wall: median of 3 steps; "
-          f"device: mean of 2 steps queued behind a sleep; kernels: one "
-          f"profiled step); peak memory {peak} B", flush=True)
+          f"device: the sum of one profiled step's kernel times); peak "
+          f"memory {peak} B", flush=True)
     print("profile of one pretrain step: " + json.dumps(
         [{"name": name[:80], "ms": t, "launches": n}
          for name, (t, n) in top]), flush=True)
@@ -2482,6 +2504,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     scored_launches, scored = run_scoring(dev)
     torch.cuda.empty_cache()
+    wide_launches, wide_scored = run_scoring(dev, "FAT5-flan-base")
+    torch.cuda.empty_cache()
     pretrain_launches, pretrained = run_pretraining(dev)
 
     kernels = []
@@ -2499,6 +2523,7 @@ def main() -> int:
             by_path["pretraining"] = pretrain_launches[name]
         if name in SCORING:
             by_path["scoring"] = scored_launches[name]
+            by_path["scoring_flan_base"] = wide_launches[name]
         if name in FUSED_TRAINING:
             by_path["fused_training"] = fused_launches[name]
         # launches_by_path: each path's median run (the slot engine's, the
@@ -2517,6 +2542,7 @@ def main() -> int:
     print(json.dumps({"paged_engine": paged}))
     print(json.dumps({"training": trained}))
     print(json.dumps({"scoring": scored}))
+    print(json.dumps({"scoring_flan_base": wide_scored}))
     print(json.dumps({"pretraining": pretrained}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,9 +3,18 @@
 // and the backward's dK/dV and dQ kernels (flash_attention_bwd.cu,
 // flash_attention_bias.cu).
 //
-// - fwd: one CTA per (64-row query tile, head, batch), four threads per query
-//   row, K/V tiles of 64 rows streamed through shared memory, online softmax
-//   in fp32; writes o and lse (-1e30 for a row with no visible key).
+// - fwd_mma (bf16, the main path's forward): one CTA per (128-row query
+//   tile, head, batch), 8 warps of 16 query rows (FlashAttention-2's
+//   layout). Q lives in registers as mma.sync A fragments (ldmatrix once);
+//   K/V tiles of 64 keys, and the bias tile where the source stages one,
+//   run through a 2-stage cp.async ring; S = Q K^T and O += P V are
+//   mma.sync m16n8k16 bf16 -> f32 (mma.cuh), the online softmax runs on the
+//   S accumulator in f32, and P goes from that accumulator to PV's A
+//   fragments in registers, never through shared memory.
+// - fwd (f32 inputs): the CUDA-core form, one CTA per (64-row query tile,
+//   head, batch), four threads per query row, K/V tiles of 64 rows in
+//   shared memory, online softmax in fp32 (the port uses no TF32).
+//   Both write o and lse (-1e30, and o = 0, for a row with no visible key).
 // - dkdv: one CTA per (64-key tile, head, batch) keeps its keys' K and V rows
 //   and their dK and dV sums in registers and walks the query tiles. For each
 //   (query row, key) it recomputes P = exp(s * scale + bias - lse) from the
@@ -22,22 +31,27 @@
 // Rounding points mirror the TPU kernels: scores, P, dP and dS in fp32; P
 // rounded to the input type before the PV and P^T dO products, dS rounded to
 // it before the dS^T q and dS k products, sums in fp32, each output rounded
-// once (dQ and dK after the scale).
+// once (dQ and dK after the scale). The bf16 products on the tensor cores
+// are exact in f32 and summed in f32, as on the CUDA cores.
 //
-// The products run on the CUDA cores in fp32: four threads share each key or
-// query row and split D into interleaved float4 chunks, so the four threads
-// of a row read 64 contiguous bytes of a shared-memory row and reduce their
-// partial dots with two shuffles. Moving them onto wgmma is later work; the
-// structure (one operand resident, the other streamed through shared memory)
-// stays.
+// The backward's products (and the f32 forward's) run on the CUDA cores in
+// fp32: four threads share each key or query row and split D into
+// interleaved float4 chunks, so the four threads of a row read 64
+// contiguous bytes of a shared-memory row and reduce their partial dots
+// with two shuffles. Moving them onto the tensor cores is later work; the
+// lse they read from the tensor-core forward differs from the CUDA-core
+// forward's only in the order of f32 sums.
 //
 // A bias source `Bias` is a struct passed by value to the kernels:
 //   smem_floats(M)            floats of shared memory it takes (host side)
 //   init(smem, b, h, H, M, N) once per CTA, before the first tile
-//   stage(i0, j0, M, N)       the bias of the tile pair at query rows i0..,
-//                             keys j0.. into shared memory (the kernel syncs
-//                             before reading it)
-//   at(ii, jj)                the bias of row i0 + ii, key j0 + jj
+//   stage(i0, j0, M, N, buf)  the bias of the tile pair at query rows i0..,
+//                             keys j0.. into shared-memory buffer buf (the
+//                             kernel syncs, and waits for its cp.async
+//                             copies, before reading it)
+//   at(ii, jj, buf)           the bias of row i0 + ii, key j0 + jj
+//   pair(ii, jj, buf)         fwd_mma: at(ii, jj) and at(ii, jj + 1), at
+//                             accumulator-fragment coordinates
 //   keeps_ds()                whether the dK/dV kernel hands it dS
 //   skip(i_begin, j0, M, N)   dK/dV: the rows above i_begin, which a causal
 //                             mask keeps from every key of the tile (dS 0)
@@ -52,6 +66,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace ft5 {
 
@@ -118,66 +133,81 @@ constexpr int kThreads = 256;        // four threads per query / key row
 constexpr int kLd = kBN + 1;         // row stride of the P and dS tiles
 constexpr int kWin = kBM + kBN - 1;  // offsets col - row one tile pair spans
 constexpr int kMaxBuckets = kThreads;
+constexpr int kFwdBM = 128;          // query rows per CTA of fwd_mma_kernel
+constexpr int kFwdThreads = kFwdBM * 2;  // a warp per 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The T5 bias read from the (num_buckets, H) bucket table through the
 // (M + N - 1,) int32 bucket of every offset col - row (bucket[col - row +
 // M - 1], computed on the CPU, so no log is evaluated here); no bias when
-// the table is null. Each tile pair stages the kWin-entry window of the
-// offsets it spans. With dw_part, the dK/dV kernel sums dS along each
+// the table is null. Each tile pair (BM query rows, kBN keys) stages the
+// (BM + kBN - 1)-entry window of the offsets it spans, into one of NBUF
+// buffers (two for fwd_mma_kernel, which stages the next tile's window
+// while it reads this one's). With dw_part, the dK/dV kernel sums dS along each
 // diagonal (one offset) of every tile into shared memory and, at the end,
 // those per-offset sums into one row of num_buckets floats per CTA through
 // the bucket of each offset; the wrapper sums those rows in a fixed order,
-// so dW is deterministic without global float atomics.
-struct TableBias {
+// so dW is deterministic without global float atomics. NT: the kernel's
+// threads.
+template <int BM, int NBUF, int NT>
+struct TableBiasT {
+  static constexpr int kW = BM + kBN - 1;
   const float* table;  // (num_buckets, H) f32, or null
   const int* bucket;   // (M + N - 1,) int32
   int num_buckets;     // 0 without a table
   float* dw_part;      // (B, H, ceil(N / kBN), num_buckets) f32, or null
   float* ws;           // shared: table[:, h]
-  float* bs;           // shared: the kWin bias window of the tile pair
+  float* bs;           // shared: NBUF bias windows of kW entries
   float* doff;         // shared: sums of dS by offset (dK/dV)
-  int Mp;              // M rounded up to kBM; doff[e] holds offset
+  int Mp;              // M rounded up to BM; doff[e] holds offset
                        // e - (Mp - 1) + j0
 
   static __host__ __device__ int n_off(int M) {
-    return (M + kBM - 1) / kBM * kBM + kBN - 1;
+    return (M + BM - 1) / BM * BM + kBN - 1;
   }
   __host__ int smem_floats(int M) const {
-    return table ? num_buckets + kWin + (dw_part ? n_off(M) : 0) : 0;
+    return table ? num_buckets + NBUF * kW + (dw_part ? n_off(M) : 0) : 0;
   }
   __device__ void init(float* smem, int, int h, int H, int M, int) {
     ws = smem;
     bs = ws + num_buckets;
-    doff = bs + kWin;
-    Mp = (M + kBM - 1) / kBM * kBM;
+    doff = bs + NBUF * kW;
+    Mp = (M + BM - 1) / BM * BM;
     if (!table) return;
-    for (int t = threadIdx.x; t < num_buckets; t += kThreads)
+    for (int t = threadIdx.x; t < num_buckets; t += NT)
       ws[t] = table[t * H + h];
     if (dw_part)
-      for (int t = threadIdx.x; t < n_off(M); t += kThreads) doff[t] = 0.f;
+      for (int t = threadIdx.x; t < n_off(M); t += NT) doff[t] = 0.f;
   }
-  // offsets j0 - i0 - (kBM - 1) .. j0 - i0 + kBN - 1; those outside
+  // offsets j0 - i0 - (BM - 1) .. j0 - i0 + kBN - 1; those outside
   // [-(M - 1), N - 1] only meet masked scores and are clamped
-  __device__ void stage(int i0, int j0, int M, int N) {
+  __device__ void stage(int i0, int j0, int M, int N, int buf = 0) {
     if (!table) return;
-    for (int t = threadIdx.x; t < kWin; t += kThreads) {
-      int gi = j0 - i0 - (kBM - 1) + t + M - 1;
+    for (int t = threadIdx.x; t < kW; t += NT) {
+      int gi = j0 - i0 - (BM - 1) + t + M - 1;
       gi = max(0, min(gi, M + N - 2));
-      bs[t] = ws[bucket[gi]];
+      bs[buf * kW + t] = ws[bucket[gi]];
     }
   }
-  __device__ float at(int ii, int jj) const {
-    return table ? bs[jj - ii + kBM - 1] : 0.f;
+  __device__ float at(int ii, int jj, int buf = 0) const {
+    return table ? bs[buf * kW + jj - ii + BM - 1] : 0.f;
+  }
+  // the bias of keys jj and jj + 1 of row ii
+  __device__ float2 pair(int ii, int jj, int buf) const {
+    if (!table) return make_float2(0.f, 0.f);
+    const float* w = bs + buf * kW + jj - ii + BM - 1;
+    return make_float2(w[0], w[1]);
   }
   __device__ bool keeps_ds() const { return dw_part != nullptr; }
   __device__ void skip(int, int, int, int) {}
-  // thread t sums diagonal t (jj - ii = t - (kBM - 1)) of the tile, in row
+  // thread t sums diagonal t (jj - ii = t - (BM - 1)) of the tile, in row
   // order, into its offset's slot
   __device__ void sink(const float* ds_s, int i0, int, int, int) {
-    for (int t = threadIdx.x; t < kWin; t += kThreads) {
-      const int d0 = t - (kBM - 1);
+    for (int t = threadIdx.x; t < kW; t += kThreads) {
+      const int d0 = t - (BM - 1);
       float acc = 0.f;
-      for (int ii = max(0, -d0); ii < kBM && ii + d0 < kBN; ++ii)
+      for (int ii = max(0, -d0); ii < BM && ii + d0 < kBN; ++ii)
         acc += ds_s[ii * kLd + ii + d0];
       doff[d0 - i0 + Mp - 1] += acc;
     }
@@ -210,6 +240,11 @@ struct TableBias {
     }
   }
 };
+
+// the backward kernels' and the f32 forward's (64-row tiles, one buffer)
+using TableBias = TableBiasT<kBM, 1, kThreads>;
+// the tensor-core forward's
+using TableBiasFwd = TableBiasT<kFwdBM, 2, kFwdThreads>;
 
 template <int D>
 constexpr int fwd_smem_floats() {
@@ -323,6 +358,215 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = 0; e < D / 4; ++e)
     orow[sub + 4 * e] = from_float<T>(acc[e] / l_safe);
   if (sub == 0) lse[bh * M + row] = l_i > 0.f ? m_i + logf(l_safe) : kNegInf;
+}
+
+// The bf16 forward on the tensor cores (FlashAttention-2's layout): one
+// CTA per (kFwdBM = 128 query rows, head, batch), 8 warps of 16 rows. Q is
+// staged once and kept in registers as mma.sync A fragments; K and V tiles
+// of kBN = 64 keys, and the bias tile where the source stages one, run
+// through a 2-stage cp.async ring (the next tile loads while this one is
+// used). S = Q K^T and O += P V are mma.sync m16n8k16 bf16 -> f32, the
+// online softmax works on the S accumulator in f32, and P goes from the S
+// accumulator to the A fragments of PV in registers, rounded to bf16. The
+// bias source is asked for `pair(ii, jj, buf)`, the bias of keys jj and
+// jj + 1 of row ii, at accumulator coordinates.
+template <int D>
+constexpr int fwd_mma_tile_bytes() {
+  return (kFwdBM + 4 * kBN) * (D + 8) * 2;   // Q, and K and V twice
+}
+
+// rows [r0, r0 + R) of a (n_rows, D) bf16 array into a tile of row stride
+// D + 8, by 16-byte cp.async; rows past n_rows are zero-filled
+template <int R, int D>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int r0, int n_rows) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += kFwdThreads) {
+    const int r = idx / kChunks, c = (idx - r * kChunks) * 8;
+    const int row = r0 + r;
+    const bool ok = row < n_rows;
+    mma::cp_async16(dst + r * (D + 8) + c,
+                    src + static_cast<size_t>(ok ? row : 0) * D + c,
+                    ok ? 16 : 0);
+  }
+}
+
+template <int D, typename Bias>
+__global__ void __launch_bounds__(kFwdThreads)
+fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, Bias bias,
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+               int M, int N, float sm_scale, int causal) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kLd = D + 8;      // 16-byte pad: ldmatrix rows hit distinct
+                                  // banks
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);    // kFwdBM x kLd
+  bf16* ks = qs + kFwdBM * kLd;                 // 2 x kBN x kLd
+  bf16* vs = ks + 2 * kBN * kLd;                // 2 x kBN x kLd
+  float* bias_smem = reinterpret_cast<float*>(vs + 2 * kBN * kLd);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;                     // the warp's first row
+  const int i0 = blockIdx.x * kFwdBM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int offset = N - M;                     // bottom-right causal
+  bias.init(bias_smem, b, h, H, M, N);
+  __syncthreads();                              // the bias source's table
+
+  int n_end = N;
+  if (causal) n_end = max(0, min(N, i0 + kFwdBM + offset));
+  const int n_tiles = (n_end + kBN - 1) / kBN;
+  const bf16* kb = k + bh * N * D;
+  const bf16* vb = v + bh * N * D;
+  auto stage = [&](int t) {       // tile t's K, V and bias into buffer t & 1
+    const int buf = t & 1;
+    load_rows_async<kBN, D>(ks + buf * kBN * kLd, kb, t * kBN, N);
+    load_rows_async<kBN, D>(vs + buf * kBN * kLd, vb, t * kBN, N);
+    bias.stage(i0, t * kBN, M, N, buf);
+  };
+  load_rows_async<kFwdBM, D>(qs, q + bh * M * D, i0, M);
+  if (n_tiles > 0) stage(0);
+  mma::cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, j0 = t * kBN;
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();              // tile t (and Q) in shared memory for all
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma::ldsm_x4(qf[kk], qs + (wr + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                      kLd + 16 * kk + 8 * (lane >> 4));
+    }
+    const bf16* kt = ks + buf * kBN * kLd;
+    const bf16* vt = vs + buf * kBN * kLd;
+
+    // S = Q K^T: s[j][2h + e] is row wr + g + 8h, key j0 + 8j + 2tq + e
+    float s[kBN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < kBN / 8; j += 2) {
+        uint32_t bfr[4];
+        mma::ldsm_x4(bfr, kt + (8 * j + (lane & 7) + 8 * (lane >> 4)) * kLd +
+                              16 * kk + 8 * ((lane >> 3) & 1));
+        mma::mma_bf16_16816(s[j], qf[kk], bfr);
+        mma::mma_bf16_16816(s[j + 1], qf[kk], bfr + 2);
+      }
+
+    // scores, masks and the online softmax, row by row (hh), in log2
+    // units (x log2(e)) so that each exponential is one ex2; only a tile
+    // at the keys' end or, causal, on the warp's diagonal masks (rows past
+    // M are computed on zero queries and never stored)
+    const bool edge = j0 + kBN > N ||
+                      (causal && j0 + kBN - 1 > i0 + wr + offset);
+    uint32_t live = 0xffffffffu;  // bit 4j + 2h + e: the score is visible
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ii = wr + g + 8 * hh, row = i0 + ii;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int jj = 8 * j + 2 * tq;
+        const float2 bv = bias.pair(ii, jj, buf);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = (s[j][2 * hh + e] * sm_scale + (e ? bv.y : bv.x)) *
+                    kLog2e;
+          if (edge) {
+            const int col = j0 + jj + e;
+            const bool ok = col < N && (!causal || col <= row + offset);
+            x = ok ? x : kNegInf;
+            live &= ~(static_cast<uint32_t>(!ok) << (4 * j + 2 * hh + e));
+          }
+          s[j][2 * hh + e] = x;
+          mt = fmaxf(mt, x);
+        }
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m_i[hh], mt);
+      const float alpha = exp2f(m_i[hh] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = exp2f(s[j][2 * hh + e] - m_new);
+          if (edge) p = ((live >> (4 * j + 2 * hh + e)) & 1u) ? p : 0.f;
+          s[j][2 * hh + e] = p;
+          psum += p;
+        }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_i[hh] = l_i[hh] * alpha + psum;
+      m_i[hh] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * hh] *= alpha;
+        acc[j][2 * hh + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P rounded to bf16 into the A fragments of each 16 keys
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t bfr[4];
+        mma::ldsm_x4_t(bfr, vt + (16 * kk + (lane & 7) +
+                                  8 * ((lane >> 3) & 1)) * kLd +
+                                 8 * j + 8 * (lane >> 4));
+        mma::mma_bf16_16816(acc[j], pa, bfr);
+        mma::mma_bf16_16816(acc[j + 1], pa, bfr + 2);
+      }
+    }
+    __syncthreads();              // buffer `buf` is free for tile t + 2
+  }
+  mma::cp_async_wait<0>();        // (no tile: only Q was in flight)
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = i0 + wr + g + 8 * hh;
+    if (row >= M) continue;
+    const float l_safe = l_i[hh] > 0.f ? l_i[hh] : 1.f;
+    bf16* orow = o + (bh * M + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+          mma::pack_bf16(acc[j][2 * hh] / l_safe,
+                         acc[j][2 * hh + 1] / l_safe);
+    if (tq == 0)   // m_i in log2 units
+      lse[bh * M + row] =
+          l_i[hh] > 0.f ? m_i[hh] * kLn2 + logf(l_safe) : kNegInf;
+  }
 }
 
 template <typename T, int D, typename Bias>
@@ -466,19 +710,25 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) store_part<T, D>(dq + qrow, sub, dqr, sm_scale);
 }
 
-// kernel<<<grid, kThreads, smem floats, stream>>>(args...), with the dynamic
-// shared memory it needs allowed first
+// kernel<<<grid, threads, smem floats, stream>>>(args...), with the
+// dynamic shared memory it needs allowed first
 template <typename... KArgs, typename... Args>
-cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int smem_floats,
-                   void* stream, Args... args) {
+cudaError_t launch_threads(void (*kernel)(KArgs...), dim3 grid, int threads,
+                           int smem_floats, void* stream, Args... args) {
   const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       args...);
   return cudaGetLastError();
+}
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int smem_floats,
+                   void* stream, Args... args) {
+  return launch_threads(kernel, grid, kThreads, smem_floats, stream,
+                        args...);
 }
 
 template <typename T>
@@ -502,6 +752,34 @@ cudaError_t dispatch(int dtype, int D, F f) {
   if (dtype == kFloat32) return by_dim(Type<float>{});
   if (dtype == kBFloat16) return by_dim(Type<__nv_bfloat16>{});
   return cudaErrorInvalidValue;
+}
+
+// The forward in either form: bf16 on the tensor cores (fwd_mma_kernel on
+// the bias source `mma_bias`), f32 on the CUDA cores (fwd_kernel on
+// `bias`; the port uses no TF32).
+template <typename Bias, typename MmaBias>
+cudaError_t launch_fwd(const Bias& bias, const MmaBias& mma_bias, int dtype,
+                       const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int M, int N, int D,
+                       float sm_scale, int causal, void* stream) {
+  return dispatch(dtype, D, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(d)::value;
+    const T* tq = static_cast<const T*>(q);
+    const T* tk = static_cast<const T*>(k);
+    const T* tv = static_cast<const T*>(v);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_threads(
+          fwd_mma_kernel<kD, MmaBias>, dim3((M + kFwdBM - 1) / kFwdBM, H, B),
+          kFwdThreads, fwd_mma_tile_bytes<kD>() / 4 + mma_bias.smem_floats(M),
+          stream, tq, tk, tv, mma_bias, static_cast<T*>(o), lse, H, M, N,
+          sm_scale, causal);
+    else
+      return launch(fwd_kernel<T, kD, Bias>, dim3((M + kBM - 1) / kBM, H, B),
+                    fwd_smem_floats<kD>() + bias.smem_floats(M), stream, tq,
+                    tk, tv, bias, static_cast<T*>(o), lse, H, M, N, sm_scale,
+                    causal);
+  });
 }
 
 // grids: one CTA per query tile (fwd, dq) or key tile (dkdv), head, batch

@@ -6,16 +6,23 @@
 // _fwd_kernel (:90, pallas_call :325) with has_bias, the dK/dV + dbias kernel
 // _bwd_dkv_kernel (:395, pallas_call :766, want_dbias) and the dQ kernel
 // _bwd_dq_kernel (:561, pallas_call :798) given the bias. The three are
-// attention.cuh's fwd_kernel, dkdv_kernel and dq_kernel, the bodies the RPE
-// kernels run, on the bias source below (TensorBias).
+// attention.cuh's forward (fwd_mma_kernel for bf16, fwd_kernel for f32),
+// dkdv_kernel and dq_kernel, the bodies the RPE kernels run, on the bias
+// source below (TensorBiasT).
 //
 // The bias is (B|1, H|1, M, N) f32 with a contiguous last axis, read through
 // its batch, head and row strides: a stride of 0 broadcasts that axis, so a
 // (1, H, M, N) bias is never expanded in memory. Every tile pair stages its
-// (64 x 64) block of the bias into shared memory with coalesced row reads,
-// in place of the RPE kernels' 127-entry window gathered from the table. The
-// block's row stride is 68 floats: the forward's and dQ's warps read 8 rows
-// of it at once, and 68 puts those rows in distinct banks.
+// block of the bias into shared memory, in place of the RPE kernels' window
+// gathered from the table: the backward (and the f32 forward) a 64 x 64
+// block by coalesced row reads, row stride 68 floats (their warps read 8
+// rows at once, four threads a row: 68 puts those rows in distinct banks);
+// the bf16 forward (attention.cuh's fwd_mma_kernel) a 128 x 64 block (32
+// KB) as part of its 2-stage cp.async ring, 16-byte copies zero-filled
+// past N where the bias rows are 16-byte aligned (plain loads where they
+// are not), row stride 72 floats: it reads (row, key pair) float2s at the
+// accumulator fragments' coordinates, 8 rows by 4 pairs a warp, and 72 (8
+// mod 32 words) puts each half warp's pairs in distinct banks.
 //
 // dbias: the dK/dV kernel writes dS (fp32) of every (batch, head, row, col)
 // into a (B, H, M, N) array, each tile from shared memory with coalesced row
@@ -29,9 +36,10 @@
 // the dK/dV kernel does 8 B H M N D (QK^T, dO V^T, P^T dO, dS^T q) and the
 // dQ kernel 6 B H M N D. The per-batch dbias adds 2.1 GB of writes (and the
 // wrapper's reduction reads them again) that a (1, H, M, N) dbias does not
-// need. These first forms do the products on the CUDA cores in fp32, like
-// the RPE kernels; wgmma, and reducing dbias over the batch on chip, are
-// later work.
+// need. The bf16 forward runs on the tensor cores (mma.sync, see
+// attention.cuh); the backward kernels do their products on the CUDA cores
+// in fp32. Tensor cores for the backward, and reducing dbias over the batch
+// on chip, are later work.
 
 #include "attention.cuh"
 
@@ -39,34 +47,61 @@ using namespace ft5::attn;
 
 namespace {
 
-constexpr int kTileLd = kBN + 4;
-
-struct TensorBias {
+// A (BM x kBN) bias tile per tile pair, row stride LD floats, in NBUF
+// buffers. The backward kernels (and the f32 forward) read it four threads
+// to a row, 8 rows at once: LD 68 puts those rows in distinct banks. The
+// tensor-core forward reads (row g, keys 2 tq, 2 tq + 1) pairs at
+// accumulator coordinates, 8 rows by 4 pairs: LD 72 (8 mod 32 words) puts
+// each half warp's 64-bit reads in distinct banks. With two buffers the
+// tile is part of the forward's cp.async ring (16-byte copies where the
+// bias rows allow them, zero-filled past N). NT: the kernel's threads.
+template <int BM, int LD, int NBUF, int NT>
+struct TensorBiasT {
   const float* ptr;        // the bias
   long long sb, sh, sm;    // element strides of batch, head, row (0 on a
                            // broadcast axis); the last axis is contiguous
   float* dbias;            // dK/dV: (B, H, M, N) f32, or null
+  bool vec;                // rows 16-byte aligned: cp.async can copy them
   const float* base;       // the (b, h) plane of the bias
   float* db;               // the (b, h) plane of dbias
-  float* bt;               // shared: kBM x kTileLd, the tile pair's bias
+  float* bt;               // shared: NBUF x BM x LD, the tile pair's bias
 
-  __host__ int smem_floats(int) const { return kBM * kTileLd; }
+  __host__ int smem_floats(int) const { return NBUF * BM * LD; }
   __device__ void init(float* smem, int b, int h, int H, int M, int N) {
     bt = smem;
     base = ptr + b * sb + h * sh;
     if (dbias) db = dbias + (static_cast<size_t>(b) * H + h) * M * N;
   }
   // entries outside [0, M) x [0, N) only meet masked scores
-  __device__ void stage(int i0, int j0, int M, int N) {
-    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
+  __device__ void stage(int i0, int j0, int M, int N, int buf = 0) {
+    float* dst = bt + buf * BM * LD;
+    if (NBUF > 1 && vec) {
+      for (int idx = threadIdx.x; idx < BM * kBN / 4; idx += NT) {
+        const int r = idx / (kBN / 4), c = (idx - r * (kBN / 4)) * 4;
+        const int row = i0 + r, col = j0 + c;
+        const int n_ok = row < M ? max(0, min(4, N - col)) : 0;
+        ft5::mma::cp_async16(
+            dst + r * LD + c,
+            n_ok ? base + static_cast<long long>(row) * sm + col : base,
+            4 * n_ok);
+      }
+      return;
+    }
+    for (int idx = threadIdx.x; idx < BM * kBN; idx += NT) {
       const int r = idx / kBN, c = idx - r * kBN;
       const int row = i0 + r, col = j0 + c;
-      bt[r * kTileLd + c] =
+      dst[r * LD + c] =
           (row < M && col < N) ? base[static_cast<long long>(row) * sm + col]
                                : 0.f;
     }
   }
-  __device__ float at(int ii, int jj) const { return bt[ii * kTileLd + jj]; }
+  __device__ float at(int ii, int jj, int buf = 0) const {
+    return bt[buf * BM * LD + ii * LD + jj];
+  }
+  __device__ float2 pair(int ii, int jj, int buf) const {
+    return *reinterpret_cast<const float2*>(bt + buf * BM * LD + ii * LD +
+                                            jj);
+  }
   __device__ bool keeps_ds() const { return true; }
   // the rows above i_begin see none of the tile's keys: their dS is 0
   __device__ void skip(int i_begin, int j0, int, int N) {
@@ -76,7 +111,7 @@ struct TensorBias {
     }
   }
   __device__ void sink(const float* ds_s, int i0, int j0, int M, int N) {
-    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < BM * kBN; idx += kThreads) {
       const int r = idx / kBN, c = idx - r * kBN;
       if (i0 + r < M && j0 + c < N)
         db[static_cast<size_t>(i0 + r) * N + j0 + c] = ds_s[r * kLd + c];
@@ -84,6 +119,9 @@ struct TensorBias {
   }
   __device__ void finish(float*, size_t, int, int, int) {}
 };
+
+using TensorBias = TensorBiasT<kBM, kBN + 4, 1, kThreads>;
+using TensorBiasFwd = TensorBiasT<kFwdBM, kBN + 8, 2, kFwdThreads>;
 
 }  // namespace
 
@@ -98,15 +136,11 @@ FT5_EXPORT int ft5_flash_attention_bias_fwd(
     float* lse, int B, int H, int M, int N, int D, float sm_scale, int causal,
     int dtype, void* stream) {
   const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, nullptr};
-  return dispatch(dtype, D, [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int kD = decltype(d)::value;
-    return launch(fwd_kernel<T, kD, TensorBias>, query_grid(B, H, M),
-                  fwd_smem_floats<kD>() + bv.smem_floats(M), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), bv, static_cast<T*>(o), lse, H, M,
-                  N, sm_scale, causal);
-  });
+  const bool vec = reinterpret_cast<uintptr_t>(bias) % 16 == 0 &&
+                   bias_sb % 4 == 0 && bias_sh % 4 == 0 && bias_sm % 4 == 0;
+  const TensorBiasFwd mma_bv{bias, bias_sb, bias_sh, bias_sm, nullptr, vec};
+  return launch_fwd(bv, mma_bv, dtype, q, k, v, o, lse, B, H, M, N, D,
+                    sm_scale, causal, stream);
 }
 
 FT5_EXPORT int ft5_flash_attention_bias_dkv(

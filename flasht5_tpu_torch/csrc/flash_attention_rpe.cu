@@ -11,16 +11,21 @@
 // Bucket exactness: the T5 bucket of an offset is a truncated float32 log
 // that lands exactly on integers at some offsets, so the kernel evaluates no
 // log. The wrapper passes the (M + N - 1,) int32 bucket of every offset
-// col - row, computed once on the CPU, and each tile stages the 127-entry
-// bias window it needs into shared memory (attention.cuh's TableBias).
+// col - row, computed once on the CPU, and each tile pair stages the bias
+// window it needs into shared memory (attention.cuh's TableBiasT).
 //
-// Bound on the H100: at the slice's prefill shape (B 8, H 8, S 512, D 64)
-// the work is 4*B*H*S*S*D = 4.3 GFLOP over about 25 MB of q, k, v and o,
-// so operations bound it at the tensor-core rate. The kernel body is
-// attention.cuh's fwd_kernel: products on the CUDA cores in fp32, one CTA
-// per (64-row q tile, head, batch), four threads per query row, K/V tiles of
-// 64 rows in shared memory, online softmax in fp32. Moving QK^T and PV onto
-// wgmma is the next step.
+// Bound on the H100: at the encoder's shape (B 8, H 8, M = N = 1024, D 64)
+// the work is 4*B*H*M*N*D = 17.2 GFLOP over about 34 MB of q, k, v and o,
+// so operations bound it at the tensor-core rate (0.0174 ms at 989
+// TFLOP/s). bf16 inputs take attention.cuh's fwd_mma_kernel: 128-row query
+// tiles, Q in registers, K/V tiles of 64 keys through a 2-stage cp.async
+// ring, S and PV on mma.sync m16n8k16, P passed in registers. The 191-entry
+// bias window of each (128-row, 64-key) tile pair is gathered from the
+// table in shared memory into one of two buffers while the previous tile
+// is used, and read at the accumulator fragments' coordinates. f32 inputs
+// take fwd_kernel, the CUDA-core form (64-row tiles, 127-entry windows).
+// wgmma with P as a register operand (FlashAttention-3's layout) and a
+// warp-specialized TMA producer are later steps.
 //
 // Rounding points mirror the TPU kernel: scores and the softmax in fp32, P
 // rounded to the input type before the PV product, O rounded once. The
@@ -43,14 +48,9 @@ FT5_EXPORT int ft5_flash_attention_rpe_fwd(
     const void* q, const void* k, const void* v, const float* table,
     const int* bucket, void* o, float* lse, int B, int H, int M, int N, int D,
     int num_buckets, float sm_scale, int causal, int dtype, void* stream) {
-  const TableBias bias{table, bucket, table ? num_buckets : 0, nullptr};
-  return dispatch(dtype, D, [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int kD = decltype(d)::value;
-    return launch(fwd_kernel<T, kD, TableBias>, query_grid(B, H, M),
-                  fwd_smem_floats<kD>() + bias.smem_floats(M), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), bias, static_cast<T*>(o), lse, H,
-                  M, N, sm_scale, causal);
-  });
+  const int nb = table ? num_buckets : 0;
+  const TableBias bias{table, bucket, nb, nullptr};
+  const TableBiasFwd mma_bias{table, bucket, nb, nullptr};
+  return launch_fwd(bias, mma_bias, dtype, q, k, v, o, lse, B, H, M, N, D,
+                    sm_scale, causal, stream);
 }

@@ -13,8 +13,9 @@
 // vectors. Two forms, chosen by x's dtype:
 //
 // - bf16 activations (the train step and scoring paths): mma.sync
-//   m16n8k16 bf16 -> f32 for all three products, operands staged through
-//   shared memory as bf16, K in steps of 32 (logits) or 64 (contractions);
+//   m16n8k16 bf16 -> f32 for all three products (mma.cuh), operands staged
+//   through shared memory as bf16, K in steps of 32 (logits) or 64
+//   (contractions);
 // - f32 activations: CUDA-core f32 FMAs on 4 x 4 (logits) or 4 x 2
 //   (contractions) register tiles, 256 threads a CTA (the port does not
 //   use TF32, so the tensor cores have no f32 form here).
@@ -30,23 +31,35 @@
 //   vocab tiles and writes per-row partial (max, sum of exp, sum of
 //   logits); flce_merge_kernel folds the splits into lse. The split count
 //   (ft5_flce_splits) gives ~4 CTAs an SM: at the scoring batches' 256
-//   label rows there are only 4 row blocks for 132 SMs.
+//   label rows there are only 4 row blocks for 132 SMs. Its operands are
+//   staged one K-step at a time, so it takes any d.
 // - backward, no atomics, the same bits on every run: the dx kernel, a CTA
-//   per (row block, vocab split), loops over the split's vocab tiles and
-//   keeps its (64 x d) dx sums in registers; flce_dx_merge_kernel adds the
-//   splits in order and rounds to x's dtype. The dW kernel, a CTA per vocab
-//   tile, loops over all row blocks and keeps its (d x 64) dW sums in
-//   registers. Both recompute their logits tiles and form dlogits in
-//   registers (probabilities, one-hot label, smoothing, z-loss), rounded
-//   to x's dtype before the contraction, as the TPU kernel does (:159).
+//   per (row block, vocab split, chunk of d), loops over the split's vocab
+//   tiles and keeps its (64 x chunk) dx sums in registers;
+//   flce_dx_merge_kernel adds the splits in order and rounds to x's dtype.
+//   The dW kernel, a CTA per (vocab tile, chunk of d), loops over all row
+//   blocks and keeps its (chunk x 64) dW sums in registers. Both recompute
+//   their logits tiles over the whole d and form dlogits in registers
+//   (probabilities, one-hot label, smoothing, z-loss), rounded to x's dtype
+//   before the contraction, as the TPU kernel does (:159).
 //
-// Rows and vocab columns need not be multiples of the tiles (rows past the
-// end read 0 and count as ignored, columns past V are masked); d must be a
-// multiple of 64 up to 512, which the wrapper checks.
+// Chunks of d: the register sums hold at most 512 columns of d, so a wider
+// d is cut into ceil(d / 512) equal chunks (multiples of 64, the last one
+// masked), one CTA each. Every chunk's CTA recomputes the logits over the
+// whole d: at d 2048 each backward kernel does 4x the logits products of
+// one pass (the dx and dW kernels then do 5 products' work where the
+// function needs 3). That is the price of keeping the sums in registers
+// and no atomics; at d <= 512 there is one chunk and nothing changes.
+//
+// Rows, vocab columns and d need not be multiples of the tiles: rows past
+// the end read 0 and count as ignored, columns past V and d past its end
+// are masked (a d that is not a multiple of 8 is loaded element by element
+// instead of by 16-byte vectors).
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -67,6 +80,8 @@ struct Tiles {                       // one K-step of the logits product
 
 // The (64 x 64) f32 logits tile of rows r0.., columns c0..: thread (ty,
 // tx) = (tid / 16, tid % 16) gets rows ty*4 + i, columns tx*4 + j.
+// kExact: d is a multiple of kBK (no mask on d).
+template <bool kExact>
 __device__ __forceinline__ void logits_tile(float acc[4][4],
                                             const float* __restrict__ x,
                                             const float* __restrict__ w,
@@ -83,14 +98,14 @@ __device__ __forceinline__ void logits_tile(float acc[4][4],
     for (int e = 0; e < kBR * kBK / kThreads; ++e) {
       const int idx = tid + e * kThreads;
       const int r = idx / kBK, k = idx % kBK;
-      s.xs[k][r] = r0 + r < rows
+      s.xs[k][r] = r0 + r < rows && (kExact || k0 + k < d)
           ? x[static_cast<size_t>(r0 + r) * d + k0 + k] : 0.f;
     }
 #pragma unroll
     for (int e = 0; e < kBK * kBV / kThreads; ++e) {
       const int idx = tid + e * kThreads;
       const int k = idx / kBV, c = idx % kBV;
-      s.ws[k][c] = c0 + c < V
+      s.ws[k][c] = c0 + c < V && (kExact || k0 + k < d)
           ? w[static_cast<size_t>(k0 + k) * V + c0 + c] : 0.f;
     }
     __syncthreads();
@@ -129,6 +144,7 @@ __device__ __forceinline__ void split_range(int V, int splits, int split,
   *end = min(n_vt, *begin + per);
 }
 
+template <bool kExact>
 __global__ void __launch_bounds__(kThreads)
 flce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 float* __restrict__ part_m, float* __restrict__ part_se,
@@ -146,7 +162,7 @@ flce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int t = t_begin; t < t_end; ++t) {
     const int c0 = t * kBV;
     float acc[4][4];
-    logits_tile(acc, x, w, r0, c0, rows, d, V, s);
+    logits_tile<kExact>(acc, x, w, r0, c0, rows, d, V, s);
     bool valid[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) valid[j] = c0 + tx * 4 + j < V;
@@ -269,14 +285,17 @@ __device__ __forceinline__ void dlogits_tile(float acc[4][4], const Grad& g,
     }
 }
 
-// dx partial sums of one vocab split: thread (ty, tx) keeps rows ty*4 + i,
-// columns kc*32 + tx*2 + jj of the row block
-template <int NC>
+// dx partial sums of one vocab split and one chunk of d (NC * 32 columns
+// from d0 = blockIdx.z * NC * 32): thread (ty, tx) keeps rows ty*4 + i,
+// columns d0 + kc*32 + tx*2 + jj of the row block. kExact: d = NC * 32,
+// one chunk (d known at compile time, no mask on it).
+template <int NC, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 flce_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               Grad g, float* __restrict__ dx_part, int rows, int V,
-               int splits) {
-  constexpr int d = NC * kBK;
+               Grad g, float* __restrict__ dx_part, int rows, int d_arg,
+               int V, int splits) {
+  const int d = kExact ? NC * kBK : d_arg;
+  const int d0 = kExact ? 0 : blockIdx.z * NC * kBK;
   __shared__ __align__(16) Tiles s;
   __shared__ __align__(16) float dlT[kBV][kBR + kPad];   // dlT[col][row]
   __shared__ __align__(16) float wT[kBV][kBK + kPad];    // wT[col][k]
@@ -297,7 +316,7 @@ flce_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int t = t_begin; t < t_end; ++t) {
     const int c0 = t * kBV;
     float lg[4][4];
-    logits_tile(lg, x, w, r0, c0, rows, d, V, s);
+    logits_tile<kExact>(lg, x, w, r0, c0, rows, d, V, s);
     dlogits_tile(lg, g, q, c0, V);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -310,8 +329,9 @@ flce_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int e = 0; e < kBV * kBK / kThreads; ++e) {
         const int idx = tid + e * kThreads;
         const int k = idx / kBV, c = idx % kBV;
-        wT[c][k] = c0 + c < V
-            ? w[static_cast<size_t>(kc * kBK + k) * V + c0 + c] : 0.f;
+        const int kd = d0 + kc * kBK + k;
+        wT[c][k] = c0 + c < V && (kExact || kd < d)
+            ? w[static_cast<size_t>(kd) * V + c0 + c] : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -334,8 +354,11 @@ flce_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float* out = dx_part + (static_cast<size_t>(split) * rows + r) * d;
 #pragma unroll
     for (int kc = 0; kc < NC; ++kc)
-      *reinterpret_cast<float2*>(out + kc * kBK + tx * 2) =
-          make_float2(acc[kc][i][0], acc[kc][i][1]);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = d0 + kc * kBK + tx * 2 + jj;
+        if (kExact || col < d) out[col] = acc[kc][i][jj];
+      }
   }
 }
 
@@ -352,13 +375,15 @@ __global__ void flce_dx_merge_kernel(const float* __restrict__ dx_part,
   }
 }
 
-// dW of one vocab tile over all row blocks: thread (tk, tx) = (tid / 16,
-// tid % 16) keeps k = kc*32 + tk*2 + kk, columns tx*4 + j
-template <int NC>
+// dW of one vocab tile and one chunk of d over all row blocks: thread
+// (tk, tx) = (tid / 16, tid % 16) keeps k = d0 + kc*32 + tk*2 + kk,
+// columns tx*4 + j
+template <int NC, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 flce_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               Grad g, float* __restrict__ dw, int rows, int V) {
-  constexpr int d = NC * kBK;
+               Grad g, float* __restrict__ dw, int rows, int d_arg, int V) {
+  const int d = kExact ? NC * kBK : d_arg;
+  const int d0 = kExact ? 0 : blockIdx.y * NC * kBK;
   __shared__ __align__(16) Tiles s;
   __shared__ __align__(16) float dls[kBR][kBV + kPad];   // dls[row][col]
   __shared__ __align__(16) float xk[kBR][kBK + kPad];    // xk[row][k]
@@ -378,7 +403,7 @@ flce_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < 4; ++i) q[i] = row_grad(g, r0 + ty * 4 + i, rows);
     float lg[4][4];
-    logits_tile(lg, x, w, r0, c0, rows, d, V, s);
+    logits_tile<kExact>(lg, x, w, r0, c0, rows, d, V, s);
     dlogits_tile(lg, g, q, c0, V);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -391,8 +416,9 @@ flce_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int e = 0; e < kBR * kBK / kThreads; ++e) {
         const int idx = tid + e * kThreads;
         const int r = idx / kBK, k = idx % kBK;
-        xk[r][k] = r0 + r < rows
-            ? x[static_cast<size_t>(r0 + r) * d + kc * kBK + k] : 0.f;
+        const int kd = d0 + kc * kBK + k;
+        xk[r][k] = r0 + r < rows && (kExact || kd < d)
+            ? x[static_cast<size_t>(r0 + r) * d + kd] : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -412,7 +438,9 @@ flce_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int kc = 0; kc < NC; ++kc)
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      float* out = dw + static_cast<size_t>(kc * kBK + ty * 2 + kk) * V;
+      const int kd = d0 + kc * kBK + ty * 2 + kk;
+      if (!kExact && kd >= d) continue;
+      float* out = dw + static_cast<size_t>(kd) * V;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = c0 + tx * 4 + j;
@@ -439,28 +467,11 @@ struct MmaTiles {                      // one K-step of the logits product
   bf16 ws[kT][kTS];                    // w[k][col]
 };
 
+using ft5::mma::ldsm_x4;
+using ft5::mma::ldsm_x4_t;
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+  ft5::mma::mma_bf16_16816(c, a, b);
 }
 
 // The A fragment (16 x 16) at (m0, k0) of a tile stored [m][k].
@@ -541,23 +552,24 @@ __device__ __forceinline__ void stage(bf16 (*dst)[kTS], const TS* src,
 // tile of rows r0.., columns c0..; NT threads stage the operands. In the
 // accumulator layout of m16n8: acc[j][2h + e] is row wrow + g + 8h, column
 // wcol + 8j + 2tq + e (g = lane / 4, tq = lane % 4).
-template <int NT, int WN, typename TW>
+// kExact: d is a multiple of 64 and x's rows are 16-byte aligned.
+template <int NT, int WN, bool kExact, typename TW>
 __device__ __forceinline__ void mma_logits(float acc[WN][4],
                                            const bf16* __restrict__ x,
                                            const TW* __restrict__ w, int r0,
                                            int c0, int rows, int d, int V,
-                                           bool w_vec, MmaTiles& s, int wrow,
-                                           int wcol) {
+                                           bool x_vec, bool w_vec,
+                                           MmaTiles& s, int wrow, int wcol) {
 #pragma unroll
   for (int j = 0; j < WN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   for (int k0 = 0; k0 < d; k0 += kT) {
     __syncthreads();                   // the tiles' last readers are done
-    stage<NT>(s.xs, x + static_cast<size_t>(r0) * d + k0, d, rows - r0, kT,
-              true);
-    stage<NT>(s.ws, w + static_cast<size_t>(k0) * V + c0, V, kT, V - c0,
-              w_vec);
+    stage<NT>(s.xs, x + static_cast<size_t>(r0) * d + k0, d, rows - r0,
+              kExact ? kT : d - k0, kExact || x_vec);
+    stage<NT>(s.ws, w + static_cast<size_t>(k0) * V + c0, V,
+              kExact ? kT : d - k0, V - c0, w_vec);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kT; kk += 16) {
@@ -610,12 +622,13 @@ __device__ __forceinline__ void store_dlogits(bf16 (*dl)[kTS],
 
 constexpr int kFwdMmaThreads = 128;  // 4 warps, each 16 rows x 64 columns
 
-template <typename TW>
+template <typename TW, bool kExact>
 __global__ void __launch_bounds__(kFwdMmaThreads)
 flce_fwd_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
                     float* __restrict__ part_m, float* __restrict__ part_se,
                     float* __restrict__ part_sl, int rows, int d, int V,
-                    int splits, float logit_scale, int smooth, bool w_vec) {
+                    int splits, float logit_scale, int smooth, bool x_vec,
+                    bool w_vec) {
   __shared__ __align__(16) MmaTiles s;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -629,8 +642,8 @@ flce_fwd_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
   for (int t = t_begin; t < t_end; ++t) {
     const int c0 = t * kBV;
     float acc[8][4];
-    mma_logits<kFwdMmaThreads, 8>(acc, x, w, r0, c0, rows, d, V, w_vec, s,
-                                  warp * 16, 0);
+    mma_logits<kFwdMmaThreads, 8, kExact>(acc, x, w, r0, c0, rows, d, V,
+                                          x_vec, w_vec, s, warp * 16, 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float tmax = ft5::kNegInf;
@@ -671,15 +684,17 @@ flce_fwd_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
-// dx partial sums of one vocab split, NCH chunks of 64 columns of d: warp
-// (wr, wc) = (warp / 2, warp % 2) keeps rows 16 wr.., columns 64 ch +
-// 32 wc.. of each chunk
-template <typename TW, int NCH>
+// dx partial sums of one vocab split and one chunk of d (NCH blocks of 64
+// columns from d0 = blockIdx.z * NCH * 64): warp (wr, wc) = (warp / 2,
+// warp % 2) keeps rows 16 wr.., columns d0 + 64 ch + 32 wc.. of each
+// block. kExact: d = NCH * 64, one chunk, x's rows 16-byte aligned.
+template <typename TW, int NCH, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 flce_dx_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
-                   Grad g, float* __restrict__ dx_part, int rows, int V,
-                   int splits, bool w_vec) {
-  constexpr int d = NCH * kT;
+                   Grad g, float* __restrict__ dx_part, int rows, int d_arg,
+                   int V, int splits, bool x_vec, bool w_vec) {
+  const int d = kExact ? NCH * kT : d_arg;
+  const int d0 = kExact ? 0 : blockIdx.z * NCH * kT;
   __shared__ __align__(16) MmaTiles s;
   __shared__ __align__(16) bf16 dls[kT][kTS];   // dl[row][col]
   __shared__ __align__(16) bf16 wd[kT][kTS];    // w[d col][col]
@@ -704,14 +719,15 @@ flce_dx_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
   for (int t = t_begin; t < t_end; ++t) {
     const int c0 = t * kBV;
     float lg[4][4];
-    mma_logits<kThreads, 4>(lg, x, w, r0, c0, rows, d, V, w_vec, s, wrow,
-                            wcol);
+    mma_logits<kThreads, 4, kExact>(lg, x, w, r0, c0, rows, d, V, x_vec,
+                                    w_vec, s, wrow, wcol);
     store_dlogits(dls, lg, g, q, c0, V, wrow, wcol);
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch) {
       __syncthreads();           // dls written; the last wd chunk read
-      stage<kThreads>(wd, w + static_cast<size_t>(ch * kT) * V + c0, V, kT,
-                      V - c0, w_vec);
+      const int k0 = d0 + ch * kT;
+      stage<kThreads>(wd, w + static_cast<size_t>(k0) * V + c0, V,
+                      kExact ? kT : d - k0, V - c0, w_vec);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kT; kk += 16) {
@@ -735,19 +751,29 @@ flce_dx_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float2*>(out + ch * kT + wcol + j * 8 + tq * 2) =
-            make_float2(acc[ch][j][2 * h], acc[ch][j][2 * h + 1]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = d0 + ch * kT + wcol + j * 8 + tq * 2;
+        if (kExact || (col + 1 < d && d % 2 == 0))
+          *reinterpret_cast<float2*>(out + col) =
+              make_float2(acc[ch][j][2 * h], acc[ch][j][2 * h + 1]);
+        else if (col < d) {
+          out[col] = acc[ch][j][2 * h];
+          if (col + 1 < d) out[col + 1] = acc[ch][j][2 * h + 1];
+        }
+      }
   }
 }
 
-// dW of one vocab tile over all row blocks, NCH chunks of 64 rows of dW:
-// warp (wr, wc) keeps d rows 64 ch + 16 wr.., columns 32 wc..
-template <typename TW, int NCH>
+// dW of one vocab tile and one chunk of d (NCH blocks of 64 rows of dW
+// from d0 = blockIdx.y * NCH * 64) over all row blocks: warp (wr, wc)
+// keeps d rows d0 + 64 ch + 16 wr.., columns 32 wc..
+template <typename TW, int NCH, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 flce_dw_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
-                   Grad g, TW* __restrict__ dw, int rows, int V, bool w_vec) {
-  constexpr int d = NCH * kT;
+                   Grad g, TW* __restrict__ dw, int rows, int d_arg, int V,
+                   bool x_vec, bool w_vec) {
+  const int d = kExact ? NCH * kT : d_arg;
+  const int d0 = kExact ? 0 : blockIdx.y * NCH * kT;
   __shared__ __align__(16) MmaTiles s;
   __shared__ __align__(16) bf16 dls[kT][kTS];   // dl[row][col]
   __shared__ __align__(16) bf16 xd[kT][kTS];    // x[row][d col]
@@ -770,14 +796,15 @@ flce_dw_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
     for (int h = 0; h < 2; ++h)
       q[h] = row_grad(g, r0 + wrow + gq + 8 * h, rows);
     float lg[4][4];
-    mma_logits<kThreads, 4>(lg, x, w, r0, c0, rows, d, V, w_vec, s, wrow,
-                            wcol);
+    mma_logits<kThreads, 4, kExact>(lg, x, w, r0, c0, rows, d, V, x_vec,
+                                    w_vec, s, wrow, wcol);
     store_dlogits(dls, lg, g, q, c0, V, wrow, wcol);
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch) {
       __syncthreads();           // dls written; the last xd chunk read
-      stage<kThreads>(xd, x + static_cast<size_t>(r0) * d + ch * kT, d,
-                      rows - r0, kT, true);
+      const int k0 = d0 + ch * kT;
+      stage<kThreads>(xd, x + static_cast<size_t>(r0) * d + k0, d,
+                      rows - r0, kExact ? kT : d - k0, kExact || x_vec);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kT; kk += 16) {
@@ -797,7 +824,9 @@ flce_dw_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      TW* out = dw + static_cast<size_t>(ch * kT + wrow + gq + 8 * h) * V;
+      const int kd = d0 + ch * kT + wrow + gq + 8 * h;
+      if (!kExact && kd >= d) continue;
+      TW* out = dw + static_cast<size_t>(kd) * V;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -808,11 +837,25 @@ flce_dw_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
     }
 }
 
-// ~kTargetCtas CTAs, and no split left without a vocab tile
-int n_splits(int rows, int V) {
+// The backward's chunks of d: ceil(d / 512) of them, each NCH blocks of
+// 64 columns (the last chunk masked where d ends inside it)
+struct Chunks {
+  int n, nch;
+};
+Chunks chunks_of(int d) {
+  const int n = (d + 8 * kT - 1) / (8 * kT);
+  const int per = (d + n - 1) / n;
+  return {n, (per + kT - 1) / kT};
+}
+
+// ~kTargetCtas CTAs (each row block taking `per_rb` of them for every
+// split), and no split left without a vocab tile
+int n_splits(int rows, int V, int per_rb) {
   const int n_rb = (rows + kBR - 1) / kBR, n_vt = (V + kBV - 1) / kBV;
   if (n_rb == 0) return 1;
-  const int want = std::max(1, std::min(n_vt, (kTargetCtas + n_rb - 1) / n_rb));
+  const int cta_rb = n_rb * per_rb;
+  const int want =
+      std::max(1, std::min(n_vt, (kTargetCtas + cta_rb - 1) / cta_rb));
   const int per = (n_vt + want - 1) / want;
   return (n_vt + per - 1) / per;
 }
@@ -827,49 +870,57 @@ cudaError_t merge_dx(const float* dx_part, void* dx, int rows, int d,
   return cudaGetLastError();
 }
 
-// the CUDA-core form, f32 activations and weight; NC = d / 32
-template <int NC>
+// the CUDA-core form, f32 activations and weight; NC = 32-column blocks of
+// a chunk of d; kExact: d = NC * 32
+template <int NC, bool kExact>
 cudaError_t launch_bwd_f32(const float* x, const float* w, const Grad& g,
                            float* dx_part, void* dx, void* dw, int rows,
-                           int V, int splits, cudaStream_t stream) {
+                           int d, int V, int splits, int n_chunks,
+                           cudaStream_t stream) {
   const int n_rb = (rows + kBR - 1) / kBR, n_vt = (V + kBV - 1) / kBV;
   if (n_rb > 0) {
-    flce_dx_kernel<NC><<<dim3(n_rb, splits), kThreads, 0, stream>>>(
-        x, w, g, dx_part, rows, V, splits);
+    flce_dx_kernel<NC, kExact><<<dim3(n_rb, splits, n_chunks), kThreads, 0,
+                                 stream>>>(x, w, g, dx_part, rows, d, V,
+                                           splits);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess)
-      err = merge_dx<float>(dx_part, dx, rows, NC * kBK, splits, stream);
+      err = merge_dx<float>(dx_part, dx, rows, d, splits, stream);
     if (err != cudaSuccess) return err;
   }
-  flce_dw_kernel<NC><<<n_vt, kThreads, 0, stream>>>(
-      x, w, g, static_cast<float*>(dw), rows, V);
+  flce_dw_kernel<NC, kExact><<<dim3(n_vt, n_chunks), kThreads, 0, stream>>>(
+      x, w, g, static_cast<float*>(dw), rows, d, V);
   return cudaGetLastError();
 }
 
-// whether every row of w (d, V) starts 16-byte aligned
-template <typename TW>
-bool rows_aligned(const TW* w, int V) {
-  return reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-         (static_cast<size_t>(V) * sizeof(TW)) % 16 == 0;
+// whether every row of a (n_rows, n) row-major array starts 16-byte
+// aligned
+template <typename T>
+bool rows_aligned(const T* p, int n) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (static_cast<size_t>(n) * sizeof(T)) % 16 == 0;
 }
 
-// the tensor-core form, bf16 activations; NCH = d / 64
-template <typename TW, int NCH>
+// the tensor-core form, bf16 activations; NCH = 64-column blocks of a
+// chunk of d; kExact: d = NCH * 64 and x's rows 16-byte aligned
+template <typename TW, int NCH, bool kExact>
 cudaError_t launch_bwd_mma(const bf16* x, const TW* w, const Grad& g,
                            float* dx_part, void* dx, void* dw, int rows,
-                           int V, int splits, cudaStream_t stream) {
+                           int d, int V, int splits, int n_chunks,
+                           cudaStream_t stream) {
   const int n_rb = (rows + kBR - 1) / kBR, n_vt = (V + kBV - 1) / kBV;
+  const bool x_vec = rows_aligned(x, d), w_vec = rows_aligned(w, V);
   if (n_rb > 0) {
-    flce_dx_mma_kernel<TW, NCH>
-        <<<dim3(n_rb, splits), kThreads, 0, stream>>>(
-            x, w, g, dx_part, rows, V, splits, rows_aligned(w, V));
+    flce_dx_mma_kernel<TW, NCH, kExact>
+        <<<dim3(n_rb, splits, n_chunks), kThreads, 0, stream>>>(
+            x, w, g, dx_part, rows, d, V, splits, x_vec, w_vec);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess)
-      err = merge_dx<bf16>(dx_part, dx, rows, NCH * 64, splits, stream);
+      err = merge_dx<bf16>(dx_part, dx, rows, d, splits, stream);
     if (err != cudaSuccess) return err;
   }
-  flce_dw_mma_kernel<TW, NCH><<<n_vt, kThreads, 0, stream>>>(
-      x, w, g, static_cast<TW*>(dw), rows, V, rows_aligned(w, V));
+  flce_dw_mma_kernel<TW, NCH, kExact>
+      <<<dim3(n_vt, n_chunks), kThreads, 0, stream>>>(
+      x, w, g, static_cast<TW*>(dw), rows, d, V, x_vec, w_vec);
   return cudaGetLastError();
 }
 
@@ -879,11 +930,16 @@ cudaError_t dispatch_bwd_f32(int d, const void* x, const void* w,
                              cudaStream_t s) {
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w);
-  switch (d / 64) {
+  const Chunks c = chunks_of(d);
+  const bool exact = c.n == 1 && d == c.nch * kT;
+  switch (c.nch) {
 #define FT5_FLCE_CASE(N)                                                   \
   case N:                                                                  \
-    return launch_bwd_f32<2 * N>(xp, wp, g, dx_part, dx, dw, rows, V,      \
-                                 splits, s);
+    return exact ? launch_bwd_f32<2 * N, true>(xp, wp, g, dx_part, dx, dw, \
+                                               rows, d, V, splits, c.n, s) \
+                 : launch_bwd_f32<2 * N, false>(xp, wp, g, dx_part, dx,    \
+                                                dw, rows, d, V, splits,    \
+                                                c.n, s);
     FT5_FLCE_CASE(1) FT5_FLCE_CASE(2) FT5_FLCE_CASE(3) FT5_FLCE_CASE(4)
     FT5_FLCE_CASE(5) FT5_FLCE_CASE(6) FT5_FLCE_CASE(7) FT5_FLCE_CASE(8)
 #undef FT5_FLCE_CASE
@@ -899,11 +955,17 @@ cudaError_t dispatch_bwd_mma(int d, const void* x, const void* w,
                              cudaStream_t s) {
   const bf16* xp = static_cast<const bf16*>(x);
   const TW* wp = static_cast<const TW*>(w);
-  switch (d / 64) {
+  const Chunks c = chunks_of(d);
+  const bool exact =
+      c.n == 1 && d == c.nch * kT && rows_aligned(xp, d);
+  switch (c.nch) {
 #define FT5_FLCE_CASE(N)                                                   \
   case N:                                                                  \
-    return launch_bwd_mma<TW, N>(xp, wp, g, dx_part, dx, dw, rows, V,      \
-                                 splits, s);
+    return exact ? launch_bwd_mma<TW, N, true>(xp, wp, g, dx_part, dx, dw, \
+                                               rows, d, V, splits, c.n, s) \
+                 : launch_bwd_mma<TW, N, false>(xp, wp, g, dx_part, dx,    \
+                                                dw, rows, d, V, splits,    \
+                                                c.n, s);
     FT5_FLCE_CASE(1) FT5_FLCE_CASE(2) FT5_FLCE_CASE(3) FT5_FLCE_CASE(4)
     FT5_FLCE_CASE(5) FT5_FLCE_CASE(6) FT5_FLCE_CASE(7) FT5_FLCE_CASE(8)
 #undef FT5_FLCE_CASE
@@ -918,8 +980,12 @@ cudaError_t launch_fwd_f32(const float* x, const float* w, float* pm,
                            cudaStream_t stream) {
   const int n_rb = (rows + kBR - 1) / kBR;
   if (n_rb == 0) return cudaSuccess;
-  flce_fwd_kernel<<<dim3(n_rb, splits), kThreads, 0, stream>>>(
-      x, w, pm, pse, psl, rows, d, V, splits, scale, smooth);
+  if (d % kBK == 0)
+    flce_fwd_kernel<true><<<dim3(n_rb, splits), kThreads, 0, stream>>>(
+        x, w, pm, pse, psl, rows, d, V, splits, scale, smooth);
+  else
+    flce_fwd_kernel<false><<<dim3(n_rb, splits), kThreads, 0, stream>>>(
+        x, w, pm, pse, psl, rows, d, V, splits, scale, smooth);
   return cudaGetLastError();
 }
 
@@ -929,19 +995,27 @@ cudaError_t launch_fwd_mma(const bf16* x, const TW* w, float* pm, float* pse,
                            float scale, int smooth, cudaStream_t stream) {
   const int n_rb = (rows + kBR - 1) / kBR;
   if (n_rb == 0) return cudaSuccess;
-  flce_fwd_mma_kernel<TW>
-      <<<dim3(n_rb, splits), kFwdMmaThreads, 0, stream>>>(
-          x, w, pm, pse, psl, rows, d, V, splits, scale, smooth,
-          rows_aligned(w, V));
+  const bool x_vec = rows_aligned(x, d), w_vec = rows_aligned(w, V);
+  if (d % kT == 0 && x_vec)
+    flce_fwd_mma_kernel<TW, true>
+        <<<dim3(n_rb, splits), kFwdMmaThreads, 0, stream>>>(
+            x, w, pm, pse, psl, rows, d, V, splits, scale, smooth, x_vec,
+            w_vec);
+  else
+    flce_fwd_mma_kernel<TW, false>
+        <<<dim3(n_rb, splits), kFwdMmaThreads, 0, stream>>>(
+            x, w, pm, pse, psl, rows, d, V, splits, scale, smooth, x_vec,
+            w_vec);
   return cudaGetLastError();
 }
 
-bool width_ok(int d) { return d > 0 && d % (2 * kBK) == 0 && d <= 16 * kBK; }
-
 }  // namespace
 
-// The vocab splits of the forward and the dx kernel for `rows` x `V`.
-FT5_EXPORT int ft5_flce_splits(int rows, int V) { return n_splits(rows, V); }
+// The vocab splits of the forward (backward = 0) or of the dx kernel
+// (backward = 1, whose CTAs also split d into chunks) for `rows` x `V`.
+FT5_EXPORT int ft5_flce_splits(int rows, int d, int V, int backward) {
+  return n_splits(rows, V, backward ? chunks_of(d).n : 1);
+}
 
 // Partial (max, sum of exp, sum of logits) of each row over each split:
 // x (rows, d) f32 or bf16 (`x_dtype`); w (d, V) in x's dtype, or f32 when
@@ -950,7 +1024,7 @@ FT5_EXPORT int ft5_flce_fwd(const void* x, const void* w, float* part_m,
                             float* part_se, float* part_sl, int rows, int d,
                             int V, int splits, int x_dtype, int w_f32,
                             float logit_scale, int smooth, void* stream) {
-  if (!width_ok(d) || V <= 0 || splits <= 0) return cudaErrorInvalidValue;
+  if (d <= 0 || V <= 0 || splits <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == ft5::kFloat32 && !w_f32)
     return launch_fwd_f32(static_cast<const float*>(x),
@@ -992,7 +1066,7 @@ FT5_EXPORT int ft5_flce_bwd(const void* x, const void* w, const int* labels,
                             int x_dtype, int w_f32, float logit_scale,
                             float lse_square_scale, float smoothing,
                             void* stream) {
-  if (!width_ok(d) || V <= 0 || splits <= 0) return cudaErrorInvalidValue;
+  if (d <= 0 || V <= 0 || splits <= 0) return cudaErrorInvalidValue;
   const Grad g{labels, lse, dloss, dz, total_classes, ignore_index, smooth,
                logit_scale, lse_square_scale, smoothing};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

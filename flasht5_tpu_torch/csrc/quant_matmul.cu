@@ -9,11 +9,39 @@
 //
 // Bound on the H100: at decode (M = 8) the weight bytes bound it (an int8
 // 512x2048 weight is 1 MB, read once); at prefill (M = 4096) the bf16
-// tensor-core rate does. So there are two forms, chosen by M:
+// tensor-core rate does (2 M K N operations: 8.6 GFLOP, 0.0087 ms at 989
+// TFLOP/s, for both FAT5-small prefill shapes). Three forms, chosen by the
+// call:
 //
-// - qmm_kernel, the tensor-core form for M > 32: 64x64 output tiles per
-//   CTA, four warps of 32x32, K in steps of 32 staged through shared memory
-//   as bf16, mma.sync.m16n8k16 bf16 -> fp32.
+// - qmm_wgmma_kernel, the prefill form (M > 32, bf16 x, N % 16 == 0, x
+//   and W 16-byte aligned: every prefill projection of the serving and
+//   scoring paths). A CTA owns a 128 x 128 output tile; K runs in steps of
+//   64 through a ring of 6 stages in shared memory. Thread 0 keeps 4 steps
+//   of TMA loads in flight, each completing on its stage's mbarrier: the x
+//   tile (128 x 64 bf16, 128-byte swizzle, the layout wgmma reads) and the
+//   raw W tile (64 x 128 bytes: int8 or e4m3 stays 1 byte an element in
+//   flight, the saving the format exists for). When a stage lands, the two
+//   warpgroups convert its W tile to bf16 in shared memory, transposed to
+//   the same swizzled K-major layout, then each warpgroup runs 4
+//   wgmma.m64n128k16 on its 64 rows. The products of step i run while
+//   step i + 1 converts (one wgmma group kept in flight) and steps up to
+//   i + 4 load. int8 is widened by full-rate byte permutes and FADDs, not
+//   by the conversion units (int -> f32 -> bf16 at a quarter of the FP32
+//   rate took half of this kernel's time on the H100; see convert_w).
+//   Per-channel scales multiply the accumulator once at the
+//   end; group scales (any multiple of 32, smaller or larger than a step)
+//   fold a second accumulator into the first at each group's end, which
+//   waits for the products in flight (ptxas serializes that form's wgmma
+//   chain). TMA fills rows past M, columns past N and K past its end with
+//   zeros. The epilogue stages the scaled bf16 tile in shared memory and
+//   writes whole rows with 16-byte stores (the accumulator layout's 4-byte
+//   stores to 8 rows at a time took a third of the time at N = 2048 on the
+//   H100). A persistent form (a CTA per SM walking the tiles in one ring)
+//   measured no faster there.
+// - qmm_kernel, the mma.sync form for what TMA cannot describe (f32 x, N
+//   not a multiple of 16, unaligned pointers) at M > 32: 64x64 output tiles
+//   per CTA, four warps of 32x32, K in steps of 32 staged through shared
+//   memory as bf16 by scalar loads, mma.sync.m16n8k16 bf16 -> fp32.
 // - qmm_skinny_kernel, the decode form for M <= 32 (with N % 4 == 0 and
 //   aligned x and W): a 64x64 tile would give a 512-wide projection 8 CTAs,
 //   each walking K one latency-bound step at a time, on a card of 132 SMs.
@@ -25,11 +53,13 @@
 //   memory reduce them over the 32 rows of a band.
 //
 // Ragged M and N are masked; K must be a multiple of 32 (and of the group
-// size), which the wrapper checks. TMA loads, a stage ring and wgmma for
-// the tensor-core form, and a split over K for the decode form, are later
-// steps.
+// size), which the wrapper checks. A split over K for the decode form is a
+// later step.
 
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -44,14 +74,7 @@ __device__ __forceinline__ float weight_to_float(__nv_fp8_e4m3 w) {
   return static_cast<float>(w);
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using ft5::mma::mma_bf16_16816;
 
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
@@ -154,6 +177,321 @@ qmm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
       }
     }
 }
+
+// ---------------------------------------------------------------------------
+// Prefill form: TMA ring + wgmma
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using ft5::mma::bf16;
+constexpr int kBM = 128, kBN = 128, kBK = 64;
+constexpr int kStages = 6;          // the ring of x and raw W tiles
+constexpr int kAhead = kStages - 2; // steps of TMA loads in flight
+constexpr int kConv = 3;            // bf16 W tiles (see the loop's note)
+constexpr int kThreads = 256;       // two warpgroups of 64 output rows
+constexpr int kXBytes = kBM * kBK * 2;   // 16 KB
+constexpr int kWBytes = kBK * kBN;       // 8 KB
+constexpr int kBBytes = kBN * kBK * 2;   // 16 KB
+constexpr int kSmem = kStages * (kXBytes + kWBytes) + kConv * kBBytes +
+                      kStages * 8 + 1024;  // + the 1024-byte alignment
+
+// an e4m3 byte's value
+__device__ __forceinline__ float e4m3_to_float(uint32_t byte) {
+  __nv_fp8_e4m3 v;
+  v.__x = static_cast<__nv_fp8_storage_t>(byte);
+  return static_cast<float>(v);
+}
+
+// The raw (64 k x 128 n) W tile into the bf16 (128 n x 64 k) tile in the
+// 128-byte swizzled K-major layout: thread t reads columns 4 (t % 32)..+3
+// of rows 8 (t / 32)..+7 (a warp reads 32 consecutive words of a row) and
+// writes those 4 columns' 16-byte chunks of 8 k, in a rotated order: the 8
+// threads of each 16-byte store phase write rows of 8 distinct n % 8, so 8
+// distinct swizzled chunks, and no bank conflict either way.
+//
+// int8 runs on full-rate integer and FP32 units, not the conversion units
+// (a quarter of the rate; through them the conversion took half of this
+// kernel's time on the H100):
+// a byte permute places byte ^ 0x80 (x + 128) in the mantissa of 2^23, one
+// FADD subtracts 2^23 + 128, leaving x exactly, and since x has at most 8
+// significant bits the f32's high half is its bf16, exactly. e4m3 goes
+// through the hardware conversion.
+template <typename TW>
+__device__ __forceinline__ void convert_w(const uint8_t* raw, uint8_t* dst) {
+  const int t = threadIdx.x;
+  const int ng = t & 31, kg = t >> 5;
+  const int rot = (ng >> 1) & 3;
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = *reinterpret_cast<const uint32_t*>(raw + (8 * kg + i) * kBN +
+                                              4 * ng);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int j = s ^ rot, n = 4 * ng + j;
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+    if constexpr (std::is_same<TW, int8_t>::value) {
+      const uint32_t sel = 0x7540u | static_cast<uint32_t>(j);
+      float f[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        f[i] = __uint_as_float(__byte_perm(w[i] ^ 0x80808080u, 0x4B000000u,
+                                           sel)) - 8388736.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[i] = __byte_perm(__float_as_uint(f[2 * i]),
+                           __float_as_uint(f[2 * i + 1]), 0x7632u);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[i] = ft5::mma::pack_bf16(
+            e4m3_to_float((w[2 * i] >> (8 * j)) & 0xffu),
+            e4m3_to_float((w[2 * i + 1] >> (8 * j)) & 0xffu));
+    }
+    *reinterpret_cast<uint4*>(dst + n * 128 + ((kg ^ (n & 7)) * 16)) = out;
+  }
+}
+
+// the first array when B, else the second (an accumulator chosen at
+// compile time, so it stays in registers)
+template <bool B>
+struct Pick {
+  template <typename T, typename U>
+  static __device__ __forceinline__ T& get(T& a, U&) { return a; }
+};
+template <>
+struct Pick<false> {
+  template <typename T, typename U>
+  static __device__ __forceinline__ U& get(T&, U& b) { return b; }
+};
+
+template <int R>
+__device__ __forceinline__ void fence_all(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) ft5::mma::fence_regs(r[i]);
+}
+
+// acc += part * the scales of group `grp`, column by column; part = 0
+__device__ __forceinline__ void fold(float (&acc)[64], float (&part)[64],
+                                     const float* __restrict__ scales,
+                                     int grp, int n0, int N) {
+  const int tq = threadIdx.x & 3;
+  const float* srow = scales + static_cast<size_t>(grp) * N;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + 8 * j + 2 * tq + e;
+      const float sc = n < N ? srow[n] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * j + 2 * h + e] += part[4 * j + 2 * h + e] * sc;
+        part[4 * j + 2 * h + e] = 0.f;
+      }
+    }
+}
+
+// kGroups: group-wise scales (group_size < K); else per-channel
+template <typename TW, bool kGroups>
+__global__ void __launch_bounds__(kThreads, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                 const __grid_constant__ CUtensorMap tmw,
+                 const float* __restrict__ scales, bf16* __restrict__ out,
+                 int M, int N, int K, int group_size) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* xs = base;                              // kStages x tiles
+  uint8_t* wr = xs + kStages * kXBytes;            // kStages raw W tiles
+  uint8_t* bc = wr + kStages * kWBytes;            // kConv bf16 W tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(bc + kConv * kBBytes);
+
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int nk = (K + kBK - 1) / kBK;
+
+  auto load_step = [&](int i) {   // thread 0: step i's loads, its stage
+    const int st = i % kStages;
+    ft5::mma::mbar_expect_tx(&full[st], kXBytes + kWBytes);
+    ft5::mma::tma_load_2d(xs + st * kXBytes, &tmx, &full[st], i * kBK, m0);
+    ft5::mma::tma_load_2d(wr + st * kWBytes, &tmw, &full[st], n0, i * kBK);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) ft5::mma::mbar_init(&full[st], 1);
+    ft5::mma::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < kAhead && i < nk; ++i) load_step(i);
+  __syncwarp();
+
+  // per-channel scales: the products go straight into acc; group scales:
+  // into part, folded into acc at each group's end
+  float acc[64], part[kGroups ? 64 : 1];
+#pragma unroll
+  for (int r = 0; r < 64; ++r) acc[r] = 0.f;
+#pragma unroll
+  for (int r = 0; r < (kGroups ? 64 : 1); ++r) part[r] = 0.f;
+  float (&sum)[64] = Pick<kGroups>::get(part, acc);
+
+  // Step i: wait for its stage; convert its W tile into bf16 tile i % 3
+  // (last read by step i - 3's products, finished: every thread passed
+  // step i - 1's barrier after waiting for step i - 2's products); the
+  // barrier over both warpgroups makes the tile whole and certifies that
+  // step i - 2's products are done in both, so thread 0 refills that
+  // stage with step i + kAhead; then the products, with one group left in
+  // flight.
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % kStages;
+    uint8_t* bt = bc + (i % kConv) * kBBytes;
+    ft5::mma::mbar_wait(&full[st], (i / kStages) & 1);
+    convert_w<TW>(wr + st * kWBytes, bt);
+    ft5::mma::fence_proxy_async();
+    ft5::mma::named_sync(1, kThreads);
+    if (tid == 0 && i + kAhead < nk) load_step(i + kAhead);
+    __syncwarp();
+
+    const uint64_t da = ft5::mma::wgmma_desc_sw128(xs + st * kXBytes +
+                                                   wgi * (kXBytes / 2));
+    const uint64_t db = ft5::mma::wgmma_desc_sw128(bt);
+    fence_all(sum);
+    ft5::mma::wgmma_fence();
+    // past K (K % 64 == 32: the last step's second half) the tiles hold
+    // TMA's zeros, which add nothing; no branch splits the wgmma chain
+    bool pending = false;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const int k_end = i * kBK + (kk + 1) * 16;
+      ft5::mma::wgmma_m64n128k16(sum, da + 2 * kk, db + 2 * kk);
+      pending = true;
+      if constexpr (kGroups) {
+        if (k_end <= K && k_end % group_size == 0) {   // a group ends
+          ft5::mma::wgmma_commit();
+          ft5::mma::wgmma_wait<0>();
+          fence_all(part);
+          fold(acc, part, scales, k_end / group_size - 1, n0, N);
+          fence_all(part);
+          ft5::mma::wgmma_fence();
+          pending = false;
+        }
+      }
+    }
+    if (pending) {
+      ft5::mma::wgmma_commit();
+      ft5::mma::wgmma_wait<1>();
+    }
+  }
+  ft5::mma::wgmma_wait<0>();
+  fence_all(acc);
+
+  // the epilogue: the scaled tile in bf16 into shared memory (rows of
+  // kBN + 8 elements: the 8 rows of a store phase hit distinct banks), then
+  // 16-byte coalesced stores of whole rows (N % 16 == 0: a 16-byte chunk is
+  // all in or all out)
+  constexpr int kOutLd = kBN + 8;
+  bf16* ot = reinterpret_cast<bf16*>(xs);
+  __syncthreads();                    // every stage's last reader is done
+  const int w = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + 2 * tq;
+    float s0 = 1.f, s1 = 1.f;
+    if (!kGroups && n < N) s0 = scales[n], s1 = scales[n + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wgi + 16 * w + g + 8 * h;
+      *reinterpret_cast<uint32_t*>(ot + r * kOutLd + 8 * j + 2 * tq) =
+          ft5::mma::pack_bf16(acc[4 * j + 2 * h] * s0,
+                              acc[4 * j + 2 * h + 1] * s1);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kBM * kBN / 8 / kThreads; ++e) {
+    const int idx = tid + e * kThreads;
+    const int r = idx / (kBN / 8), c = (idx % (kBN / 8)) * 8;
+    const int m = m0 + r, n = n0 + c;
+    if (m < M && n < N)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m) * N + n) =
+          *reinterpret_cast<const uint4*>(ot + r * kOutLd + c);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (no link against libcuda)
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) array of `elem` bytes, boxes of (box_rows,
+// box_cols), zeros outside
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+              int rows, int cols, int elem, int box_rows, int box_cols,
+              CUtensorMapSwizzle swizzle) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TW>
+cudaError_t launch(const void* x, const void* w, const float* scales,
+                   void* out, int M, int N, int K, int group_size,
+                   cudaStream_t stream) {
+  CUtensorMap tmx, tmw;
+  if (!make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, 2, kBM, kBK,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, 1, kBK, kBN,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, kSmem, stream>>>(
+        tmx, tmw, scales, static_cast<bf16*>(out), M, N, K, group_size);
+    return cudaGetLastError();
+  };
+  if (group_size < K) return run(qmm_wgmma_kernel<TW, true>);
+  return run(qmm_wgmma_kernel<TW, false>);
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // Decode form
@@ -290,10 +628,15 @@ cudaError_t launch(const void* x, const void* w, const float* scales,
   const bool skinny = M <= kSkMaxM && N % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(w) % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool tma = std::is_same<TX, __nv_bfloat16>::value && N % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (skinny) {
     dim3 grid((N + kSkBN - 1) / kSkBN, (M + kSkBM - 1) / kSkBM);
     qmm_skinny_kernel<TX, TW><<<grid, kSkThreads, 0, stream>>>(
         xp, wp, scales, op, M, N, K, group_size);
+  } else if (tma) {
+    return wg::launch<TW>(x, w, scales, out, M, N, K, group_size, stream);
   } else {
     dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
     qmm_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(xp, wp, scales, op, M,

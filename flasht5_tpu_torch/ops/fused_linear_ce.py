@@ -32,8 +32,6 @@ from flasht5_tpu_torch.ops.cross_entropy import cross_entropy_bwd_plain
 
 _IGNORE = -100
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the widths the CUDA kernels tile: d a multiple of _D_STEP up to _D_MAX
-_D_STEP, _D_MAX = 64, 512
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +83,7 @@ def _lib():
     lib = runtime.kernel_library("fused_linear_ce")
     if lib.ft5_flce_fwd.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ft5_flce_splits.argtypes = [i, i]
+        lib.ft5_flce_splits.argtypes = [i] * 4
         lib.ft5_flce_splits.restype = i
         lib.ft5_flce_fwd.argtypes = [vp] * 5 + [i] * 6 + [f, i, vp]
         lib.ft5_flce_merge.argtypes = [vp] * 5 + [i] * 3 + [vp]
@@ -101,10 +99,8 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, *rows_tensors):
                         f"w in x's dtype or f32")
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"{name}: x {tuple(x.shape)} @ w {tuple(w.shape)}")
-    d = x.shape[1]
-    if d % _D_STEP or not 0 < d <= _D_MAX:
-        raise ValueError(f"{name}: d = {d}; the kernels tile a multiple of "
-                         f"{_D_STEP} up to {_D_MAX}")
+    if x.shape[1] == 0:
+        raise ValueError(f"{name}: d = 0")
     if not x.is_cuda or any(t.device != x.device
                             for t in (w,) + rows_tensors):
         raise ValueError(f"{name}: all inputs on one CUDA device")
@@ -133,7 +129,7 @@ def fwd_partials(x: torch.Tensor, w: torch.Tensor, *, logit_scale=1.0,
     x, w = _aligned(x), w.contiguous()
     rows, d = x.shape
     v = w.shape[1]
-    splits = lib.ft5_flce_splits(rows, v)
+    splits = lib.ft5_flce_splits(rows, d, v, 0)
     part = torch.empty((3, splits, rows), dtype=torch.float32,
                        device=x.device)
     xc, wc = _type_codes(x, w)
@@ -200,7 +196,7 @@ def fused_linear_ce_bwd(x, w, labels, lse, dloss, dz, *,
     x, w = _aligned(x), w.contiguous()
     rows, d = x.shape
     v = w.shape[1]
-    splits = lib.ft5_flce_splits(rows, v)
+    splits = lib.ft5_flce_splits(rows, d, v, 1)
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     dx_part = torch.empty((splits, rows, d), dtype=torch.float32,

@@ -40,6 +40,7 @@ differ by an f32 ulp, dx rounded to bf16), one bf16 ulp of each entry plus
 import pytest
 import torch
 
+from flasht5_tpu_torch import runtime
 from flasht5_tpu_torch.inference import paged_kv
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
                                    flash_attention, flash_attention_rpe,
@@ -53,6 +54,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    runtime.build_kernels()     # the missing libraries, one nvcc each, at once
     torch.manual_seed(0)
     return torch.device("cuda")
 
@@ -69,9 +71,15 @@ def test_rms_norm_kernel(dev, shape, dtype):
     torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
 
 
+# bf16 takes the tensor-core forward (128-row query tiles), f32 the
+# CUDA-core one (64-row tiles): M and N off both tiles (200 x 1000, 1 x
+# 1024, 1030 x 77, where causal rows see no key), and D 32, 64 and 128
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("m_len,n_len,d", [(512, 512, 64), (100, 300, 64),
-                                           (300, 100, 64), (77, 77, 32)])
+                                           (300, 100, 64), (77, 77, 32),
+                                           (200, 1000, 64), (1, 1024, 64),
+                                           (1030, 77, 64), (256, 1024, 128),
+                                           (130, 70, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_rpe_kernel(dev, causal, m_len, n_len, d, dtype):
     q = torch.randn((2, 8, m_len, d), device=dev).to(dtype)
@@ -87,17 +95,44 @@ def test_flash_attention_rpe_kernel(dev, causal, m_len, n_len, d, dtype):
     torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
 
 
-# M <= 32 with N % 4 == 0 takes the decode form, the rest the tensor-core
-# form; the cases cover both, their ragged edges and the boundary between
-@pytest.mark.parametrize("m,k_dim,n", [(8, 512, 512), (8, 512, 2048),
-                                       (8, 2048, 512), (8, 512, 32768),
-                                       (20, 2048, 100), (32, 512, 512),
-                                       (1, 4096, 512), (8, 512, 90),
-                                       (33, 512, 512), (4096, 512, 2048),
-                                       (64, 2048, 512), (4096, 2048, 512),
-                                       (77, 512, 96)])
-@pytest.mark.parametrize("mode,group_size", [("int8", None), ("int8", 128),
-                                             ("fp8", None)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("m_len,n_len,d", [(256, 1024, 64), (200, 1000, 32),
+                                           (1030, 77, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_no_bias_kernel(dev, causal, m_len, n_len, d, dtype):
+    """The forward without a table (the decoder's cross-attention)."""
+    q = torch.randn((2, 8, m_len, d), device=dev).to(dtype)
+    k = torch.randn((2, 8, n_len, d), device=dev).to(dtype)
+    v = torch.randn((2, 8, n_len, d), device=dev).to(dtype)
+    kw = dict(causal=causal, sm_scale=d ** -0.5)
+    o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, None, **kw)
+    o0, lse0 = flash_attention_rpe.flash_attention_rpe_plain(q, k, v, None,
+                                                              **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+
+
+# M <= 32 with N % 4 == 0 takes the decode form; above it bf16 x with
+# N % 16 == 0 takes the TMA + wgmma form (128 x 128 tiles, K steps of 64)
+# and the rest the mma.sync form. The cases cover the three, their ragged
+# edges (M 129 and 4097, N 96 and 2050, K 96: a multiple of 32, not of
+# 64) and the boundaries between, with per-channel scales and groups of
+# 32, 64, 128 and 256 (smaller and larger than a K step); a group size
+# that does not divide K is no case (the weight cannot be quantized so).
+_QMM_SHAPES = [(8, 512, 512), (8, 512, 2048), (8, 2048, 512),
+               (8, 512, 32768), (20, 2048, 100), (32, 512, 512),
+               (1, 4096, 512), (8, 512, 90), (33, 512, 512),
+               (4096, 512, 2048), (64, 2048, 512), (4096, 2048, 512),
+               (77, 512, 96), (129, 512, 512), (4097, 512, 2048),
+               (129, 512, 96), (300, 2048, 2050), (200, 96, 512)]
+_QMM_MODES = [("int8", None), ("int8", 128), ("fp8", None), ("int8", 32),
+              ("int8", 64), ("int8", 256), ("fp8", 64)]
+
+
+@pytest.mark.parametrize("m,k_dim,n,mode,group_size", [
+    (m, k, n, mode, g) for m, k, n in _QMM_SHAPES for mode, g in _QMM_MODES
+    if g is None or g >= k or k % g == 0])
 def test_quant_matmul_kernel(dev, m, k_dim, n, mode, group_size):
     w = torch.randn((k_dim, n), device=dev) * 0.05
     qt = {"int8": quant.quantize_int8, "fp8": quant.quantize_fp8}[mode](
@@ -352,7 +387,9 @@ def _bias_inputs(dev, m_len, n_len, d, dtype, form, masked_rows=False):
 @pytest.mark.parametrize("form", list(_BIAS_FORMS))
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("m_len,n_len,d", [(77, 77, 32), (100, 300, 64),
-                                           (300, 100, 64), (130, 70, 128)])
+                                           (300, 100, 64), (130, 70, 128),
+                                           (200, 1000, 64), (1, 1024, 64),
+                                           (1030, 77, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bias_kernels(dev, form, causal, m_len, n_len, d,
                                       dtype):
@@ -476,8 +513,15 @@ def _flce_close(got, want, bf16):
         atol=(1e-3 if bf16 else 1e-4) * scale)
 
 
+# d at every width: multiples of 64 up to 512 in one chunk of the
+# backward, wider ones (the FAT5-base, -large and -XL widths 768, 1024 and
+# 2048) in chunks of d, and widths that are not multiples of 64
 @pytest.mark.parametrize("rows,d,v", [(256, 512, 32768), (300, 128, 32128),
-                                      (37, 64, 300), (64, 384, 384)])
+                                      (37, 64, 300), (64, 384, 384),
+                                      (300, 96, 32128), (300, 200, 32128),
+                                      (300, 640, 32128), (300, 768, 32128),
+                                      (300, 1024, 32128),
+                                      (300, 2048, 32128), (37, 97, 300)])
 @pytest.mark.parametrize("types", list(_FLCE_TYPES))
 @pytest.mark.parametrize("kw", [dict(lse_square_scale=1e-4),
                                 dict(label_smoothing=0.1, logit_scale=2.0,
@@ -505,6 +549,21 @@ def test_fused_linear_ce_kernels(dev, rows, d, v, types, kw):
     bf16 = x.dtype == torch.bfloat16
     _flce_close(dx, dx0, bf16)
     _flce_close(dw, dw0, bf16)
+
+
+def test_fused_linear_ce_kernels_at_d_2048_train_rows(dev):
+    """d 2048 (FAT5-XL) at the train step's 2048 rows, bf16, z-loss."""
+    x, w, labels, dloss, dz = _flce_inputs(dev, 2048, 2048, 32768,
+                                           torch.bfloat16, torch.bfloat16)
+    lse, _ = fused_linear_ce.fused_linear_ce_fwd(x, w)
+    lse0, _ = fused_linear_ce.fused_linear_ce_fwd_plain(x, w)
+    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-5)
+    dx, dw = fused_linear_ce.fused_linear_ce_bwd(x, w, labels, lse0, dloss,
+                                                 dz, lse_square_scale=1e-4)
+    dx0, dw0 = fused_linear_ce.fused_linear_ce_bwd_plain(
+        x, w, labels, lse0, dloss, dz, lse_square_scale=1e-4)
+    _flce_close(dx, dx0, True)
+    _flce_close(dw, dw0, True)
 
 
 def test_fused_linear_ce_is_deterministic(dev):
@@ -543,13 +602,21 @@ def test_fused_linear_ce_autograd_against_the_cpu(dev, upstream):
 
 
 def test_fused_linear_ce_refuses_what_it_does_not_take(dev):
+    """Only the types and devices are refused: d 96 (not a multiple of 64)
+    and d 640 (over 512), once refused, are taken and match the plain
+    version."""
     x, w, *_ = _flce_inputs(dev, 16, 128, 256, torch.float32, torch.float32)
-    with pytest.raises(ValueError, match="d = 96"):
-        fused_linear_ce.fused_linear_ce_fwd(x[:, :96], w[:96])
-    with pytest.raises(ValueError, match="d = 640"):
-        fused_linear_ce.fused_linear_ce_fwd(
-            torch.zeros((4, 640), device=dev), torch.zeros((640, 8),
-                                                           device=dev))
+    x96, w96 = x[:, :96], w[:96]
+    torch.testing.assert_close(
+        fused_linear_ce.fused_linear_ce_fwd(x96, w96)[0],
+        fused_linear_ce.fused_linear_ce_fwd_plain(x96, w96)[0],
+        rtol=1e-5, atol=1e-5)
+    x640, w640, *_ = _flce_inputs(dev, 4, 640, 8, torch.float32,
+                                  torch.float32)
+    torch.testing.assert_close(
+        fused_linear_ce.fused_linear_ce_fwd(x640, w640)[0],
+        fused_linear_ce.fused_linear_ce_fwd_plain(x640, w640)[0],
+        rtol=1e-5, atol=1e-5)
     with pytest.raises(TypeError):
         fused_linear_ce.fused_linear_ce_fwd(x, w.to(torch.bfloat16))
     with pytest.raises(TypeError):

@@ -77,8 +77,10 @@ def _port(x, w, labels, dloss, dz, kw, dtype=torch.float32):
 
 @pytest.mark.parametrize("kw", CASES, ids=CASE_IDS)
 @pytest.mark.parametrize("shape", [(64, 128, 384), (48, 128, 512),
-                                   (37, 128, 300)],
-                         ids=["64x128x384", "48x128x512", "ragged"])
+                                   (37, 128, 300), (16, 640, 300),
+                                   (16, 96, 300)],
+                         ids=["64x128x384", "48x128x512", "ragged",
+                              "d640", "d96"])
 def test_op_matches_jax(kw, shape):
     args = _make(*shape)
     loss, z, dx, dw = _port(*args, kw)

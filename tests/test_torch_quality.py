@@ -72,6 +72,23 @@ def test_eval_ppl_matches_bench_quality(tiny, variant):
                                else 1e-3)
 
 
+def test_eval_ppl_matches_bench_quality_at_d_768():
+    """FAT5-flan-base's width (d 768, 12 heads of 64, d_ff 2048), cut to
+    2 + 2 layers and a vocabulary of 256: on the card this width runs the
+    fused lm_head+CE kernels in chunks of d; here their plain versions."""
+    kw = dict(TINY, d_model=768, d_kv=64, num_heads=12, d_ff=2048)
+    jcfg = JaxConfig(**kw)
+    jparams = jt5.init_params(jax.random.PRNGKey(1), jcfg)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               device="cpu")
+    rng = np.random.default_rng(1)
+    batches = [(rng.integers(2, 256, (2, 32)).astype(np.int32),
+                rng.integers(2, 256, (2, 16)).astype(np.int32))]
+    got = quality.eval_ppl(FlashT5Config(**kw), params, batches)
+    want = bench_quality.eval_ppl(jcfg, jparams, batches)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 @pytest.mark.parametrize("group", [64, 48, 32])
 def test_count_group_fallbacks_matches_jax(tiny, group):
     _, jparams, _, params, _ = tiny
