@@ -25,7 +25,9 @@ of JAX. In order:
    bias kernels (the bias rows shifted by one; dbias summed over the heads
    as well as the batch) and the fused lm_head+CE kernels (the last vocab
    split dropped from the merge; the z-loss term left out of dlogits; the
-   dW columns shifted by one) must fall beyond it;
+   dW columns shifted by one) must fall beyond it; the fused lm_head+CE
+   backward's rows also give the scratch it allocates and its measured
+   peak memory above its inputs and outputs;
 4. checks on a tiny model that the slot engine on the card serves the
    tokens the engine on the CPU (the plain versions) serves, and that two
    planted faults move its logits beyond the tolerance; and that the paged
@@ -55,7 +57,9 @@ of JAX. In order:
    just before and read just after; each kernel of a path must have
    launched in each of its loops, every loss must be finite and the loss
    must fall; then each step's device time (the sum of one profiled
-   step's kernel times), its kernels by name and the optimizer's launches;
+   step's kernel times), its peak memory, its kernels by name (the
+   attention backward's tensor-core bodies must be among them, and the
+   fused step's GEMMs) and the optimizer's launches;
 10. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
    12 heads, vocabulary 32128: the fused lm_head+CE kernels in chunks of
    d), seeded weights written as FAT5-named safetensors by the port's
@@ -73,7 +77,8 @@ of JAX. In order:
    be finite and the restored state bit-equal to the saved one; then
    tokens/s as the trainer logs it and between synchronized clock readings,
    the collator's time, a step's wall and device time (its profiled
-   kernels' sum), its kernels, peak memory;
+   kernels' sum), its kernels (the attention backward's tensor-core bodies
+   must be among them), peak memory;
 12. prints JSON lines of the serving, paged serving, training, scoring and
    pretraining results and of the kernels (each with its launches in each
    path that runs it, and their sum), the
@@ -1619,6 +1624,19 @@ def check_flce_kernels(dev):
                     (x, wt, labels, dloss, xr, lib_loss, wr, port_loss))
         (x, w, labels, lse, dloss, dz), _ = make()
         fwd_lim, bwd_lim = _flce_limits(kw, x_dtype == torch.bfloat16)
+        # the backward's scratch: planned (bf16: chunks of rows, slabs of
+        # the vocabulary) and the peak above its inputs and outputs
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = flce.fused_linear_ce_bwd(x, w, labels, lse, dloss, dz, **kw)
+        torch.cuda.synchronize()
+        workspace = dict(
+            workspace_bytes=(flce.bwd_workspace_bytes(x, w)
+                             if x_dtype == torch.bfloat16 else None),
+            peak_above_inputs_outputs_bytes=torch.cuda.max_memory_allocated()
+            - base - nbytes(*out))
+        del out
         in_bytes = 2 * nbytes(x, w, labels)
         flops = 2 * rows * d * v
         ops_type = "bf16" if x_dtype == torch.bfloat16 else "f32"
@@ -1685,7 +1703,7 @@ def check_flce_kernels(dev):
             if faults else [],
             bytes=(nbytes(x, w, lse, dloss, dz) + rows * 4
                    + nbytes(x, w)), ops=3 * flops, ops_type=ops_type,
-            main=main, why=why))
+            main=main, why=why, extra=workspace))
 
     zkw = dict(lse_square_scale=1e-4)
     shape_cases(TRAIN_B * TRAIN_DEC, 32768, torch.bfloat16, zkw,
@@ -1909,6 +1927,24 @@ def _kernels_by_name(fn):
     return by_name
 
 
+# the attention backward's tensor-core bodies (attention.cuh), which every
+# bf16 training step must run
+BWD_BODIES = ("dkdv_mma_kernel", "dq_mma_kernel")
+
+
+def _require_kernels(by_name, bodies, what):
+    """Raise unless a profiled kernel's name holds each of `bodies`, and
+    print those kernels with their device ms and launches."""
+    found = {b: [(name, t, n) for name, (t, n) in by_name.items()
+                 if b in name] for b in bodies}
+    missing = [b for b, ks in found.items() if not ks]
+    if missing:
+        raise AssertionError(f"{what} ran no {missing}")
+    print(f"{what} runs " + json.dumps(
+        {b: [{"name": name[:100], "ms": t, "launches": n}
+             for name, t, n in ks] for b, ks in found.items()}), flush=True)
+
+
 def run_training(dev):
     """The training path: `Trainer(flagship_config(), ...).train(batches)`
     on one random batch of 8 x (1024 + 256) tokens repeated, AdamWScale at
@@ -1997,6 +2033,16 @@ def run_training(dev):
         step["kernels_per_step"] = sum(n for _, n in by_name.values())
         step["device_ms"] = sum(t for t, _ in by_name.values())
         step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+        # the peak memory of one step (the fused lm_head+CE keeps the
+        # (2048, 32768) logits out of it)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer._step(db)
+        torch.cuda.synchronize()
+        step["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        _require_kernels(by_name, BWD_BODIES + (
+            ("flce_gemm_kernel",) if way == "fused" else ()),
+            f"one {way} train step")
         if way == "unfused":       # the optimizer's launches alone
             opt_kernels = _kernels_by_name(trainer.optimizer.step)
             step["optimizer_launches"] = sum(
@@ -2384,6 +2430,7 @@ def run_pretraining(dev):
     step["kernels_per_step"] = sum(n for _, n in by_name.values())
     step["device_ms"] = sum(t for t, _ in by_name.values())
     step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+    _require_kernels(by_name, BWD_BODIES, "one pretrain step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     print(f"pretrain step: {json.dumps(step)} (wall: median of 3 steps; "
           f"device: the sum of one profiled step's kernel times); peak "

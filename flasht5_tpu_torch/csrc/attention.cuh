@@ -1,46 +1,50 @@
 // The flash attention kernels of the port, written once and instantiated on a
 // bias source: the forward (flash_attention_rpe.cu, flash_attention_bias.cu)
 // and the backward's dK/dV and dQ kernels (flash_attention_bwd.cu,
-// flash_attention_bias.cu).
+// flash_attention_bias.cu). bf16 inputs take the tensor-core forms, f32
+// inputs the CUDA-core forms (the port uses no TF32).
 //
-// - fwd_mma (bf16, the main path's forward): one CTA per (128-row query
-//   tile, head, batch), 8 warps of 16 query rows (FlashAttention-2's
-//   layout). Q lives in registers as mma.sync A fragments (ldmatrix once);
-//   K/V tiles of 64 keys, and the bias tile where the source stages one,
-//   run through a 2-stage cp.async ring; S = Q K^T and O += P V are
-//   mma.sync m16n8k16 bf16 -> f32 (mma.cuh), the online softmax runs on the
-//   S accumulator in f32, and P goes from that accumulator to PV's A
-//   fragments in registers, never through shared memory.
-// - fwd (f32 inputs): the CUDA-core form, one CTA per (64-row query tile,
-//   head, batch), four threads per query row, K/V tiles of 64 rows in
-//   shared memory, online softmax in fp32 (the port uses no TF32).
-//   Both write o and lse (-1e30, and o = 0, for a row with no visible key).
-// - dkdv: one CTA per (64-key tile, head, batch) keeps its keys' K and V rows
-//   and their dK and dV sums in registers and walks the query tiles. For each
-//   (query row, key) it recomputes P = exp(s * scale + bias - lse) from the
-//   saved log-sum-exp, then dP = dO . v, dS = P (dP - delta), and adds P dO
-//   to dV and dS q to dK; the bias source takes each tile's dS.
-// - dq: one CTA per (64-row query tile, head, batch) keeps its rows' q, dO and
-//   dQ sums in registers, streams K and V tiles through shared memory, and
-//   recomputes P and dS the same way.
+// - fwd_mma (bf16): one CTA per (128-row query tile, head, batch), 8 warps
+//   of 16 query rows (FlashAttention-2's layout). Q lives in registers as
+//   mma.sync A fragments (ldmatrix once); K/V tiles of 64 keys, and the bias
+//   tile where the source stages one, run through a 2-stage cp.async ring;
+//   S = Q K^T and O += P V are mma.sync m16n8k16 bf16 -> f32 (mma.cuh), the
+//   online softmax runs on the S accumulator in f32, and P goes from that
+//   accumulator to PV's A fragments in registers, never through shared
+//   memory.
+// - dkdv_mma (bf16): one CTA per (64-key tile, head, batch), 4 warps of 16
+//   keys. K and V tiles stay in shared memory; Q, dO, lse and delta tiles of
+//   64 query rows (and the bias tile) stream through a 2-stage cp.async
+//   ring. Each warp computes S^T = K Q^T and dP^T = V dO^T on mma.sync,
+//   forms P^T = exp(s^T * scale + bias - lse) and dS^T = P^T (dP^T - delta)
+//   in f32 on the accumulators, rounds them to bf16 straight into A
+//   fragments, and accumulates dV += P^T dO and dK += dS^T Q in f32
+//   registers (B read by ldmatrix.trans from the staged tiles). A source
+//   that keeps dS gets it through a 64 x 68 f32 tile in shared memory.
+// - dq_mma (bf16): the forward's layout (128 query rows, 8 warps of 16) with
+//   one more product: S = Q K^T and dP = dO V^T from Q and dO fragments held
+//   in registers, dS in f32 on the accumulators, dQ += dS K, K and V tiles
+//   (and the bias tile) through the 2-stage ring.
+// - fwd, dkdv, dq (f32 inputs): the CUDA-core forms, four threads per query
+//   or key row, 64-row tiles in shared memory, sums in fp32.
 //
 // Causal masking is bottom-right aligned; rows with no visible key (lse =
-// -1e30) contribute nothing. Scores are s * scale + bias in fp32, the TPU
-// kernels' order.
+// -1e30) contribute nothing; the forward writes o = 0 and lse = -1e30 for
+// them. Scores are s * scale + bias in fp32, the TPU kernels' order.
 //
 // Rounding points mirror the TPU kernels: scores, P, dP and dS in fp32; P
 // rounded to the input type before the PV and P^T dO products, dS rounded to
 // it before the dS^T q and dS k products, sums in fp32, each output rounded
 // once (dQ and dK after the scale). The bf16 products on the tensor cores
-// are exact in f32 and summed in f32, as on the CUDA cores.
+// are exact in f32 and summed in f32, as on the CUDA cores, so the two forms
+// differ only in the order of f32 sums.
 //
-// The backward's products (and the f32 forward's) run on the CUDA cores in
-// fp32: four threads share each key or query row and split D into
-// interleaved float4 chunks, so the four threads of a row read 64
-// contiguous bytes of a shared-memory row and reduce their partial dots
-// with two shuffles. Moving them onto the tensor cores is later work; the
-// lse they read from the tensor-core forward differs from the CUDA-core
-// forward's only in the order of f32 sums.
+// Bound on the H100: the backward does 10 B H M N D flops in bf16 (S, dP
+// and the three gradient products: 5 of the forward's 2 B H M N D), bound
+// by operations at the encoder's shape (0.0434 ms at 989 TFLOP/s for B 8,
+// H 8, M = N = 1024, D 64) and by bytes at short ones. mma.sync reaches
+// about two thirds of the card's wgmma rate; wgmma with a TMA producer
+// (FlashAttention-3's layout) is the next step.
 //
 // A bias source `Bias` is a struct passed by value to the kernels:
 //   smem_floats(M)            floats of shared memory it takes (host side)
@@ -52,13 +56,14 @@
 //   at(ii, jj, buf)           the bias of row i0 + ii, key j0 + jj
 //   pair(ii, jj, buf)         fwd_mma: at(ii, jj) and at(ii, jj + 1), at
 //                             accumulator-fragment coordinates
-//   keeps_ds()                whether the dK/dV kernel hands it dS
+//   keeps_ds()                whether the dK/dV kernel hands it dS (host
+//                             side too: it sizes the dS tile)
 //   skip(i_begin, j0, M, N)   dK/dV: the rows above i_begin, which a causal
 //                             mask keeps from every key of the tile (dS 0)
-//   sink(ds_s, i0, j0, M, N)  dK/dV: the tile pair's dS, in ds_s with row
-//                             stride kLd, after a sync
+//   sink(ds_s, ld, i0, j0, M, N)  dK/dV: the tile pair's dS, in ds_s with
+//                             row stride ld, after a sync
 //   finish(scratch, bh, j0, M, N)  dK/dV: after the last tile; scratch is
-//                             the kBM * kLd floats of ds_s, free again
+//                             the dS tile (at least 256 floats), free again
 // TableBias below reads the T5 bucket table; flash_attention_bias.cu has the
 // bias tensor's source.
 #pragma once
@@ -135,6 +140,8 @@ constexpr int kWin = kBM + kBN - 1;  // offsets col - row one tile pair spans
 constexpr int kMaxBuckets = kThreads;
 constexpr int kFwdBM = 128;          // query rows per CTA of fwd_mma_kernel
 constexpr int kFwdThreads = kFwdBM * 2;  // a warp per 16 rows
+constexpr int kBwdThreads = kBN * 2;     // dkdv_mma_kernel: a warp per 16 keys
+constexpr int kDsLd = kBN + 4;           // row stride of dkdv_mma's dS tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -199,16 +206,16 @@ struct TableBiasT {
     const float* w = bs + buf * kW + jj - ii + BM - 1;
     return make_float2(w[0], w[1]);
   }
-  __device__ bool keeps_ds() const { return dw_part != nullptr; }
+  __host__ __device__ bool keeps_ds() const { return dw_part != nullptr; }
   __device__ void skip(int, int, int, int) {}
   // thread t sums diagonal t (jj - ii = t - (BM - 1)) of the tile, in row
   // order, into its offset's slot
-  __device__ void sink(const float* ds_s, int i0, int, int, int) {
-    for (int t = threadIdx.x; t < kW; t += kThreads) {
+  __device__ void sink(const float* ds_s, int ld, int i0, int, int, int) {
+    for (int t = threadIdx.x; t < kW; t += NT) {
       const int d0 = t - (BM - 1);
       float acc = 0.f;
       for (int ii = max(0, -d0); ii < BM && ii + d0 < kBN; ++ii)
-        acc += ds_s[ii * kLd + ii + d0];
+        acc += ds_s[ii * ld + ii + d0];
       doff[d0 - i0 + Mp - 1] += acc;
     }
   }
@@ -220,9 +227,9 @@ struct TableBiasT {
     const int tid = threadIdx.x;
     const int n = n_off(M);
     __syncthreads();  // the last tile's sums are in doff
-    const int parts = kThreads / num_buckets;
-    const int nb = tid / parts, part = tid - nb * parts;
-    if (nb < num_buckets) {
+    const int parts = max(1, NT / num_buckets);
+    for (int idx = tid; idx < num_buckets * parts; idx += NT) {
+      const int nb = idx / parts, part = idx - nb * parts;
       const int chunk = (n + parts - 1) / parts;
       const int e_end = min(n, (part + 1) * chunk);
       float acc = 0.f;
@@ -230,21 +237,23 @@ struct TableBiasT {
         const int gi = e - (Mp - 1) + j0 + M - 1;  // bucket index of offset
         if (gi >= 0 && gi <= M + N - 2 && bucket[gi] == nb) acc += doff[e];
       }
-      scratch[tid] = acc;
+      scratch[idx] = acc;
     }
     __syncthreads();
-    if (tid < num_buckets) {
+    for (int nb = tid; nb < num_buckets; nb += NT) {
       float acc = 0.f;
-      for (int p = 0; p < parts; ++p) acc += scratch[tid * parts + p];
-      dw_part[(bh * gridDim.x + blockIdx.x) * num_buckets + tid] = acc;
+      for (int p = 0; p < parts; ++p) acc += scratch[nb * parts + p];
+      dw_part[(bh * gridDim.x + blockIdx.x) * num_buckets + nb] = acc;
     }
   }
 };
 
-// the backward kernels' and the f32 forward's (64-row tiles, one buffer)
+// the f32 kernels' (64-row tiles, one buffer)
 using TableBias = TableBiasT<kBM, 1, kThreads>;
-// the tensor-core forward's
+// the tensor-core forward's and dQ kernel's (128-row tiles, two buffers)
 using TableBiasFwd = TableBiasT<kFwdBM, 2, kFwdThreads>;
+// the tensor-core dK/dV kernel's (64-row tiles, two buffers)
+using TableBiasBwd = TableBiasT<kBM, 2, kBwdThreads>;
 
 template <int D>
 constexpr int fwd_smem_floats() {
@@ -376,13 +385,14 @@ constexpr int fwd_mma_tile_bytes() {
 }
 
 // rows [r0, r0 + R) of a (n_rows, D) bf16 array into a tile of row stride
-// D + 8, by 16-byte cp.async; rows past n_rows are zero-filled
-template <int R, int D>
+// D + 8, by 16-byte cp.async from NT threads; rows past n_rows are
+// zero-filled
+template <int R, int D, int NT = kFwdThreads>
 __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 int r0, int n_rows) {
   constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < R * kChunks; idx += kFwdThreads) {
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += NT) {
     const int r = idx / kChunks, c = (idx - r * kChunks) * 8;
     const int row = r0 + r;
     const bool ok = row < n_rows;
@@ -639,7 +649,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (keep_ds) {
       __syncthreads();  // dS of the whole tile is in ds_s
-      bias.sink(ds_s, i0, j0, M, N);
+      bias.sink(ds_s, kLd, i0, j0, M, N);
     }
   }
 
@@ -708,6 +718,382 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (row_ok) store_part<T, D>(dq + qrow, sub, dqr, sm_scale);
+}
+
+// The bf16 backward on the tensor cores. dkdv_mma_kernel: one CTA per
+// (kBN = 64 keys, head, batch), 4 warps of 16 keys; K and V tiles are
+// staged once, and the Q, dO, lse and delta tiles of 64 query rows (and the
+// bias tile where the source stages one) run through a 2-stage cp.async
+// ring. Per block of kQS query rows a warp computes S^T = K Q^T and dP^T =
+// V dO^T (mma.sync m16n8k16; A by ldmatrix from the K/V tiles, B from the
+// Q/dO tiles), then P^T and dS^T in f32 on the accumulators (the bias source
+// is asked for `at(query, key)` there), and rounds them to bf16 straight
+// into the A fragments of dV += P^T dO and dK += dS^T Q (B by
+// ldmatrix.trans). A source that keeps dS is handed the tile's dS through a
+// kBM x kDsLd f32 tile (68: the accumulator's (query 2 tq + e, key g)
+// writes fall in distinct banks).
+template <int D>
+constexpr int dkdv_mma_tile_bytes() {
+  return (2 * kBN + 4 * kBM) * (D + 8) * 2 + 4 * kBM * 4;
+}
+
+template <int D, typename Bias>
+__global__ void __launch_bounds__(kBwdThreads)
+dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, Bias bias,
+                __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, int H, int M, int N,
+                float sm_scale, int causal) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kLd = D + 8;
+  constexpr int kQS = D <= 64 ? 64 : 32;   // query rows per S^T block
+  extern __shared__ float4 smem4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem4);    // kBN x kLd
+  bf16* vs = ks + kBN * kLd;                    // kBN x kLd
+  bf16* qs = vs + kBN * kLd;                    // 2 x kBM x kLd
+  bf16* dos = qs + 2 * kBM * kLd;               // 2 x kBM x kLd
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kBM * kLd);  // 2 x kBM
+  float* delta_s = lse_s + 2 * kBM;             // 2 x kBM
+  float* ds_s = delta_s + 2 * kBM;              // kBM x kDsLd, if kept
+  const bool keep_ds = bias.keeps_ds();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wk = warp * 16;                     // the warp's first key
+  const int j0 = blockIdx.x * kBN;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int offset = N - M;                     // bottom-right causal
+  bias.init(ds_s + (keep_ds ? kBM * kDsLd : 0), b, h, H, M, N);
+  __syncthreads();                              // the bias source's table
+
+  // the first query tile with a row that sees a key of this tile
+  const int i_begin = causal ? max(0, j0 - offset) / kBM * kBM : 0;
+  const int n_tiles = i_begin < M ? (M - i_begin + kBM - 1) / kBM : 0;
+  bias.skip(i_begin, j0, M, N);
+  const bf16* qb = q + bh * M * D;
+  const bf16* dob = dout + bh * M * D;
+  auto stage = [&](int t) {       // query tile t into buffer t & 1
+    const int buf = t & 1, i0 = i_begin + t * kBM;
+    load_rows_async<kBM, D, kBwdThreads>(qs + buf * kBM * kLd, qb, i0, M);
+    load_rows_async<kBM, D, kBwdThreads>(dos + buf * kBM * kLd, dob, i0, M);
+    for (int r = tid; r < kBM; r += kBwdThreads) {
+      const int row = i0 + r;
+      lse_s[buf * kBM + r] = row < M ? lse[bh * M + row] : kNegInf;
+      delta_s[buf * kBM + r] = row < M ? delta[bh * M + row] : 0.f;
+    }
+    bias.stage(i0, j0, M, N, buf);
+  };
+  load_rows_async<kBN, D, kBwdThreads>(ks, k + bh * N * D, j0, N);
+  load_rows_async<kBN, D, kBwdThreads>(vs, v + bh * N * D, j0, N);
+  if (n_tiles > 0) stage(0);
+  mma::cp_async_commit();
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, i0 = i_begin + t * kBM;
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();              // tile t (and K, V) in shared memory
+    const bf16* qt = qs + buf * kBM * kLd;
+    const bf16* dot = dos + buf * kBM * kLd;
+    const float* lt = lse_s + buf * kBM;
+    const float* dlt = delta_s + buf * kBM;
+    // only a tile at the keys' end or crossing the causal diagonal masks
+    // single scores (a row past M has lse -1e30 and is masked whole)
+    const bool edge = j0 + kBN > N || (causal && j0 + kBN - 1 > i0 + offset);
+
+#pragma unroll
+    for (int q0 = 0; q0 < kBM; q0 += kQS) {
+      // S^T = K Q^T, dP^T = V dO^T: st[j][2hh + e] is key wk + g + 8hh,
+      // query row q0 + 8j + 2tq + e of the tile
+      float st[kQS / 8][4], dpt[kQS / 8][4];
+#pragma unroll
+      for (int j = 0; j < kQS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t kf[4], vf[4];
+        const int a_off = (wk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                          16 * kk + 8 * (lane >> 4);
+        mma::ldsm_x4(kf, ks + a_off);
+        mma::ldsm_x4(vf, vs + a_off);
+#pragma unroll
+        for (int j = 0; j < kQS / 8; j += 2) {
+          uint32_t bq[4], bo[4];
+          const int b_off = (q0 + 8 * j + (lane & 7) + 8 * (lane >> 4)) * kLd +
+                            16 * kk + 8 * ((lane >> 3) & 1);
+          mma::ldsm_x4(bq, qt + b_off);
+          mma::ldsm_x4(bo, dot + b_off);
+          mma::mma_bf16_16816(st[j], kf, bq);
+          mma::mma_bf16_16816(st[j + 1], kf, bq + 2);
+          mma::mma_bf16_16816(dpt[j], vf, bo);
+          mma::mma_bf16_16816(dpt[j + 1], vf, bo + 2);
+        }
+      }
+      // P^T = exp(s^T * scale + bias - lse), dS^T = P^T (dP^T - delta), f32
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int jj = wk + g + 8 * hh, col = j0 + jj;
+#pragma unroll
+        for (int j = 0; j < kQS / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ii = q0 + 8 * j + 2 * tq + e, row = i0 + ii;
+            const float l = lt[ii];
+            bool ok = l > kNegInf / 2;
+            if (edge) ok = ok && col < N && (!causal || col <= row + offset);
+            float p = 0.f, ds = 0.f;
+            if (ok) {
+              p = expf(st[j][2 * hh + e] * sm_scale + bias.at(ii, jj, buf) -
+                       l);
+              ds = p * (dpt[j][2 * hh + e] - dlt[ii]);
+            }
+            st[j][2 * hh + e] = p;
+            dpt[j][2 * hh + e] = ds;
+            if (keep_ds) ds_s[ii * kDsLd + jj] = ds;
+          }
+      }
+      // dV += P^T dO, dK += dS^T Q: P^T and dS^T rounded to bf16 into the A
+      // fragments of each 16 query rows
+#pragma unroll
+      for (int kc = 0; kc < kQS / 16; ++kc) {
+        uint32_t pa[4], da[4];
+        pa[0] = mma::pack_bf16(st[2 * kc][0], st[2 * kc][1]);
+        pa[1] = mma::pack_bf16(st[2 * kc][2], st[2 * kc][3]);
+        pa[2] = mma::pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]);
+        pa[3] = mma::pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3]);
+        da[0] = mma::pack_bf16(dpt[2 * kc][0], dpt[2 * kc][1]);
+        da[1] = mma::pack_bf16(dpt[2 * kc][2], dpt[2 * kc][3]);
+        da[2] = mma::pack_bf16(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]);
+        da[3] = mma::pack_bf16(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3]);
+#pragma unroll
+        for (int jd = 0; jd < D / 8; jd += 2) {
+          uint32_t bo[4], bq[4];
+          const int b_off =
+              (q0 + 16 * kc + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+              8 * jd + 8 * (lane >> 4);
+          mma::ldsm_x4_t(bo, dot + b_off);
+          mma::ldsm_x4_t(bq, qt + b_off);
+          mma::mma_bf16_16816(dva[jd], pa, bo);
+          mma::mma_bf16_16816(dva[jd + 1], pa, bo + 2);
+          mma::mma_bf16_16816(dka[jd], da, bq);
+          mma::mma_bf16_16816(dka[jd + 1], da, bq + 2);
+        }
+      }
+    }
+    if (keep_ds) {
+      __syncthreads();            // dS of the whole tile is in ds_s
+      bias.sink(ds_s, kDsLd, i0, j0, M, N);
+    }
+    __syncthreads();              // buffer `buf` (and ds_s) free again
+  }
+  mma::cp_async_wait<0>();        // (no tile: only K and V were in flight)
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int col = j0 + wk + g + 8 * hh;
+    if (col >= N) continue;
+    bf16* dkrow = dk + (bh * N + col) * D;
+    bf16* dvrow = dv + (bh * N + col) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dkrow + 8 * j + 2 * tq) =
+          mma::pack_bf16(dka[j][2 * hh] * sm_scale,
+                         dka[j][2 * hh + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dvrow + 8 * j + 2 * tq) =
+          mma::pack_bf16(dva[j][2 * hh], dva[j][2 * hh + 1]);
+    }
+  }
+  bias.finish(ds_s, bh, j0, M, N);
+}
+
+// dq_mma_kernel: the forward's layout, one CTA per (kFwdBM = 128 query
+// rows, head, batch), 8 warps of 16 rows, Q and dO held in registers as A
+// fragments, K and V tiles of 64 keys (and the bias tile) through a 2-stage
+// cp.async ring. Per block of kKS keys: S = Q K^T and dP = dO V^T on
+// mma.sync, dS = P (dP - delta) in f32 on the accumulators (the bias
+// source is asked for `pair(row, key)`, as in the forward), then dQ += dS K
+// with dS rounded to bf16 into A fragments.
+template <int D>
+constexpr int dq_mma_tile_bytes() {
+  return (2 * kFwdBM + 4 * kBN) * (D + 8) * 2;  // Q, dO; K and V twice
+}
+
+template <int D, typename Bias>
+__global__ void __launch_bounds__(kFwdThreads)
+dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              Bias bias, __nv_bfloat16* __restrict__ dq, int H, int M, int N,
+              float sm_scale, int causal) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kLd = D + 8;
+  constexpr int kKS = D <= 64 ? 64 : 32;   // keys per S block
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);    // kFwdBM x kLd
+  bf16* dos = qs + kFwdBM * kLd;                // kFwdBM x kLd
+  bf16* ks = dos + kFwdBM * kLd;                // 2 x kBN x kLd
+  bf16* vs = ks + 2 * kBN * kLd;                // 2 x kBN x kLd
+  float* bias_smem = reinterpret_cast<float*>(vs + 2 * kBN * kLd);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;                     // the warp's first row
+  const int i0 = blockIdx.x * kFwdBM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int offset = N - M;                     // bottom-right causal
+  bias.init(bias_smem, b, h, H, M, N);
+  __syncthreads();                              // the bias source's table
+
+  int n_end = N;
+  if (causal) n_end = max(0, min(N, i0 + kFwdBM + offset));
+  const int n_tiles = (n_end + kBN - 1) / kBN;
+  const bf16* kb = k + bh * N * D;
+  const bf16* vb = v + bh * N * D;
+  auto stage = [&](int t) {       // tile t's K, V and bias into buffer t & 1
+    const int buf = t & 1;
+    load_rows_async<kBN, D>(ks + buf * kBN * kLd, kb, t * kBN, N);
+    load_rows_async<kBN, D>(vs + buf * kBN * kLd, vb, t * kBN, N);
+    bias.stage(i0, t * kBN, M, N, buf);
+  };
+  load_rows_async<kFwdBM, D>(qs, q + bh * M * D, i0, M);
+  load_rows_async<kFwdBM, D>(dos, dout + bh * M * D, i0, M);
+  if (n_tiles > 0) stage(0);
+  mma::cp_async_commit();
+
+  float l[2], dl[2];              // rows wr + g and wr + g + 8
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = i0 + wr + g + 8 * hh;
+    l[hh] = row < M ? lse[bh * M + row] : kNegInf;
+    dl[hh] = row < M ? delta[bh * M + row] : 0.f;
+  }
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, j0 = t * kBN;
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();              // tile t (and Q, dO) in shared memory
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a_off = (wr + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                          16 * kk + 8 * (lane >> 4);
+        mma::ldsm_x4(qf[kk], qs + a_off);
+        mma::ldsm_x4(df[kk], dos + a_off);
+      }
+    }
+    const bf16* kt = ks + buf * kBN * kLd;
+    const bf16* vt = vs + buf * kBN * kLd;
+    const bool edge = j0 + kBN > N ||
+                      (causal && j0 + kBN - 1 > i0 + wr + offset);
+
+#pragma unroll
+    for (int c0 = 0; c0 < kBN; c0 += kKS) {
+      // S = Q K^T, dP = dO V^T: s[j][2hh + e] is row wr + g + 8hh, key
+      // c0 + 8j + 2tq + e of the tile
+      float s[kKS / 8][4], dp[kKS / 8][4];
+#pragma unroll
+      for (int j = 0; j < kKS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < kKS / 8; j += 2) {
+          uint32_t bk[4], bv[4];
+          const int b_off = (c0 + 8 * j + (lane & 7) + 8 * (lane >> 4)) * kLd +
+                            16 * kk + 8 * ((lane >> 3) & 1);
+          mma::ldsm_x4(bk, kt + b_off);
+          mma::ldsm_x4(bv, vt + b_off);
+          mma::mma_bf16_16816(s[j], qf[kk], bk);
+          mma::mma_bf16_16816(s[j + 1], qf[kk], bk + 2);
+          mma::mma_bf16_16816(dp[j], df[kk], bv);
+          mma::mma_bf16_16816(dp[j + 1], df[kk], bv + 2);
+        }
+      // dS = exp(s * scale + bias - lse) (dP - delta), in f32
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int ii = wr + g + 8 * hh, row = i0 + ii;
+#pragma unroll
+        for (int j = 0; j < kKS / 8; ++j) {
+          const int jj = c0 + 8 * j + 2 * tq;
+          const float2 bp = bias.pair(ii, jj, buf);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j0 + jj + e;
+            bool ok = l[hh] > kNegInf / 2;
+            if (edge) ok = ok && col < N && (!causal || col <= row + offset);
+            float ds = 0.f;
+            if (ok)
+              ds = expf(s[j][2 * hh + e] * sm_scale + (e ? bp.y : bp.x) -
+                        l[hh]) * (dp[j][2 * hh + e] - dl[hh]);
+            s[j][2 * hh + e] = ds;
+          }
+        }
+      }
+      // dQ += dS K, dS rounded to bf16 into the A fragments of each 16 keys
+#pragma unroll
+      for (int kc = 0; kc < kKS / 16; ++kc) {
+        uint32_t da[4];
+        da[0] = mma::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        da[1] = mma::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        da[2] = mma::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        da[3] = mma::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+        for (int jd = 0; jd < D / 8; jd += 2) {
+          uint32_t bk[4];
+          mma::ldsm_x4_t(bk, kt + (c0 + 16 * kc + (lane & 7) +
+                                   8 * ((lane >> 3) & 1)) * kLd +
+                                 8 * jd + 8 * (lane >> 4));
+          mma::mma_bf16_16816(acc[jd], da, bk);
+          mma::mma_bf16_16816(acc[jd + 1], da, bk + 2);
+        }
+      }
+    }
+    __syncthreads();              // buffer `buf` is free for tile t + 2
+  }
+  mma::cp_async_wait<0>();        // (no tile: only Q and dO were in flight)
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = i0 + wr + g + 8 * hh;
+    if (row >= M) continue;
+    bf16* dqrow = dq + (bh * M + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dqrow + 8 * j + 2 * tq) =
+          mma::pack_bf16(acc[j][2 * hh] * sm_scale,
+                         acc[j][2 * hh + 1] * sm_scale);
+  }
 }
 
 // kernel<<<grid, threads, smem floats, stream>>>(args...), with the
@@ -788,6 +1174,69 @@ inline dim3 query_grid(int B, int H, int M) {
 }
 inline dim3 key_grid(int B, int H, int N) {
   return dim3((N + kBN - 1) / kBN, H, B);
+}
+
+// The backward's dK/dV kernel in either form: bf16 on the tensor cores
+// (dkdv_mma_kernel on the bias source `mma_bias`), f32 on the CUDA cores
+// (dkdv_kernel on `bias`).
+template <typename Bias, typename MmaBias>
+cudaError_t launch_dkdv(const Bias& bias, const MmaBias& mma_bias, int dtype,
+                        const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse,
+                        const float* delta, void* dk, void* dv, int B, int H,
+                        int M, int N, int D, float sm_scale, int causal,
+                        void* stream) {
+  return dispatch(dtype, D, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(d)::value;
+    const T* tq = static_cast<const T*>(q);
+    const T* tk = static_cast<const T*>(k);
+    const T* tv = static_cast<const T*>(v);
+    const T* tdo = static_cast<const T*>(dout);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_threads(
+          dkdv_mma_kernel<kD, MmaBias>, key_grid(B, H, N), kBwdThreads,
+          dkdv_mma_tile_bytes<kD>() / 4 +
+              (mma_bias.keeps_ds() ? kBM * kDsLd : 0) +
+              mma_bias.smem_floats(M),
+          stream, tq, tk, tv, tdo, lse, delta, mma_bias, static_cast<T*>(dk),
+          static_cast<T*>(dv), H, M, N, sm_scale, causal);
+    else
+      return launch(dkdv_kernel<T, kD, Bias>, key_grid(B, H, N),
+                    dkdv_smem_floats<kD>() + bias.smem_floats(M), stream, tq,
+                    tk, tv, tdo, lse, delta, bias, static_cast<T*>(dk),
+                    static_cast<T*>(dv), H, M, N, sm_scale, causal);
+  });
+}
+
+// The backward's dQ kernel in either form: bf16 on the tensor cores
+// (dq_mma_kernel on `mma_bias`, the forward's tiles), f32 on the CUDA cores
+// (dq_kernel on `bias`).
+template <typename Bias, typename MmaBias>
+cudaError_t launch_dq(const Bias& bias, const MmaBias& mma_bias, int dtype,
+                      const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int H, int M, int N, int D,
+                      float sm_scale, int causal, void* stream) {
+  return dispatch(dtype, D, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(d)::value;
+    const T* tq = static_cast<const T*>(q);
+    const T* tk = static_cast<const T*>(k);
+    const T* tv = static_cast<const T*>(v);
+    const T* tdo = static_cast<const T*>(dout);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_threads(
+          dq_mma_kernel<kD, MmaBias>, dim3((M + kFwdBM - 1) / kFwdBM, H, B),
+          kFwdThreads, dq_mma_tile_bytes<kD>() / 4 + mma_bias.smem_floats(M),
+          stream, tq, tk, tv, tdo, lse, delta, mma_bias, static_cast<T*>(dq),
+          H, M, N, sm_scale, causal);
+    else
+      return launch(dq_kernel<T, kD, Bias>, query_grid(B, H, M),
+                    dq_smem_floats<kD>() + bias.smem_floats(M), stream, tq,
+                    tk, tv, tdo, lse, delta, bias, static_cast<T*>(dq), H, M,
+                    N, sm_scale, causal);
+  });
 }
 
 }  // namespace attn

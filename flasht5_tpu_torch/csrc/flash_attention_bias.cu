@@ -24,6 +24,12 @@
 // accumulator fragments' coordinates, 8 rows by 4 pairs a warp, and 72 (8
 // mod 32 words) puts each half warp's pairs in distinct banks.
 //
+// The tensor-core dK/dV kernel reads the tile at (query, key) accumulator
+// coordinates of S^T, (2 tq + e, g) over a warp: row stride 68 (8 mod 32
+// words) puts those reads in distinct banks; its dQ kernel reads the
+// forward's (row, key pair) float2s from the forward's 128-row, 72-float
+// tiles. Both stage the tile in their 2-stage cp.async ring.
+//
 // dbias: the dK/dV kernel writes dS (fp32) of every (batch, head, row, col)
 // into a (B, H, M, N) array, each tile from shared memory with coalesced row
 // writes and zeros for the tiles a causal mask skips; the wrapper sums it
@@ -33,13 +39,13 @@
 // Bound on the H100, at the encoder's shape of the pretraining batch (B 64,
 // H 8, M = N = 1024, D 64): the forward does 4 B H M N D = 137 GFLOP over
 // ~0.3 GB, so operations bound it (0.14 ms at the bf16 tensor-core rate);
-// the dK/dV kernel does 8 B H M N D (QK^T, dO V^T, P^T dO, dS^T q) and the
-// dQ kernel 6 B H M N D. The per-batch dbias adds 2.1 GB of writes (and the
-// wrapper's reduction reads them again) that a (1, H, M, N) dbias does not
-// need. The bf16 forward runs on the tensor cores (mma.sync, see
-// attention.cuh); the backward kernels do their products on the CUDA cores
-// in fp32. Tensor cores for the backward, and reducing dbias over the batch
-// on chip, are later work.
+// the dK/dV kernel does 8 B H M N D (K Q^T, V dO^T, P^T dO, dS^T Q: 0.278
+// ms) and the dQ kernel 6 B H M N D (0.208 ms). The per-batch dbias adds
+// 2.1 GB of writes (and the wrapper's reduction reads them again) that a
+// (1, H, M, N) dbias does not need. bf16 inputs run all three on the tensor
+// cores (attention.cuh's fwd_mma_kernel, dkdv_mma_kernel, dq_mma_kernel,
+// mma.sync with the bias tile in the cp.async ring); f32 inputs the
+// CUDA-core forms. Reducing dbias over the batch on chip is later work.
 
 #include "attention.cuh"
 
@@ -48,13 +54,15 @@ using namespace ft5::attn;
 namespace {
 
 // A (BM x kBN) bias tile per tile pair, row stride LD floats, in NBUF
-// buffers. The backward kernels (and the f32 forward) read it four threads
-// to a row, 8 rows at once: LD 68 puts those rows in distinct banks. The
-// tensor-core forward reads (row g, keys 2 tq, 2 tq + 1) pairs at
-// accumulator coordinates, 8 rows by 4 pairs: LD 72 (8 mod 32 words) puts
-// each half warp's 64-bit reads in distinct banks. With two buffers the
-// tile is part of the forward's cp.async ring (16-byte copies where the
-// bias rows allow them, zero-filled past N). NT: the kernel's threads.
+// buffers. The f32 kernels read it four threads to a row, 8 rows at once:
+// LD 68 puts those rows in distinct banks, as it does the tensor-core dK/dV
+// kernel's reads at S^T's (query 2 tq + e, key g) coordinates. The
+// tensor-core forward and dQ kernels read (row g, keys 2 tq, 2 tq + 1)
+// pairs at accumulator coordinates, 8 rows by 4 pairs: LD 72 (8 mod 32
+// words) puts each half warp's 64-bit reads in distinct banks. With two
+// buffers the tile is part of the tensor-core kernels' cp.async rings
+// (16-byte copies where the bias rows allow them, zero-filled past N). NT:
+// the kernel's threads.
 template <int BM, int LD, int NBUF, int NT>
 struct TensorBiasT {
   const float* ptr;        // the bias
@@ -102,26 +110,37 @@ struct TensorBiasT {
     return *reinterpret_cast<const float2*>(bt + buf * BM * LD + ii * LD +
                                             jj);
   }
-  __device__ bool keeps_ds() const { return true; }
+  __host__ __device__ bool keeps_ds() const { return dbias != nullptr; }
   // the rows above i_begin see none of the tile's keys: their dS is 0
   __device__ void skip(int i_begin, int j0, int, int N) {
-    for (int idx = threadIdx.x; idx < i_begin * kBN; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < i_begin * kBN; idx += NT) {
       const int row = idx / kBN, c = j0 + idx - row * kBN;
       if (c < N) db[static_cast<size_t>(row) * N + c] = 0.f;
     }
   }
-  __device__ void sink(const float* ds_s, int i0, int j0, int M, int N) {
-    for (int idx = threadIdx.x; idx < BM * kBN; idx += kThreads) {
+  __device__ void sink(const float* ds_s, int ld, int i0, int j0, int M,
+                       int N) {
+    for (int idx = threadIdx.x; idx < BM * kBN; idx += NT) {
       const int r = idx / kBN, c = idx - r * kBN;
       if (i0 + r < M && j0 + c < N)
-        db[static_cast<size_t>(i0 + r) * N + j0 + c] = ds_s[r * kLd + c];
+        db[static_cast<size_t>(i0 + r) * N + j0 + c] = ds_s[r * ld + c];
     }
   }
   __device__ void finish(float*, size_t, int, int, int) {}
 };
 
+// the f32 kernels'; the tensor-core forward's and dQ kernel's; the
+// tensor-core dK/dV kernel's
 using TensorBias = TensorBiasT<kBM, kBN + 4, 1, kThreads>;
 using TensorBiasFwd = TensorBiasT<kFwdBM, kBN + 8, 2, kFwdThreads>;
+using TensorBiasBwd = TensorBiasT<kBM, kBN + 4, 2, kBwdThreads>;
+
+// whether cp.async can copy the bias rows (16-byte aligned rows)
+bool bias_rows_aligned(const float* bias, long long sb, long long sh,
+                       long long sm) {
+  return reinterpret_cast<uintptr_t>(bias) % 16 == 0 && sb % 4 == 0 &&
+         sh % 4 == 0 && sm % 4 == 0;
+}
 
 }  // namespace
 
@@ -136,8 +155,7 @@ FT5_EXPORT int ft5_flash_attention_bias_fwd(
     float* lse, int B, int H, int M, int N, int D, float sm_scale, int causal,
     int dtype, void* stream) {
   const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, nullptr};
-  const bool vec = reinterpret_cast<uintptr_t>(bias) % 16 == 0 &&
-                   bias_sb % 4 == 0 && bias_sh % 4 == 0 && bias_sm % 4 == 0;
+  const bool vec = bias_rows_aligned(bias, bias_sb, bias_sh, bias_sm);
   const TensorBiasFwd mma_bv{bias, bias_sb, bias_sh, bias_sm, nullptr, vec};
   return launch_fwd(bv, mma_bv, dtype, q, k, v, o, lse, B, H, M, N, D,
                     sm_scale, causal, stream);
@@ -150,16 +168,10 @@ FT5_EXPORT int ft5_flash_attention_bias_dkv(
     void* dv, float* dbias, int B, int H, int M, int N, int D,
     float sm_scale, int causal, int dtype, void* stream) {
   const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, dbias};
-  return dispatch(dtype, D, [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int kD = decltype(d)::value;
-    return launch(dkdv_kernel<T, kD, TensorBias>, key_grid(B, H, N),
-                  dkdv_smem_floats<kD>() + bv.smem_floats(M), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                  delta, bv, static_cast<T*>(dk), static_cast<T*>(dv), H, M,
-                  N, sm_scale, causal);
-  });
+  const bool vec = bias_rows_aligned(bias, bias_sb, bias_sh, bias_sm);
+  const TensorBiasBwd mma_bv{bias, bias_sb, bias_sh, bias_sm, dbias, vec};
+  return launch_dkdv(bv, mma_bv, dtype, q, k, v, dout, lse, delta, dk, dv, B,
+                     H, M, N, D, sm_scale, causal, stream);
 }
 
 FT5_EXPORT int ft5_flash_attention_bias_dq(
@@ -169,13 +181,8 @@ FT5_EXPORT int ft5_flash_attention_bias_dq(
     int H, int M, int N, int D, float sm_scale, int causal, int dtype,
     void* stream) {
   const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, nullptr};
-  return dispatch(dtype, D, [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int kD = decltype(d)::value;
-    return launch(dq_kernel<T, kD, TensorBias>, query_grid(B, H, M),
-                  dq_smem_floats<kD>() + bv.smem_floats(M), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                  delta, bv, static_cast<T*>(dq), H, M, N, sm_scale, causal);
-  });
+  const bool vec = bias_rows_aligned(bias, bias_sb, bias_sh, bias_sm);
+  const TensorBiasFwd mma_bv{bias, bias_sb, bias_sh, bias_sm, nullptr, vec};
+  return launch_dq(bv, mma_bv, dtype, q, k, v, dout, lse, delta, dq, B, H, M,
+                   N, D, sm_scale, causal, stream);
 }

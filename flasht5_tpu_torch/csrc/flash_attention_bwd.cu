@@ -22,8 +22,13 @@
 //
 // Bound on the H100: operations. At the encoder's shape (B 8, H 8, M = N =
 // 1024, D 64) the backward does 10 B H M N D = 42.9 GFLOP (5 products) over
-// about 50 MB. This first form does the products on the CUDA cores in fp32
-// (attention.cuh says how); moving them onto wgmma is later work.
+// about 50 MB: 0.0434 ms at the bf16 tensor-core rate. bf16 inputs take
+// attention.cuh's tensor-core kernels (dkdv_mma_kernel: 64-key CTAs, S^T and
+// dP^T on mma.sync, P^T and dS^T rounded into A fragments in registers;
+// dq_mma_kernel: the forward's 128-row layout with Q and dO in registers),
+// the bias window gathered from the table into a 2-stage ring beside the
+// Q/dO (dK/dV) or K/V (dQ) tiles. f32 inputs take the CUDA-core kernels
+// (dkdv_kernel, dq_kernel), which the port keeps for them (no TF32).
 
 #include "attention.cuh"
 
@@ -43,25 +48,16 @@ FT5_EXPORT int ft5_flash_attention_bwd(
   if (table != nullptr && (num_buckets < 1 || num_buckets > kMaxBuckets))
     return cudaErrorInvalidValue;
   // the dK/dV kernel writes dW's rows; the dQ kernel only reads the table
-  const TableBias bias{table, bucket, table ? num_buckets : 0,
-                       table ? dw_part : nullptr};
-  const TableBias dq_bias{table, bucket, bias.num_buckets, nullptr};
-  return dispatch(dtype, D, [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int kD = decltype(d)::value;
-    const T* tq = static_cast<const T*>(q);
-    const T* tk = static_cast<const T*>(k);
-    const T* tv = static_cast<const T*>(v);
-    const T* tdo = static_cast<const T*>(dout);
-    cudaError_t err = launch(
-        dkdv_kernel<T, kD, TableBias>, key_grid(B, H, N),
-        dkdv_smem_floats<kD>() + bias.smem_floats(M), stream, tq, tk,
-        tv, tdo, lse, delta, bias, static_cast<T*>(dk), static_cast<T*>(dv),
-        H, M, N, sm_scale, causal);
-    if (err != cudaSuccess) return err;
-    return launch(dq_kernel<T, kD, TableBias>, query_grid(B, H, M),
-                  dq_smem_floats<kD>() + dq_bias.smem_floats(M), stream, tq,
-                  tk, tv, tdo, lse, delta, dq_bias, static_cast<T*>(dq), H,
-                  M, N, sm_scale, causal);
-  });
+  const int nb = table ? num_buckets : 0;
+  float* dw = table ? dw_part : nullptr;
+  const TableBias bias{table, bucket, nb, dw};
+  const TableBiasBwd mma_bias{table, bucket, nb, dw};
+  const TableBias dq_bias{table, bucket, nb, nullptr};
+  const TableBiasFwd mma_dq_bias{table, bucket, nb, nullptr};
+  cudaError_t err = launch_dkdv(bias, mma_bias, dtype, q, k, v, dout, lse,
+                                delta, dk, dv, B, H, M, N, D, sm_scale,
+                                causal, stream);
+  if (err != cudaSuccess) return err;
+  return launch_dq(dq_bias, mma_dq_bias, dtype, q, k, v, dout, lse, delta,
+                   dq, B, H, M, N, D, sm_scale, causal, stream);
 }

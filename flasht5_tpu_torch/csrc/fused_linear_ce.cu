@@ -1,62 +1,68 @@
 // Fused lm_head matmul + cross-entropy, forward and backward.
 //
 // Replaces the Pallas kernels of flasht5_tpu/ops/fused_linear_ce.py:
-// _fwd_kernel (launched at :253) and _bwd_kernel (:320). As there, each
-// (64 x 64) logits tile is computed from x (rows, d) and w (d, V) in f32
-// (w rounded to x's dtype as it is loaded, so an f32 weight needs no cast
-// pass), scaled by logit_scale, and consumed where it was made: the
-// logits never reach device memory.
+// _fwd_kernel (launched at :253) and _bwd_kernel (:320). As there, the
+// logits are computed from x (rows, d) and w (d, V) in f32 (w rounded to
+// x's dtype), scaled by logit_scale, and never reach device memory as a
+// (rows, V) array.
 //
 // Bound on the H100: operations. At the train step's shape (2048 rows,
-// d 512, V 32768) the forward is 68.7 GFLOP and the backward three such
-// products (it recomputes the logits); the bytes are x, w and the (rows,)
-// vectors. Two forms, chosen by x's dtype:
-//
-// - bf16 activations (the train step and scoring paths): mma.sync
-//   m16n8k16 bf16 -> f32 for all three products (mma.cuh), operands staged
-//   through shared memory as bf16, K in steps of 32 (logits) or 64
-//   (contractions);
-// - f32 activations: CUDA-core f32 FMAs on 4 x 4 (logits) or 4 x 2
-//   (contractions) register tiles, 256 threads a CTA (the port does not
-//   use TF32, so the tensor cores have no f32 form here).
-//
-// Both sum exact products in f32 and differ from the plain version only in
-// the order of the sums. A stage ring (cp.async or TMA) and wgmma are
-// later work.
+// d 512, V 32768) the forward is 68.7 GFLOP (0.0695 ms at the bf16
+// tensor-core rate) and the backward three such products (0.208 ms); the
+// bytes are x, w and the (rows,) vectors. Two forms, chosen by x's dtype:
+// bf16 activations (the train step and scoring paths) on the tensor cores
+// (mma.sync m16n8k16 bf16 -> f32, mma.cuh), f32 activations on the CUDA
+// cores (f32 FMAs on 4 x 4 or 4 x 2 register tiles, 256 threads a CTA:
+// the port uses no TF32). Both sum exact products in f32 and differ from
+// the plain version only in the order of the sums.
 //
 // The TPU grid runs its (vocab tile, row block) steps in order and carries
-// sums in scratch memory between them. Here CTAs run in parallel, so:
+// sums in scratch memory between them. Here CTAs run in parallel, and no
+// atomics are used: every run gives the same bits.
 //
 // - forward: a CTA per (row block of 64, vocab split) streams the split's
 //   vocab tiles and writes per-row partial (max, sum of exp, sum of
 //   logits); flce_merge_kernel folds the splits into lse. The split count
 //   (ft5_flce_splits) gives ~4 CTAs an SM: at the scoring batches' 256
 //   label rows there are only 4 row blocks for 132 SMs. Its operands are
-//   staged one K-step at a time, so it takes any d.
-// - backward, no atomics, the same bits on every run: the dx kernel, a CTA
-//   per (row block, vocab split, chunk of d), loops over the split's vocab
-//   tiles and keeps its (64 x chunk) dx sums in registers;
-//   flce_dx_merge_kernel adds the splits in order and rounds to x's dtype.
+//   staged one K-step at a time (no ring), so it takes any d.
+// - bf16 backward (launch_bwd_gemm): the TPU kernel computes each logits
+//   tile once and contracts it both ways in the same body (:127-187). Here
+//   the rows go in chunks and the vocabulary in slabs, sized by the
+//   wrapper's bwd_plan so that the workspace stays within 64 MB whatever
+//   the rows, d and V. For each (chunk, slab): the slab of an f32 lm_head
+//   is rounded to bf16 once (the TPU kernel rounds each tile as it loads:
+//   the same values); one GEMM forms the slab's logits and, in its
+//   epilogue, the bf16 dlogits (probabilities, one-hot label, smoothing,
+//   z-loss, rounded to x's dtype as the TPU kernel does at :159) into the
+//   workspace, staged through shared memory for 16-byte stores; two more
+//   GEMMs contract them: dW[:, slab] = x^T dl over the chunk's rows
+//   (written once; chunks after the first add to it in order) and dx +=
+//   dl w^T (K split for parallelism; the f32 partials are added in order
+//   by flce_dx_reduce_kernel, which also carries dx's f32 sums from slab
+//   to slab). Each logits tile is computed once, at every d. The GEMMs are
+//   mma.sync with a 3-stage cp.async ring (flce_gemm_kernel, below); at
+//   the train step's shape they reach ~170 TFLOP/s each, the logits GEMM
+//   less (its epilogue evaluates an exp per logit). wgmma with a TMA
+//   producer is the next step.
+// - f32 backward: the dx kernel, a CTA per (row block, vocab split, chunk
+//   of d), loops over the split's vocab tiles and keeps its (64 x chunk)
+//   dx sums in registers; flce_dx_reduce_kernel adds the splits in order.
 //   The dW kernel, a CTA per (vocab tile, chunk of d), loops over all row
 //   blocks and keeps its (chunk x 64) dW sums in registers. Both recompute
-//   their logits tiles over the whole d and form dlogits in registers
-//   (probabilities, one-hot label, smoothing, z-loss), rounded to x's dtype
-//   before the contraction, as the TPU kernel does (:159).
-//
-// Chunks of d: the register sums hold at most 512 columns of d, so a wider
-// d is cut into ceil(d / 512) equal chunks (multiples of 64, the last one
-// masked), one CTA each. Every chunk's CTA recomputes the logits over the
-// whole d: at d 2048 each backward kernel does 4x the logits products of
-// one pass (the dx and dW kernels then do 5 products' work where the
-// function needs 3). That is the price of keeping the sums in registers
-// and no atomics; at d <= 512 there is one chunk and nothing changes.
+//   their logits tiles over the whole d and form dlogits in registers. The
+//   register sums hold at most 512 columns of d, so a wider d is cut into
+//   ceil(d / 512) equal chunks (multiples of 64, the last one masked), one
+//   CTA each, each recomputing the logits over the whole d.
 //
 // Rows, vocab columns and d need not be multiples of the tiles: rows past
 // the end read 0 and count as ignored, columns past V and d past its end
-// are masked (a d that is not a multiple of 8 is loaded element by element
-// instead of by 16-byte vectors).
+// are masked (an operand whose rows are not 16-byte aligned, such as x at a
+// d that is not a multiple of 8, is loaded element by element instead of
+// by 16-byte copies).
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -225,7 +231,7 @@ __global__ void flce_merge_kernel(const float* __restrict__ part_m,
 }
 
 // ---------------------------------------------------------------------------
-// backward: dlogits (both forms) and the CUDA-core dx and dW kernels
+// backward: dlogits (both forms) and the f32 form's dx and dW kernels
 // ---------------------------------------------------------------------------
 
 struct Grad {                        // what dlogits need beyond the logits
@@ -362,16 +368,24 @@ flce_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// dx = the sum of the splits' partials, in split order, in x's dtype
+// dx from the splits' f32 partials (splits x n), added in split order to
+// the f32 sums carried in dx_acc (none when `first`); `last` writes x's
+// dtype into dx, else the sums back into dx_acc. The f32 form has one
+// pass (first and last); the bf16 form carries dx_acc from vocabulary slab
+// to slab.
 template <typename T>
-__global__ void flce_dx_merge_kernel(const float* __restrict__ dx_part,
-                                     T* __restrict__ dx, size_t n,
-                                     int splits) {
+__global__ void flce_dx_reduce_kernel(const float* __restrict__ part,
+                                      float* __restrict__ dx_acc,
+                                      T* __restrict__ dx, size_t n,
+                                      int splits, int first, int last) {
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v = 0.f;
-    for (int sp = 0; sp < splits; ++sp) v += dx_part[sp * n + e];
-    dx[e] = ft5::from_float<T>(v);
+    float v = first ? 0.f : dx_acc[e];
+    for (int sp = 0; sp < splits; ++sp) v += part[sp * n + e];
+    if (last)
+      dx[e] = ft5::from_float<T>(v);
+    else
+      dx_acc[e] = v;
   }
 }
 
@@ -450,7 +464,7 @@ flce_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core form: bf16 activations (mma.sync m16n8k16, f32 sums)
+// the bf16 forward on the tensor cores (mma.sync m16n8k16, f32 sums)
 // ---------------------------------------------------------------------------
 //
 // Every operand tile is staged in shared memory in its natural layout
@@ -481,26 +495,12 @@ __device__ __forceinline__ void frag_a(uint32_t a[4], const bf16 (*t)[kTS],
   ldsm_x4(a, &t[m0 + (l & 7) + 8 * ((l >> 3) & 1)][k0 + 8 * (l >> 4)]);
 }
 
-// The A fragment (16 x 16) at (m0, k0) of a tile stored [k][m].
-__device__ __forceinline__ void frag_a_t(uint32_t a[4], const bf16 (*t)[kTS],
-                                         int m0, int k0) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4_t(a, &t[k0 + (l & 7) + 8 * (l >> 4)][m0 + 8 * ((l >> 3) & 1)]);
-}
-
 // The B fragments (16 x 8) at k0 of the two column tiles n0 and n0 + 8
 // (b[0..1] and b[2..3]) of a tile stored [k][n].
 __device__ __forceinline__ void frag_b2_kn(uint32_t b[4], const bf16 (*t)[kTS],
                                            int n0, int k0) {
   const int l = threadIdx.x & 31;
   ldsm_x4_t(b, &t[k0 + (l & 7) + 8 * ((l >> 3) & 1)][n0 + 8 * (l >> 4)]);
-}
-
-// The same from a tile stored [n][k].
-__device__ __forceinline__ void frag_b2_nk(uint32_t b[4], const bf16 (*t)[kTS],
-                                           int n0, int k0) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4(b, &t[n0 + (l & 7) + 8 * (l >> 4)][k0 + 8 * ((l >> 3) & 1)]);
 }
 
 // 8 consecutive values as bf16, `valid` of them in range (the rest 0);
@@ -596,30 +596,6 @@ __device__ __forceinline__ float quad_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// dlogits of the thread's warp-tile values, rounded to bf16 and stored in
-// dl[row][col] of the 64 x 64 tile
-__device__ __forceinline__ void store_dlogits(bf16 (*dl)[kTS],
-                                              float lg[4][4],
-                                              const Grad& g,
-                                              const RowGrad q[2], int c0,
-                                              int V, int wrow, int wcol) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = wcol + j * 8 + tq * 2;
-      float v[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        v[e] = c0 + c + e < V
-            ? dlogit(g, q[h], lg[j][2 * h + e] * g.logit_scale, c0 + c + e)
-            : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(&dl[wrow + gq + 8 * h][c]) =
-          __floats2bfloat162_rn(v[0], v[1]);
-    }
-}
-
 constexpr int kFwdMmaThreads = 128;  // 4 warps, each 16 rows x 64 columns
 
 template <typename TW, bool kExact>
@@ -684,161 +660,8 @@ flce_fwd_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
-// dx partial sums of one vocab split and one chunk of d (NCH blocks of 64
-// columns from d0 = blockIdx.z * NCH * 64): warp (wr, wc) = (warp / 2,
-// warp % 2) keeps rows 16 wr.., columns d0 + 64 ch + 32 wc.. of each
-// block. kExact: d = NCH * 64, one chunk, x's rows 16-byte aligned.
-template <typename TW, int NCH, bool kExact>
-__global__ void __launch_bounds__(kThreads, 1)
-flce_dx_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
-                   Grad g, float* __restrict__ dx_part, int rows, int d_arg,
-                   int V, int splits, bool x_vec, bool w_vec) {
-  const int d = kExact ? NCH * kT : d_arg;
-  const int d0 = kExact ? 0 : blockIdx.z * NCH * kT;
-  __shared__ __align__(16) MmaTiles s;
-  __shared__ __align__(16) bf16 dls[kT][kTS];   // dl[row][col]
-  __shared__ __align__(16) bf16 wd[kT][kTS];    // w[d col][col]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wrow = (warp >> 1) * 16, wcol = (warp & 1) * 32;
-  const int r0 = blockIdx.x * kBR, split = blockIdx.y;
-  int t_begin, t_end;
-  split_range(V, splits, split, &t_begin, &t_end);
-
-  RowGrad q[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) q[h] = row_grad(g, r0 + wrow + gq + 8 * h, rows);
-  float acc[NCH][4][4];
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ch][j][e] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int c0 = t * kBV;
-    float lg[4][4];
-    mma_logits<kThreads, 4, kExact>(lg, x, w, r0, c0, rows, d, V, x_vec,
-                                    w_vec, s, wrow, wcol);
-    store_dlogits(dls, lg, g, q, c0, V, wrow, wcol);
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch) {
-      __syncthreads();           // dls written; the last wd chunk read
-      const int k0 = d0 + ch * kT;
-      stage<kThreads>(wd, w + static_cast<size_t>(k0) * V + c0, V,
-                      kExact ? kT : d - k0, V - c0, w_vec);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kT; kk += 16) {
-        uint32_t a[4];
-        frag_a(a, dls, wrow, kk);
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          uint32_t b[4];
-          frag_b2_nk(b, wd, wcol + j * 8, kk);
-          mma_bf16(acc[ch][j], a, b);
-          mma_bf16(acc[ch][j + 1], a, b + 2);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + wrow + gq + 8 * h;
-    if (r >= rows) continue;
-    float* out = dx_part + (static_cast<size_t>(split) * rows + r) * d;
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = d0 + ch * kT + wcol + j * 8 + tq * 2;
-        if (kExact || (col + 1 < d && d % 2 == 0))
-          *reinterpret_cast<float2*>(out + col) =
-              make_float2(acc[ch][j][2 * h], acc[ch][j][2 * h + 1]);
-        else if (col < d) {
-          out[col] = acc[ch][j][2 * h];
-          if (col + 1 < d) out[col + 1] = acc[ch][j][2 * h + 1];
-        }
-      }
-  }
-}
-
-// dW of one vocab tile and one chunk of d (NCH blocks of 64 rows of dW
-// from d0 = blockIdx.y * NCH * 64) over all row blocks: warp (wr, wc)
-// keeps d rows d0 + 64 ch + 16 wr.., columns 32 wc..
-template <typename TW, int NCH, bool kExact>
-__global__ void __launch_bounds__(kThreads, 1)
-flce_dw_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
-                   Grad g, TW* __restrict__ dw, int rows, int d_arg, int V,
-                   bool x_vec, bool w_vec) {
-  const int d = kExact ? NCH * kT : d_arg;
-  const int d0 = kExact ? 0 : blockIdx.y * NCH * kT;
-  __shared__ __align__(16) MmaTiles s;
-  __shared__ __align__(16) bf16 dls[kT][kTS];   // dl[row][col]
-  __shared__ __align__(16) bf16 xd[kT][kTS];    // x[row][d col]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wrow = (warp >> 1) * 16, wcol = (warp & 1) * 32;
-  const int c0 = blockIdx.x * kBV;
-
-  float acc[NCH][4][4];
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ch][j][e] = 0.f;
-
-  for (int r0 = 0; r0 < rows; r0 += kBR) {
-    RowGrad q[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      q[h] = row_grad(g, r0 + wrow + gq + 8 * h, rows);
-    float lg[4][4];
-    mma_logits<kThreads, 4, kExact>(lg, x, w, r0, c0, rows, d, V, x_vec,
-                                    w_vec, s, wrow, wcol);
-    store_dlogits(dls, lg, g, q, c0, V, wrow, wcol);
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch) {
-      __syncthreads();           // dls written; the last xd chunk read
-      const int k0 = d0 + ch * kT;
-      stage<kThreads>(xd, x + static_cast<size_t>(r0) * d + k0, d,
-                      rows - r0, kExact ? kT : d - k0, kExact || x_vec);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kT; kk += 16) {
-        uint32_t a[4];
-        frag_a_t(a, xd, wrow, kk);
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          uint32_t b[4];
-          frag_b2_kn(b, dls, wcol + j * 8, kk);
-          mma_bf16(acc[ch][j], a, b);
-          mma_bf16(acc[ch][j + 1], a, b + 2);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kd = d0 + ch * kT + wrow + gq + 8 * h;
-      if (!kExact && kd >= d) continue;
-      TW* out = dw + static_cast<size_t>(kd) * V;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c0 + wcol + j * 8 + tq * 2 + e;
-          if (col < V) out[col] = ft5::from_float<TW>(acc[ch][j][2 * h + e]);
-        }
-    }
-}
-
-// The backward's chunks of d: ceil(d / 512) of them, each NCH blocks of
-// 64 columns (the last chunk masked where d ends inside it)
+// The f32 backward's chunks of d: ceil(d / 512) of them, each NCH blocks
+// of 64 columns (the last chunk masked where d ends inside it)
 struct Chunks {
   int n, nch;
 };
@@ -861,12 +684,12 @@ int n_splits(int rows, int V, int per_rb) {
 }
 
 template <typename T>
-cudaError_t merge_dx(const float* dx_part, void* dx, int rows, int d,
-                     int splits, cudaStream_t stream) {
-  const size_t n = static_cast<size_t>(rows) * d;
+cudaError_t reduce_dx(const float* part, float* dx_acc, T* dx, size_t n,
+                      int splits, bool first, bool last,
+                      cudaStream_t stream) {
   const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
-  flce_dx_merge_kernel<T><<<blocks, 256, 0, stream>>>(
-      dx_part, static_cast<T*>(dx), n, splits);
+  flce_dx_reduce_kernel<T><<<blocks, 256, 0, stream>>>(part, dx_acc, dx, n,
+                                                       splits, first, last);
   return cudaGetLastError();
 }
 
@@ -884,7 +707,9 @@ cudaError_t launch_bwd_f32(const float* x, const float* w, const Grad& g,
                                            splits);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess)
-      err = merge_dx<float>(dx_part, dx, rows, d, splits, stream);
+      err = reduce_dx(dx_part, nullptr, static_cast<float*>(dx),
+                      static_cast<size_t>(rows) * d, splits, true, true,
+                      stream);
     if (err != cudaSuccess) return err;
   }
   flce_dw_kernel<NC, kExact><<<dim3(n_vt, n_chunks), kThreads, 0, stream>>>(
@@ -900,28 +725,385 @@ bool rows_aligned(const T* p, int n) {
          (static_cast<size_t>(n) * sizeof(T)) % 16 == 0;
 }
 
-// the tensor-core form, bf16 activations; NCH = 64-column blocks of a
-// chunk of d; kExact: d = NCH * 64 and x's rows 16-byte aligned
-template <typename TW, int NCH, bool kExact>
-cudaError_t launch_bwd_mma(const bf16* x, const TW* w, const Grad& g,
-                           float* dx_part, void* dx, void* dw, int rows,
-                           int d, int V, int splits, int n_chunks,
-                           cudaStream_t stream) {
-  const int n_rb = (rows + kBR - 1) / kBR, n_vt = (V + kBV - 1) / kBV;
-  const bool x_vec = rows_aligned(x, d), w_vec = rows_aligned(w, V);
-  if (n_rb > 0) {
-    flce_dx_mma_kernel<TW, NCH, kExact>
-        <<<dim3(n_rb, splits, n_chunks), kThreads, 0, stream>>>(
-            x, w, g, dx_part, rows, d, V, splits, x_vec, w_vec);
-    cudaError_t err = cudaGetLastError();
-    if (err == cudaSuccess)
-      err = merge_dx<bf16>(dx_part, dx, rows, d, splits, stream);
-    if (err != cudaSuccess) return err;
+// ---------------------------------------------------------------------------
+// the bf16 backward: dlogits once into a workspace, then two GEMMs
+// ---------------------------------------------------------------------------
+//
+// flce_gemm_kernel computes C = A B for a (kGBM x kGBN) tile of C per CTA,
+// kGWarpsM x kGWarpsN warps of (kWTM x kWTN), K in steps of kGK through a
+// ring of kGStages buffers in shared memory: cp.async keeps the next steps'
+// tiles in flight while the warps run mma.sync m16n8k16 on this step's. A
+// and B are bf16, each staged in its natural layout, [rows][K] or
+// [K][rows], and ldmatrix (transposed where the layout asks for it) reads
+// the fragments; an operand whose rows are not 16-byte aligned (x at a d
+// that is not a multiple of 8) is loaded through registers instead, 8
+// elements a thread, masked. blockIdx.z takes a slice of K (a split). The
+// epilogue `Epi` receives the f32 sums pair by pair: Epi::Row row(r) once
+// per row of C, then pair(row_ctx, r, c, C[r][c], C[r][c + 1]) for even c.
+// An epilogue that writes bf16 (kStaged) gets the ring's shared memory as a
+// (kGBM x kGBN + 8) bf16 tile to write its pairs into, then flush() copies
+// the tile out in 16-byte rows (a pair of bf16 is 4 bytes: written
+// straight from the accumulators, a warp's stores would fill half of each
+// 32-byte sector they touch).
+
+constexpr int kGBM = 128, kGBN = 128;   // C tile
+constexpr int kGK = 64;                  // K step
+constexpr int kGWarpsM = 2, kGWarpsN = 4;
+constexpr int kGThreads = 32 * kGWarpsM * kGWarpsN;
+constexpr int kWTM = kGBM / kGWarpsM, kWTN = kGBN / kGWarpsN;  // warp tile
+constexpr int kGStages = 3;
+
+// One operand's (R x C) bf16 tile of a K step, C contiguous, in each
+// stage, row stride C + 8 (16-byte rows apart by 16 mod 128 bytes:
+// ldmatrix reads no bank twice).
+template <int R, int C>
+struct Operand {
+  static constexpr int kStageBytes = R * (C + 8) * 2;
+  bf16* base;                                 // stage 0
+  bool async;                                 // rows 16-byte aligned
+
+  __device__ bf16* tile(int stage) const {
+    return base + stage * (kStageBytes / 2);
   }
-  flce_dw_mma_kernel<TW, NCH, kExact>
-      <<<dim3(n_vt, n_chunks), kThreads, 0, stream>>>(
-      x, w, g, static_cast<TW*>(dw), rows, d, V, x_vec, w_vec);
+  // the step's tile from src (row stride ld; rows >= n_rows and columns
+  // >= n_cols read 0) into `stage`: cp.async when the rows are aligned,
+  // else through registers (a synchronous store)
+  __device__ void issue(int stage, const bf16* src, size_t ld, int n_rows,
+                        int n_cols) const {
+    bf16* t = tile(stage);
+    for (int idx = threadIdx.x; idx < R * C / 8; idx += kGThreads) {
+      const int r = idx / (C / 8), c = (idx % (C / 8)) * 8;
+      const int valid = r < n_rows ? max(0, min(8, n_cols - c)) : 0;
+      if (async)
+        ft5::mma::cp_async16(t + r * (C + 8) + c,
+                             valid ? src + r * ld + c : src, 2 * valid);
+      else
+        *reinterpret_cast<uint4*>(t + r * (C + 8) + c) =
+            valid ? load8(src + r * ld + c, valid, false)
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+};
+
+template <bool kAT, bool kBT>
+constexpr int gemm_smem_bytes() {
+  return kGStages *
+         (Operand<kAT ? kGK : kGBM, kAT ? kGBM : kGK>::kStageBytes +
+          Operand<kBT ? kGBN : kGK, kBT ? kGK : kGBN>::kStageBytes);
+}
+
+// A = (M x K): kAT false stores it [m][k] (lda between rows m), true
+// [k][m] (lda between rows k); B = (K x N): kBT false [k][n], true [n][k].
+template <bool kAT, bool kBT, typename Epi>
+__global__ void __launch_bounds__(kGThreads)
+flce_gemm_kernel(const bf16* __restrict__ a, size_t lda, bool a_vec,
+                 const bf16* __restrict__ b, size_t ldb, bool b_vec, int M,
+                 int N, int K, int k_split, Epi epi) {
+  constexpr int kAR = kAT ? kGK : kGBM, kAC = kAT ? kGBM : kGK;
+  constexpr int kBR = kBT ? kGBN : kGK, kBC = kBT ? kGK : kGBN;
+  using OpA = Operand<kAR, kAC>;
+  using OpB = Operand<kBR, kBC>;
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const OpA oa{smem, a_vec};
+  const OpB ob{smem + kGStages * (OpA::kStageBytes / 2), b_vec};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp / kGWarpsN) * kWTM, wn = (warp % kGWarpsN) * kWTN;
+  const int m0 = blockIdx.x * kGBM, n0 = blockIdx.y * kGBN;
+  const int k_begin = blockIdx.z * k_split;
+  const int k_end = min(K, k_begin + k_split);
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + kGK - 1) / kGK : 0;
+
+  auto issue = [&](int t) {       // step t into stage t % kGStages
+    const int st = t % kGStages, k0 = k_begin + t * kGK;
+    if (kAT)
+      oa.issue(st, a + static_cast<size_t>(k0) * lda + m0, lda, k_end - k0,
+               M - m0);
+    else
+      oa.issue(st, a + static_cast<size_t>(m0) * lda + k0, lda, M - m0,
+               k_end - k0);
+    if (kBT)
+      ob.issue(st, b + static_cast<size_t>(n0) * ldb + k0, ldb, N - n0,
+               k_end - k0);
+    else
+      ob.issue(st, b + static_cast<size_t>(k0) * ldb + n0, ldb, k_end - k0,
+               N - n0);
+  };
+
+  float acc[kWTM / 16][kWTN / 8][4];
+#pragma unroll
+  for (int i = 0; i < kWTM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < kWTN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < kGStages - 1; ++t) {
+    if (t < n_steps) issue(t);
+    ft5::mma::cp_async_commit();
+  }
+  for (int t = 0; t < n_steps; ++t) {
+    const int st = t % kGStages;
+    ft5::mma::cp_async_wait<kGStages - 2>();
+    __syncthreads();              // step t landed; step t - 1 fully read
+    if (t + kGStages - 1 < n_steps) issue(t + kGStages - 1);
+    ft5::mma::cp_async_commit();
+    const bf16* at = oa.tile(st);
+    const bf16* bt = ob.tile(st);
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 16) {
+      uint32_t af[kWTM / 16][4], bfr[kWTN / 16][4];
+#pragma unroll
+      for (int i = 0; i < kWTM / 16; ++i) {
+        const int r0 = wm + 16 * i;
+        if (kAT)
+          ldsm_x4_t(af[i], at + (kk + (lane & 7) + 8 * (lane >> 4)) *
+                                    (kAC + 8) + r0 + 8 * ((lane >> 3) & 1));
+        else
+          ldsm_x4(af[i], at + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                  (kAC + 8) + kk + 8 * (lane >> 4));
+      }
+#pragma unroll
+      for (int jp = 0; jp < kWTN / 16; ++jp) {
+        const int c0 = wn + 16 * jp;
+        if (kBT)
+          ldsm_x4(bfr[jp], bt + (c0 + (lane & 7) + 8 * (lane >> 4)) *
+                                    (kBC + 8) + kk + 8 * ((lane >> 3) & 1));
+        else
+          ldsm_x4_t(bfr[jp], bt + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                      (kBC + 8) + c0 + 8 * (lane >> 4));
+      }
+#pragma unroll
+      for (int i = 0; i < kWTM / 16; ++i)
+#pragma unroll
+        for (int j = 0; j < kWTN / 8; ++j)
+          mma_bf16(acc[i][j], af[i], bfr[j >> 1] + 2 * (j & 1));
+    }
+  }
+  ft5::mma::cp_async_wait<0>();
+  if constexpr (Epi::kStaged) __syncthreads();   // the ring is free
+
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kWTM / 16; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm + 16 * i + g + 8 * h;
+      if (r >= M) continue;
+      const typename Epi::Row row = epi.row(r);
+#pragma unroll
+      for (int j = 0; j < kWTN / 8; ++j) {
+        const int c = n0 + wn + 8 * j + 2 * tq;
+        epi.pair(row, r, c, acc[i][j][2 * h], acc[i][j][2 * h + 1],
+                 smem + (r - m0) * (kGBN + 8) + c - n0);
+      }
+    }
+  if constexpr (Epi::kStaged) {
+    __syncthreads();              // the tile is written
+    epi.flush(smem, m0, n0, M);
+  }
+}
+
+// logits (a chunk's rows x a slab's columns) -> bf16 dlogits in the
+// workspace (ld columns a row; the slab's columns from n to ld get 0), in
+// the TPU kernel's order of operations (dlogit above); c_off is the slab's
+// first vocabulary column
+struct DlogitsEpi {
+  static constexpr bool kStaged = true;
+  Grad g;
+  int r0, rows, c_off, n, ld;      // the chunk's first row; all rows
+  bf16* ws;
+  using Row = RowGrad;
+  __device__ __forceinline__ Row row(int r) const {
+    return row_grad(g, r0 + r, rows);
+  }
+  __device__ __forceinline__ void pair(const Row& q, int, int c, float v0,
+                                       float v1, bf16* tile) const {
+    const float d0 =
+        c < n ? dlogit(g, q, v0 * g.logit_scale, c_off + c) : 0.f;
+    const float d1 =
+        c + 1 < n ? dlogit(g, q, v1 * g.logit_scale, c_off + c + 1) : 0.f;
+    *reinterpret_cast<__nv_bfloat162*>(tile) = __floats2bfloat162_rn(d0, d1);
+  }
+  __device__ __forceinline__ void flush(const bf16* tile, int m0, int n0,
+                                        int M) const {
+    for (int idx = threadIdx.x; idx < kGBM * kGBN / 8; idx += kGThreads) {
+      const int r = idx / (kGBN / 8), c = (idx % (kGBN / 8)) * 8;
+      if (m0 + r < M && n0 + c < ld)
+        *reinterpret_cast<uint4*>(ws + static_cast<size_t>(m0 + r) * ld +
+                                  n0 + c) =
+            *reinterpret_cast<const uint4*>(tile + r * (kGBN + 8) + c);
+    }
+  }
+};
+
+// dx partial sums of split blockIdx.z of one slab: part (splits x rows x d)
+struct DxEpi {
+  static constexpr bool kStaged = false;
+  float* part;
+  int rows, d;
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  __device__ __forceinline__ void pair(Row, int r, int c, float v0,
+                                       float v1, bf16*) const {
+    if (c >= d) return;
+    float* p = part + (static_cast<size_t>(blockIdx.z) * rows + r) * d + c;
+    if (c + 1 < d && d % 2 == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    } else {
+      p[0] = v0;
+      if (c + 1 < d) p[1] = v1;
+    }
+  }
+};
+
+// dW's columns of one slab (n of them, row stride ld) += this row chunk's
+// sums, in chunk order: the first chunk starts from 0, the last writes w's
+// dtype; the sums between live in `acc` (f32, dw itself for an f32 lm_head)
+template <typename TW>
+struct DwEpi {
+  static constexpr bool kStaged = false;
+  float* acc;
+  TW* dw;
+  int n, ld;
+  bool first, last;
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  __device__ __forceinline__ void pair(Row, int r, int c, float v0,
+                                       float v1, bf16*) const {
+    if (c >= n) return;
+    const size_t o = static_cast<size_t>(r) * ld + c;
+    if (c + 1 < n && ld % 2 == 0 &&
+        reinterpret_cast<uintptr_t>(dw + o) % (2 * sizeof(TW)) == 0) {
+      float2 s = make_float2(v0, v1);
+      if (!first) {
+        const float2 a = *reinterpret_cast<const float2*>(acc + o);
+        s.x += a.x;
+        s.y += a.y;
+      }
+      if (!last)
+        *reinterpret_cast<float2*>(acc + o) = s;
+      else if constexpr (std::is_same<TW, float>::value)
+        *reinterpret_cast<float2*>(dw + o) = s;
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dw + o) =
+            __floats2bfloat162_rn(s.x, s.y);
+      return;
+    }
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (c + e >= n) break;
+      const float s = first ? v[e] : acc[o + e] + v[e];
+      if (last)
+        dw[o + e] = ft5::from_float<TW>(s);
+      else
+        acc[o + e] = s;
+    }
+  }
+};
+
+// w's columns [v0, v0 + n) (d rows, row stride V) rounded to bf16 into wb
+// (d x ld, ld >= n a multiple of 8; the columns from n to ld get 0)
+template <typename TW>
+__global__ void flce_cast_slab_kernel(const TW* __restrict__ w, int V, int v0,
+                                      int n, int ld, int d,
+                                      bf16* __restrict__ wb) {
+  const size_t n8 = static_cast<size_t>(d) * (ld / 8);
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       e < n8; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(e / (ld / 8));
+    const int c = static_cast<int>(e % (ld / 8)) * 8;
+    const TW* src = w + static_cast<size_t>(k) * V + v0 + c;
+    const bool vec = (V * sizeof(TW)) % 16 == 0 &&
+                     ((v0 + c) * sizeof(TW)) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    *reinterpret_cast<uint4*>(wb + static_cast<size_t>(k) * ld + c) =
+        n - c > 0 ? load8(src, n - c, vec) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <bool kAT, bool kBT, typename Epi>
+cudaError_t gemm(const bf16* a, size_t lda, bool a_vec, const bf16* b,
+                 size_t ldb, bool b_vec, int M, int N, int K, int splits,
+                 const Epi& epi, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const int k_split = ((K + splits - 1) / splits + kGK - 1) / kGK * kGK;
+  constexpr int smem = gemm_smem_bytes<kAT, kBT>();
+  auto kernel = flce_gemm_kernel<kAT, kBT, Epi>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kGBM - 1) / kGBM, (N + kGBN - 1) / kGBN, splits);
+  kernel<<<grid, kGThreads, smem, stream>>>(a, lda, a_vec, b, ldb, b_vec, M,
+                                            N, K, k_split, epi);
   return cudaGetLastError();
+}
+
+// The bf16 backward, row chunk by row chunk (`chunk` rows) and, in each,
+// vocabulary slab by slab (`slab` columns): (0) the slab of w rounded to
+// bf16 into wb (skipped for a bf16 w with 16-byte rows, read in place);
+// (1) the slab's dlogits into dl (chunk x slab bf16) from its logits,
+// computed once; (2) dW[:, slab] (+)= x[chunk]^T dl, complete over the
+// chunk's rows; (3) dx[chunk] += dl wb^T, K = the slab cut into `splits`
+// slices whose f32 partials (part) flce_dx_reduce_kernel adds in order to
+// the slabs' f32 sums (dx_acc, needed with more than one slab).
+template <typename TW>
+cudaError_t launch_bwd_gemm(const bf16* x, const TW* w, const Grad& g,
+                            bf16* dl, bf16* wb, float* part, float* dx_acc,
+                            float* dw_acc, bf16* dx, TW* dw, int rows, int d,
+                            int V, int chunk, int slab, int splits,
+                            cudaStream_t s) {
+  const bool x_vec = rows_aligned(x, d);
+  const bool in_place =
+      std::is_same<TW, bf16>::value && rows_aligned(w, V) && slab % 8 == 0;
+  const int n_chunks = (rows + chunk - 1) / chunk;
+  const int n_slabs = (V + slab - 1) / slab;
+  float* acc = std::is_same<TW, float>::value
+                   ? reinterpret_cast<float*>(dw) : dw_acc;
+  if ((n_chunks > 1 && acc == nullptr) || (n_slabs > 1 && dx_acc == nullptr) ||
+      (!in_place && wb == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
+    const int r0 = c * chunk, rc = std::min(chunk, rows - r0);
+    const bf16* xc = x + static_cast<size_t>(r0) * d;
+    for (int sl = 0; sl < n_slabs; ++sl) {
+      const int v0 = sl * slab, n = std::min(slab, V - v0);
+      const bf16* wt;
+      int ldw;
+      if (in_place) {
+        wt = reinterpret_cast<const bf16*>(w) + v0;
+        ldw = V;
+      } else {
+        ldw = (n + 7) / 8 * 8;
+        const size_t n8 = static_cast<size_t>(d) * (ldw / 8);
+        flce_cast_slab_kernel<TW>
+            <<<static_cast<int>(std::min<size_t>((n8 + 255) / 256, 4096)),
+               256, 0, s>>>(w, V, v0, n, ldw, d, wb);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        wt = wb;
+      }
+      err = gemm<false, false>(xc, d, x_vec, wt, ldw, true, rc, n, d, 1,
+                                     DlogitsEpi{g, r0, rows, v0, n, slab, dl},
+                                     s);
+      if (err != cudaSuccess) return err;
+      err = gemm<true, false>(
+          xc, d, x_vec, dl, slab, true, d, n, rc, 1,
+          DwEpi<TW>{acc ? acc + v0 : nullptr, dw + v0, n, V, c == 0,
+                    c == n_chunks - 1}, s);
+      if (err != cudaSuccess) return err;
+      err = gemm<false, true>(dl, slab, true, wt, ldw, true, rc, d, n,
+                                    splits, DxEpi{part, rc, d}, s);
+      if (err != cudaSuccess) return err;
+      err = reduce_dx(part, dx_acc, dx + static_cast<size_t>(r0) * d,
+                      static_cast<size_t>(rc) * d, splits, sl == 0,
+                      sl == n_slabs - 1, s);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return err;
 }
 
 cudaError_t dispatch_bwd_f32(int d, const void* x, const void* w,
@@ -938,32 +1120,6 @@ cudaError_t dispatch_bwd_f32(int d, const void* x, const void* w,
     return exact ? launch_bwd_f32<2 * N, true>(xp, wp, g, dx_part, dx, dw, \
                                                rows, d, V, splits, c.n, s) \
                  : launch_bwd_f32<2 * N, false>(xp, wp, g, dx_part, dx,    \
-                                                dw, rows, d, V, splits,    \
-                                                c.n, s);
-    FT5_FLCE_CASE(1) FT5_FLCE_CASE(2) FT5_FLCE_CASE(3) FT5_FLCE_CASE(4)
-    FT5_FLCE_CASE(5) FT5_FLCE_CASE(6) FT5_FLCE_CASE(7) FT5_FLCE_CASE(8)
-#undef FT5_FLCE_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename TW>
-cudaError_t dispatch_bwd_mma(int d, const void* x, const void* w,
-                             const Grad& g, float* dx_part, void* dx,
-                             void* dw, int rows, int V, int splits,
-                             cudaStream_t s) {
-  const bf16* xp = static_cast<const bf16*>(x);
-  const TW* wp = static_cast<const TW*>(w);
-  const Chunks c = chunks_of(d);
-  const bool exact =
-      c.n == 1 && d == c.nch * kT && rows_aligned(xp, d);
-  switch (c.nch) {
-#define FT5_FLCE_CASE(N)                                                   \
-  case N:                                                                  \
-    return exact ? launch_bwd_mma<TW, N, true>(xp, wp, g, dx_part, dx, dw, \
-                                               rows, d, V, splits, c.n, s) \
-                 : launch_bwd_mma<TW, N, false>(xp, wp, g, dx_part, dx,    \
                                                 dw, rows, d, V, splits,    \
                                                 c.n, s);
     FT5_FLCE_CASE(1) FT5_FLCE_CASE(2) FT5_FLCE_CASE(3) FT5_FLCE_CASE(4)
@@ -1011,7 +1167,7 @@ cudaError_t launch_fwd_mma(const bf16* x, const TW* w, float* pm, float* pse,
 
 }  // namespace
 
-// The vocab splits of the forward (backward = 0) or of the dx kernel
+// The vocab splits of the forward (backward = 0) or of the f32 dx kernel
 // (backward = 1, whose CTAs also split d into chunks) for `rows` x `V`.
 FT5_EXPORT int ft5_flce_splits(int rows, int d, int V, int backward) {
   return n_splits(rows, V, backward ? chunks_of(d).n : 1);
@@ -1056,8 +1212,10 @@ FT5_EXPORT int ft5_flce_merge(const float* part_m, const float* part_se,
   return cudaGetLastError();
 }
 
-// dx (rows, d) in x's dtype and dw (d, V) in w's dtype; dx_part is
-// (splits, rows, d) f32 scratch; labels int32, lse, dloss, dz (rows,) f32.
+// The f32 backward: dx (rows, d) and dw (d, V) f32; dx_part is (splits,
+// rows, d) f32 scratch; labels int32, lse, dloss, dz (rows,) f32. (x_dtype
+// and w_f32 must name f32 activations and weight: bf16 activations take
+// ft5_flce_bwd_mma.)
 FT5_EXPORT int ft5_flce_bwd(const void* x, const void* w, const int* labels,
                             const float* lse, const float* dloss,
                             const float* dz, float* dx_part, void* dx,
@@ -1067,15 +1225,42 @@ FT5_EXPORT int ft5_flce_bwd(const void* x, const void* w, const int* labels,
                             float lse_square_scale, float smoothing,
                             void* stream) {
   if (d <= 0 || V <= 0 || splits <= 0) return cudaErrorInvalidValue;
+  if (x_dtype != ft5::kFloat32 || w_f32) return cudaErrorInvalidValue;
+  const Grad g{labels, lse, dloss, dz, total_classes, ignore_index, smooth,
+               logit_scale, lse_square_scale, smoothing};
+  return dispatch_bwd_f32(d, x, w, g, dx_part, dx, dw, rows, V, splits,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 backward (launch_bwd_gemm): x (rows, d) bf16; w (d, V) bf16,
+// or f32 when w_f32; the workspace: dl (min(chunk, rows), slab) bf16, wb
+// (d, slab) bf16 (null for a bf16 w with 16-byte rows), part (splits,
+// min(chunk, rows), d) f32, dx_acc (min(chunk, rows), d) f32 (null with
+// one slab); dw_acc (d, V) f32 for a bf16 w when rows > chunk, else null;
+// dx (rows, d) bf16, dw like w; labels int32, lse, dloss, dz (rows,) f32.
+// chunk and slab are multiples of 128.
+FT5_EXPORT int ft5_flce_bwd_mma(
+    const void* x, const void* w, const int* labels, const float* lse,
+    const float* dloss, const float* dz, void* dl, void* wb, float* part,
+    float* dx_acc, float* dw_acc, void* dx, void* dw, int rows, int d, int V,
+    int chunk, int slab, int splits, int total_classes, int ignore_index,
+    int smooth, int w_f32, float logit_scale, float lse_square_scale,
+    float smoothing, void* stream) {
+  if (d <= 0 || V <= 0 || chunk <= 0 || slab <= 0 || slab % 128 ||
+      splits <= 0 || part == nullptr)
+    return cudaErrorInvalidValue;
   const Grad g{labels, lse, dloss, dz, total_classes, ignore_index, smooth,
                logit_scale, lse_square_scale, smoothing};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == ft5::kFloat32 && !w_f32)
-    return dispatch_bwd_f32(d, x, w, g, dx_part, dx, dw, rows, V, splits, s);
-  if (x_dtype == ft5::kBFloat16)
-    return w_f32 ? dispatch_bwd_mma<float>(d, x, w, g, dx_part, dx, dw, rows,
-                                           V, splits, s)
-                 : dispatch_bwd_mma<bf16>(d, x, w, g, dx_part, dx, dw, rows,
-                                          V, splits, s);
-  return cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* dlb = static_cast<bf16*>(dl);
+  bf16* wbb = static_cast<bf16*>(wb);
+  bf16* dxb = static_cast<bf16*>(dx);
+  if (w_f32)
+    return launch_bwd_gemm(xb, static_cast<const float*>(w), g, dlb, wbb,
+                           part, dx_acc, dw_acc, dxb, static_cast<float*>(dw),
+                           rows, d, V, chunk, slab, splits, s);
+  return launch_bwd_gemm(xb, static_cast<const bf16*>(w), g, dlb, wbb, part,
+                         dx_acc, dw_acc, dxb, static_cast<bf16*>(dw), rows, d,
+                         V, chunk, slab, splits, s);
 }

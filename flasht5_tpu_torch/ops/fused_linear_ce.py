@@ -9,10 +9,14 @@ computes the same function with the logits materialized.
 - forward kernel: logits = x @ w (w rounded to x's dtype, f32 sums, times
   `logit_scale`), reduced on the fly to each row's log-sum-exp and, with
   label smoothing, the row sum of the logits;
-- backward kernels: each recomputes its logits tile, forms dlogits from
-  the probabilities, the one-hot label, the smoothing and z-loss terms,
-  rounds them to x's dtype and contracts them at once: dx = dl @ w^T
-  (x's dtype) and dW = x^T dl (f32 sums, stored in w's dtype).
+- backward kernels: dlogits from the probabilities, the one-hot label, the
+  smoothing and z-loss terms, rounded to x's dtype, then dx = dl @ w^T
+  (x's dtype) and dW = x^T dl (f32 sums, stored in w's dtype). For bf16
+  activations the logits are computed once per (row, vocab) tile: chunks
+  of rows by slabs of the vocabulary, each slab's bf16 dlogits in a
+  workspace of at most `WORKSPACE_BYTES` (`bwd_plan`), contracted by two
+  hand-written GEMMs; f32 activations take the CUDA-core kernels, which
+  recompute the logits in the dx and dW kernels.
 
 As in the JAX package, the label-logit gather (a column of w per row) and
 the loss assembly on (rows,) vectors stay plain PyTorch around the forward
@@ -23,6 +27,7 @@ backward runs the backward kernels only.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -32,6 +37,14 @@ from flasht5_tpu_torch.ops.cross_entropy import cross_entropy_bwd_plain
 
 _IGNORE = -100
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The bf16 backward's scratch (`bwd_plan`: dx's f32 sums and split
+# partials for a chunk of rows, a vocabulary slab's dlogits and rounded
+# weight) stays within this many bytes for any rows and vocabulary, and any
+# d up to ~90,000. 60 MiB: under 64 MB either way that is read.
+WORKSPACE_BYTES = 60 * 2 ** 20
+_TILE = 128          # rows and columns of a GEMM tile (fused_linear_ce.cu)
+_MAX_SPLITS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +101,10 @@ def _lib():
         lib.ft5_flce_fwd.argtypes = [vp] * 5 + [i] * 6 + [f, i, vp]
         lib.ft5_flce_merge.argtypes = [vp] * 5 + [i] * 3 + [vp]
         lib.ft5_flce_bwd.argtypes = ([vp] * 9 + [i] * 9 + [f] * 3 + [vp])
-        for fn in (lib.ft5_flce_fwd, lib.ft5_flce_merge, lib.ft5_flce_bwd):
+        lib.ft5_flce_bwd_mma.argtypes = ([vp] * 13 + [i] * 10 + [f] * 3
+                                         + [vp])
+        for fn in (lib.ft5_flce_fwd, lib.ft5_flce_merge, lib.ft5_flce_bwd,
+                   lib.ft5_flce_bwd_mma):
             fn.restype = i
     return lib
 
@@ -178,14 +194,115 @@ def fused_linear_ce_fwd(x: torch.Tensor, w: torch.Tensor, *,
 fused_linear_ce_fwd.launches = 0
 
 
+def max_chunk_rows(d: int) -> int:
+    """The most rows a chunk of the bf16 backward takes at width d: dx's
+    f32 sums and one split's f32 partials (8 bytes a row and column of d)
+    within three fifths of WORKSPACE_BYTES, the rest left to a vocabulary
+    slab's dlogits and rounded weight (a multiple of 128, at least 128)."""
+    return max(_TILE, WORKSPACE_BYTES * 3 // 5 // (8 * d) // _TILE * _TILE)
+
+
+def bwd_plan(rows: int, d: int, v: int, cast: bool = True,
+             sms: int = 132) -> Tuple[int, int, int]:
+    """(rows per chunk, vocabulary columns per slab, K splits of the dx
+    GEMM) of the bf16 backward, all within WORKSPACE_BYTES.
+
+    The rows go in as few chunks of at most `max_chunk_rows(d)` as they
+    need, evened out to multiples of 128. A chunk's workspace is dx's f32
+    sums and the dx GEMM's f32 partials (splits + 1 of (chunk x d)), and
+    per slab its bf16 dlogits (chunk x slab) and, with `cast` (an f32
+    lm_head, or a bf16 one whose rows are not 16-byte aligned), the slab's
+    weight rounded to bf16 (d x slab). The splits give the dx GEMM, whose
+    (chunk x d) output may have fewer 128 x 128 tiles than the card's `sms`
+    SMs, about two CTAs an SM; the slab takes the rest, evened out over the
+    vocabulary to a multiple of 128."""
+    n_chunks = max(1, -(-rows // max_chunk_rows(d)))
+    chunk = max(_TILE, -(-(-(-rows // n_chunks)) // _TILE) * _TILE)
+    live = max(1, min(chunk, rows))
+    tiles = -(-live // _TILE) * -(-d // _TILE)
+    splits = 1 if tiles >= sms else min(_MAX_SPLITS, -(-2 * sms // tiles))
+    per_col = 2 * live + (2 * d if cast else 0)
+
+    def fixed(s):
+        return live * d * 4 * (s + 1)
+
+    while splits > 1 and fixed(splits) + _TILE * per_col > WORKSPACE_BYTES:
+        splits -= 1
+    slab = max(_TILE, (WORKSPACE_BYTES - fixed(splits)) // per_col
+               // _TILE * _TILE)
+    n_slabs = -(-v // slab)
+    slab = -(-(-(-v // n_slabs)) // _TILE) * _TILE
+    return chunk, slab, splits
+
+
+def _bwd_scratch(rows: int, d: int, w: torch.Tensor, sms: int):
+    """The bf16 backward's plan and scratch: ((chunk, slab, splits),
+    {name: (shape, dtype) or None}) for dlogits `dl`, the rounded weight
+    `wb`, the dx partials `part` and f32 sums `dx_acc`, and `dw_acc`, dW's
+    f32 sums between row chunks for a bf16 lm_head (the only one outside
+    WORKSPACE_BYTES: it is as large as an f32 dW)."""
+    v = w.shape[1]
+    # a bf16 lm_head with 16-byte rows is read in place
+    cast = not (w.dtype == torch.bfloat16 and v % 8 == 0
+                and w.data_ptr() % 16 == 0)
+    chunk, slab, splits = bwd_plan(rows, d, v, cast, sms)
+    live = min(chunk, rows)
+    f32, bf16 = torch.float32, torch.bfloat16
+    return (chunk, slab, splits), dict(
+        dl=((live, slab), bf16), wb=((d, slab), bf16) if cast else None,
+        part=((splits, live, d), f32),
+        dx_acc=((live, d), f32) if v > slab else None,
+        dw_acc=((d, v), f32) if w.dtype != f32 and rows > chunk else None)
+
+
+def bwd_workspace_bytes(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Bytes of scratch the bf16 backward allocates for x @ w, on x's
+    card (within WORKSPACE_BYTES but for a bf16 lm_head's dW sums)."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, scratch = _bwd_scratch(x.shape[0], x.shape[1], w, sms)
+    return sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+               for shape, dt in filter(None, scratch.values()))
+
+
+def _bwd_mma(x, w, labels32, lse32, dloss32, dz32, kw, lib):
+    """The bf16 backward: per chunk of rows and slab of the vocabulary, the
+    slab's weight in bf16, its dlogits, then the dW and dx GEMMs
+    (fused_linear_ce.cu)."""
+    rows, d = x.shape
+    v = w.shape[1]
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    (chunk, slab, splits), scratch = _bwd_scratch(rows, d, w, sms)
+    t = {name: None if spec is None else
+         torch.empty(spec[0], dtype=spec[1], device=x.device)
+         for name, spec in scratch.items()}
+    dw = torch.empty_like(w)
+    rc = lib.ft5_flce_bwd_mma(
+        runtime.ptr(x), runtime.ptr(w), runtime.ptr(labels32),
+        runtime.ptr(lse32), runtime.ptr(dloss32), runtime.ptr(dz32),
+        runtime.ptr(t["dl"]), runtime.ptr(t["wb"]), runtime.ptr(t["part"]),
+        runtime.ptr(t["dx_acc"]), runtime.ptr(t["dw_acc"]), runtime.ptr(dx),
+        runtime.ptr(dw), rows, d, v, chunk, slab, splits,
+        int(kw["total_classes"] or v), int(kw["ignore_index"]),
+        int(kw["label_smoothing"] > 0.0), int(w.dtype == torch.float32),
+        float(kw["logit_scale"]), float(kw["lse_square_scale"]),
+        float(kw["label_smoothing"]), runtime.stream_handle(x))
+    runtime.check_launch(lib, rc, "fused_linear_ce_bwd")
+    return dx, dw
+
+
 def fused_linear_ce_bwd(x, w, labels, lse, dloss, dz, *,
                         lse_square_scale=0.0, label_smoothing=0.0,
                         logit_scale=1.0, ignore_index=_IGNORE,
                         total_classes=None):
-    """(dx in x's dtype, dw in w's dtype). CUDA tensors go to the dx and
-    dW kernels (the dx kernel's vocab splits summed by a third, in a fixed
-    order: no atomics, the same bits on every run), CPU tensors to
-    `fused_linear_ce_bwd_plain`; anything else raises."""
+    """(dx in x's dtype, dw in w's dtype). CUDA tensors go to the kernels:
+    for bf16 activations the dlogits pass and the dx and dW GEMMs over
+    chunks of rows (`bwd_plan`), for f32 the dx and dW kernels (the dx
+    kernel's vocab splits summed by a third); no atomics, the same bits on
+    every run. CPU tensors go to `fused_linear_ce_bwd_plain`; anything else
+    raises."""
     kw = dict(lse_square_scale=lse_square_scale,
               label_smoothing=label_smoothing, logit_scale=logit_scale,
               ignore_index=ignore_index, total_classes=total_classes)
@@ -196,15 +313,19 @@ def fused_linear_ce_bwd(x, w, labels, lse, dloss, dz, *,
     x, w = _aligned(x), w.contiguous()
     rows, d = x.shape
     v = w.shape[1]
+    # the per-row inputs in the kernel's types, held in locals until the
+    # launch: a raw pointer does not keep a temporary's memory alive
+    labels32 = labels.to(torch.int32).contiguous()
+    lse32, dloss32, dz32 = (t.float().contiguous() for t in (lse, dloss, dz))
+    if x.dtype == torch.bfloat16:
+        dx, dw = _bwd_mma(x, w, labels32, lse32, dloss32, dz32, kw, lib)
+        fused_linear_ce_bwd.launches += 1
+        return dx, dw
     splits = lib.ft5_flce_splits(rows, d, v, 1)
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     dx_part = torch.empty((splits, rows, d), dtype=torch.float32,
                           device=x.device)
-    # the per-row inputs in the kernel's types, held in locals until the
-    # launch: a raw pointer does not keep a temporary's memory alive
-    labels32 = labels.to(torch.int32).contiguous()
-    lse32, dloss32, dz32 = (t.float().contiguous() for t in (lse, dloss, dz))
     xc, wc = _type_codes(x, w)
     rc = lib.ft5_flce_bwd(
         runtime.ptr(x), runtime.ptr(w), runtime.ptr(labels32),

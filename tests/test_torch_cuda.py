@@ -337,6 +337,67 @@ def test_flash_attention_bwd_dw_is_deterministic(dev):
             assert torch.equal(a, b)
 
 
+# The bf16 backward's tensor-core kernels at their tiles' edges (64-key
+# dK/dV CTAs, 64-row query tiles, 128-row dQ CTAs, 16-row warps): M and N
+# of 1, under 16 and one past a tile, causal with N > M and with M > N, D
+# 32 and 128, on each bias source: the bucket table, none, a bias tensor,
+# and a bias tensor with use_masking's padded rows
+@pytest.mark.parametrize("m_len,n_len,d", [(1, 1, 64), (1, 200, 32),
+                                           (15, 15, 128), (200, 1, 64),
+                                           (65, 129, 32), (129, 65, 128),
+                                           (13, 300, 64), (300, 13, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("source", ["table", "none", "bias", "masked_rows"])
+def test_attention_bwd_tile_edges(dev, m_len, n_len, d, causal, source):
+    """bf16: 3e-2 of each output's largest entry (1e-3 for dbias, fp32 dS;
+    dW to `_dw_error_bound`). Where one key is visible, dS = P (dP - delta)
+    is 0 but for rounding, so dq, dk, dbias and dW are rounding noise in
+    both versions: their scale is at least one bf16 ulp of dv's largest
+    entry (the inputs are N(0, 1))."""
+    kw = dict(causal=causal, sm_scale=d ** -0.5)
+
+    def close(got, want, tol):
+        floor = 2.0 ** -8 * float(want[2].float().abs().max())
+        for g, g0, t in zip(got, want, tol):
+            assert g.dtype == g0.dtype
+            scale = max(float(g0.float().abs().max()), floor)
+            torch.testing.assert_close(g.float(), g0.float(), rtol=0,
+                                       atol=t * scale)
+
+    if source in ("table", "none"):
+        q, do = (torch.randn((2, 4, m_len, d), device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((2, 4, n_len, d), device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        w = torch.randn((32, 4), device=dev) if source == "table" else None
+        kw["bidirectional"] = not causal
+        o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        got = flash_attention_rpe.flash_attention_bwd(q, k, v, w, lse,
+                                                      delta, do, **kw)
+        want = flash_attention_rpe.flash_attention_bwd_plain(
+            q, k, v, w, lse, delta, do, **kw)
+        close(got[:3], want[:3], (3e-2,) * 3)
+        if w is not None:   # where dS cancels, 1e-3 of the floor too
+            bound = _dw_error_bound(q, k, w, lse, delta, do, v, kw) \
+                + 1e-3 * 2.0 ** -8 * want[2].float().abs().max()
+            assert torch.all((got[3] - want[3]).abs() <= bound), \
+                (got[3] - want[3]).abs().max()
+        return
+    q, k, v, bias, do = _bias_inputs(dev, m_len, n_len, d, torch.bfloat16,
+                                     "bh",
+                                     masked_rows=source == "masked_rows")
+    o, lse = flash_attention.flash_attention_bias_fwd(q, k, v, bias, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, lse, delta, do)
+    dq = flash_attention.flash_attention_bias_dq(*args, **kw)
+    dq0 = flash_attention.flash_attention_bias_dq_plain(*args, **kw)
+    got = (dq,) + flash_attention.flash_attention_bias_dkv(*args, **kw)
+    want = (dq0,) + flash_attention.flash_attention_bias_dkv_plain(*args,
+                                                                   **kw)
+    close(got, want, (3e-2, 3e-2, 3e-2, 1e-3))
+
+
 @pytest.mark.parametrize("rows,v", [(2048, 32768), (37, 1000), (5, 50257)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
@@ -379,7 +440,7 @@ def _bias_inputs(dev, m_len, n_len, d, dtype, form, masked_rows=False):
         bias = bias.expand(2, -1, -1, -1)
     if masked_rows:     # use_masking's fold, then the wrapper's clamp
         rows = torch.zeros((2, 1, m_len, 1), dtype=torch.bool, device=dev)
-        rows[0, 0, 3] = rows[1, 0, m_len // 2:] = True
+        rows[0, 0, min(3, m_len - 1)] = rows[1, 0, m_len // 2:] = True
         bias = torch.where(rows, -1e29, bias)
     return q, k, v, bias, do
 
@@ -448,6 +509,8 @@ def test_flash_attention_bias_is_deterministic(dev):
     delta = (do.float() * o.float()).sum(-1)
     runs = [flash_attention.flash_attention_bias_dkv(q, k, v, bias, lse,
                                                      delta, do)
+            + (flash_attention.flash_attention_bias_dq(q, k, v, bias, lse,
+                                                       delta, do),)
             for _ in range(3)]
     for r in runs[1:]:
         for a, b in zip(r, runs[0]):
@@ -570,12 +633,60 @@ def test_fused_linear_ce_is_deterministic(dev):
     x, w, labels, dloss, dz = _flce_inputs(dev, 300, 512, 32128,
                                            torch.bfloat16, torch.float32)
     runs = []
-    for _ in range(2):
+    for _ in range(3):
         lse, _ = fused_linear_ce.fused_linear_ce_fwd(x, w)
         runs.append((lse,) + fused_linear_ce.fused_linear_ce_bwd(
             x, w, labels, lse, dloss, dz, lse_square_scale=1e-4))
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    for r in runs[1:]:
+        for a, b in zip(r, runs[0]):
+            assert torch.equal(a, b)
+
+
+# The bf16 backward over chunks of rows and slabs of the vocabulary: one
+# row more than the largest chunk at d 512 (two chunks, evened out), and
+# one row; V 50257 (a bf16 lm_head whose rows are not 16-byte aligned is
+# rounded slab by slab, as an f32 one is) and 32128; a bf16 and an f32
+# lm_head (a bf16 one over two chunks keeps dW's f32 sums between them);
+# z-loss and smoothing
+@pytest.mark.parametrize("v", [50257, 32128])
+@pytest.mark.parametrize("rows", ["chunk_plus_one", "one"])
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kw", [dict(lse_square_scale=1e-4),
+                                dict(label_smoothing=0.1, logit_scale=2.0)],
+                         ids=["zloss", "smoothing_scale"])
+def test_fused_linear_ce_bwd_chunks(dev, v, rows, w_dtype, kw):
+    d = 512
+    n = fused_linear_ce.max_chunk_rows(d) + 1 if rows != "one" else 1
+    assert n == 1 or fused_linear_ce.bwd_plan(n, d, v)[0] < n
+    x, w, labels, dloss, dz = _flce_inputs(dev, n, d, v, torch.bfloat16,
+                                           w_dtype)
+    lse, _ = fused_linear_ce.fused_linear_ce_fwd_plain(
+        x, w, logit_scale=kw.get("logit_scale", 1.0))
+    dx, dw = fused_linear_ce.fused_linear_ce_bwd(x, w, labels, lse, dloss,
+                                                 dz, **kw)
+    dx0, dw0 = fused_linear_ce.fused_linear_ce_bwd_plain(x, w, labels, lse,
+                                                         dloss, dz, **kw)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    _flce_close(dx, dx0, True)
+    _flce_close(dw, dw0, True)
+
+
+def test_fused_linear_ce_bwd_memory_is_bounded(dev):
+    """At the train step's 2048 rows x V 32768 (d 512, bf16 activations, an
+    f32 lm_head) the backward's peak memory above its inputs and its two
+    outputs stays within the 64 MB workspace bound."""
+    x, w, labels, dloss, dz = _flce_inputs(dev, 2048, 512, 32768,
+                                           torch.bfloat16, torch.float32)
+    lse, _ = fused_linear_ce.fused_linear_ce_fwd(x, w)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dx, dw = fused_linear_ce.fused_linear_ce_bwd(x, w, labels, lse, dloss,
+                                                 dz, lse_square_scale=1e-4)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base
+             - dx.numel() * dx.element_size() - dw.numel() * dw.element_size())
+    assert extra <= 64 * 10 ** 6, extra
 
 
 @pytest.mark.parametrize("upstream", ["weighted", "loss_sum", "z_sum",

@@ -192,3 +192,22 @@ def test_model_logits_on_demand():
     # over all rows; no label is ignored, so the two agree
     torch.testing.assert_close(fused["loss"], plain["loss"], rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,d,v", [(2048, 512, 32768), (2048, 2048, 32128),
+                                      (256, 768, 32128), (1, 512, 50257),
+                                      (100_000, 4096, 256_000),
+                                      (7681, 512, 50257), (37, 97, 300)])
+@pytest.mark.parametrize("cast", [True, False])
+def test_bwd_plan_keeps_the_workspace_bounded(rows, d, v, cast):
+    """The bf16 backward's chunks, slabs and dx splits keep its scratch
+    (dx's f32 sums and split partials, a slab's dlogits and rounded
+    weight) within WORKSPACE_BYTES, under 64 MB, in as few row chunks as
+    that budget allows."""
+    chunk, slab, splits = flce.bwd_plan(rows, d, v, cast)
+    live = min(chunk, rows)
+    scratch = (live * d * 4 * (splits + (v > slab))
+               + slab * (2 * live + (2 * d if cast else 0)))
+    assert scratch <= flce.WORKSPACE_BYTES <= 64 * 10 ** 6
+    assert chunk % 128 == 0 and slab % 128 == 0 and 1 <= splits <= 16
+    assert -(-rows // chunk) == -(-rows // flce.max_chunk_rows(d))
