@@ -18,14 +18,16 @@ of JAX. In order:
    and F.cross_entropy, with the port's own unfused path beside them);
    each output is held entry by entry to a stated limit, and
    faults planted in the attention forward (the keys rolled by one
-   position), `quant_matmul` at prefill (each column's scales taken from
-   its neighbour), the attention backward (the bucket one above), the
+   position), `quant_matmul` (each column's scales taken from its
+   neighbour; at decode also the last K split left out of the
+   reduction), the attention backward (the bucket one above), the
    cross-entropy backward (its small entries flushed or doubled), the
    paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
    as well as the batch) and the fused lm_head+CE kernels (the last vocab
    split dropped from the merge; the z-loss term left out of dlogits; the
-   dW columns shifted by one) must fall beyond it; the fused lm_head+CE
+   dW columns shifted by one) must fall beyond it; each fused lm_head+CE
+   forward row must profile the form its shape dispatches to, and the
    backward's rows also give the scratch it allocates and its measured
    peak memory above its inputs and outputs;
 4. checks on a tiny model that the slot engine on the card serves the
@@ -40,7 +42,9 @@ of JAX. In order:
    gradients beyond the tolerance;
 6. times a full-width FAT5-small decode step (seeded random weights, int8
    weights and KV cache, the decode kernel) by wall clock and by device
-   time, and lists the kernels one decode window launches (`torch.profiler`);
+   time, counts its `quant_matmul` launches by shape, and lists the kernels
+   one decode window launches (`torch.profiler`; `quant_matmul`'s decode
+   form must be among them, as in the paged window below);
 7. serves 16 requests of 512 random tokens with that engine, three times,
    with every launch count set to 0 just before each run and read just
    after; each serving kernel must have launched in each;
@@ -59,7 +63,8 @@ of JAX. In order:
    must fall; then each step's device time (the sum of one profiled
    step's kernel times), its peak memory, its kernels by name (the
    attention backward's tensor-core bodies must be among them, and the
-   fused step's GEMMs) and the optimizer's launches;
+   fused step's GEMMs and TMA + wgmma forward) and the optimizer's
+   launches;
 10. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
    12 heads, vocabulary 32128: the fused lm_head+CE kernels in chunks of
    d), seeded weights written as FAT5-named safetensors by the port's
@@ -67,7 +72,8 @@ of JAX. In order:
    full precision on the fused lm_head+CE forward, int8 and fp8,
    per-channel and g64, on `quant_matmul`; the full-precision perplexity
    must match the CPU's (the plain versions) within a stated limit, and a
-   planted fault must not;
+   planted fault must not; one fused eval's profiled kernels must include
+   the TMA + wgmma forward;
 11. runs the pretraining driver (`train.cli.run`) on
    `configs/fr/fat5-fr-small.yaml` at full width, batch 64 x (1024 + 256),
    `pallas` attention on the three bias kernels: 4 steps with a checkpoint,
@@ -259,6 +265,17 @@ def check_kernels(dev):
         return quant.quant_matmul(x, quant.QuantizedTensor(
             qt.qvalues, torch.roll(qt.scales, 1, dims=-1)))
 
+    def split_left_out(x, qt):
+        """A planted fault of the decode form: its last K piece (split) left
+        out of the reduction, as the kernel would compute it had it
+        dropped that piece's partials: the piece's weight rows zeroed."""
+        a, b = [p for p in quant.decode_pieces(*qt.qvalues.shape)
+                if p[1] > p[0]][-1]
+        qvalues = qt.qvalues.clone()
+        qvalues[a:b] = 0
+        return quant.quant_matmul(x, quant.QuantizedTensor(qvalues,
+                                                           qt.scales))
+
     def qmm_case(m, k_dim, n, label, main=False, group_size=None):
         def make():
             x = randn(m, k_dim)
@@ -275,8 +292,10 @@ def check_kernels(dev):
             atol=1e-3, rtol=BF16_ULP,
             bytes=nbytes(x, qt.qvalues, qt.scales) + m * n * 2,
             ops=2 * m * k_dim * n, ops_type="bf16", main=main,
-            faults=([("the scales of each column taken from its neighbour",
-                      scales_rolled)] if m > 32 else []),
+            faults=[("the scales of each column taken from its neighbour",
+                     scales_rolled)] + ([
+                ("the last K split left out of the reduction",
+                 split_left_out)] if m <= 32 else []),
             why="bf16 output: one bf16 ulp, and fp32 sums in another order"))
 
     qmm_case(8, 512, 32768, "decode lm_head x (8, 512) @ int8 (512, 32768)")
@@ -539,6 +558,11 @@ def run_checks(cases):
                                      f"fault ({fault_name}) within the "
                                      f"limits: {fr}")
         del got, want
+        if c.get("require"):
+            # the form the wrapper's shape dispatch must take here
+            _require_kernels(
+                _kernels_by_name(lambda: c["kernel"](*arg_sets[0])),
+                c["require"], f"{c['name']} ({c['label']})")
         iters = 200 if c["bytes"] < 64 * 2 ** 20 else 50
         ms = device_ms(c["kernel"], arg_sets, iters)
         plain_ms = device_ms(c["plain"], arg_sets, max(10, iters // 4))
@@ -852,11 +876,23 @@ def run_engine(dev):
     k = ecfg.steps_per_sync
     fill_slots()
     ops.reset_launch_counts()
-    eng._window()
+    qmm_shapes = {}
+    real_qmm = t5.quant_matmul
+
+    def counted_qmm(x, w):
+        key = (f"({x.numel() // x.shape[-1]}, {w.shape[0]}) @ "
+               f"({w.shape[0]}, {w.shape[1]})")
+        qmm_shapes[key] = qmm_shapes.get(key, 0) + 1
+        return real_qmm(x, w)
+    with _patched(t5, "quant_matmul", counted_qmm):
+        eng._window()
     torch.cuda.synchronize()
     per_step = {name: n / k for name, n in ops.launch_counts().items()}
+    qmm_per_step = {key: n / k for key, n in qmm_shapes.items()}
     print("launches per prefill (8 x 512): " + json.dumps(per_prefill)
-          + "; per decode step: " + json.dumps(per_step), flush=True)
+          + "; per decode step: " + json.dumps(per_step)
+          + "; quant_matmul per decode step by shape: "
+          + json.dumps(qmm_per_step), flush=True)
 
     # a decode window as the engine runs it (host-paced), and one step
     # queued behind a sleep so the device never waits for the host (one
@@ -896,6 +932,7 @@ def run_engine(dev):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    _require_kernels(by_name, (QMM_DECODE_BODY,), "one decode window")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print("profile of one decode window: " + json.dumps({
         "kernels_per_step": sum(n for _, n in by_name.values()) / k,
@@ -951,7 +988,8 @@ def run_engine(dev):
         tokens_per_s_median=median["tokens_per_s"],
         tokens_per_s=[r["tokens_per_s"] for r in runs],
         tokens=median["tokens"], seconds=median["seconds"],
-        per_prefill=per_prefill, per_step=per_step, step=step)
+        per_prefill=per_prefill, per_step=per_step,
+        quant_matmul_per_step=qmm_per_step, step=step)
 
 
 PAGED_REQUESTS = 16   # tools/serving_paged_ab.py serves 32: halved for time
@@ -1052,6 +1090,7 @@ def run_paged_engine(dev):
         device_ms=device_ms, launches=next(
             w["launches"] for w in windows if w["committed"]))
     window["device_idle_share"] = 1.0 - device_ms / window["wall_ms"]
+    _require_kernels(kernels, (QMM_DECODE_BODY,), "one paged window")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     print(f"paged decode window ({sync} steps, committed pages): "
           f"{json.dumps(window)} (wall: median of the warm run's "
@@ -1582,8 +1621,11 @@ def check_flce_kernels(dev):
     """The fused lm_head+CE kernels at the train step's shape (2048 rows,
     d 512, V 32768, bf16 activations, the f32 lm_head, z-loss 1e-4), at
     the scoring batches' 256 rows, and a ragged f32 case (300 rows, V
-    32128, smoothing 0.1, logit_scale 2.0, a quarter of the rows ignored).
-    Library yardstick: the unfused composition of two PyTorch calls,
+    32128, smoothing 0.1, logit_scale 2.0, a quarter of the rows ignored),
+    at d 768 and 2048, and at d 100, whose rows TMA cannot describe; each
+    forward row's profiled call must run the form its shape takes (bf16:
+    the TMA + wgmma form, the mma.sync form at d 100; f32: the CUDA-core
+    form). Library yardstick: the unfused composition of two PyTorch calls,
     F.linear and F.cross_entropy (no z-loss), forward or autograd's
     backward; beside it the port's own unfused path (torch.matmul of the
     cast weight and the port's Triton CE kernels), `unfused_port_ms`.
@@ -1682,6 +1724,9 @@ def check_flce_kernels(dev):
             outputs=2, limits=fwd_lim,
             faults=[("the last vocab split dropped from the merge",
                      split_dropped)] if faults else [],
+            require=(("flce_fwd_kernel",) if x_dtype == torch.float32
+                     else (FLCE_FWD_BODY,) if d % 8 == 0
+                     else ("flce_fwd_mma_kernel",)),
             bytes=nbytes(x, w) + rows * 8, ops=flops, ops_type=ops_type,
             main=main, why=why))
         cases.append(dict(
@@ -1726,6 +1771,11 @@ def check_flce_kernels(dev):
     shape_cases(TRAIN_B * TRAIN_DEC, 32128, torch.bfloat16, zkw,
                 "FAT5-XL width: x (2048, 2048) bf16 @ w (2048, 32128) f32, "
                 "z-loss 1e-4", main=False, faults=True, d=2048)
+    # a d that TMA cannot describe (rows of 200 bytes): the bf16 forward's
+    # mma.sync form
+    shape_cases(SCORING_ROWS, 32128, torch.bfloat16, zkw,
+                "d % 8 != 0: x (256, 100) bf16 @ w (100, 32128) f32, "
+                "z-loss 1e-4", main=False, faults=True, d=100)
     return run_checks(cases)
 
 
@@ -1930,6 +1980,11 @@ def _kernels_by_name(fn):
 # the attention backward's tensor-core bodies (attention.cuh), which every
 # bf16 training step must run
 BWD_BODIES = ("dkdv_mma_kernel", "dq_mma_kernel")
+# quant_matmul's decode form, which every decode step runs, and the fused
+# lm_head+CE forward on TMA + wgmma, which the fused train step and the
+# scoring evals run
+QMM_DECODE_BODY = "qmm_decode_kernel"
+FLCE_FWD_BODY = "flce_fwd_wgmma_kernel"
 
 
 def _require_kernels(by_name, bodies, what):
@@ -2041,7 +2096,7 @@ def run_training(dev):
         torch.cuda.synchronize()
         step["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         _require_kernels(by_name, BWD_BODIES + (
-            ("flce_gemm_kernel",) if way == "fused" else ()),
+            ("flce_gemm_kernel", FLCE_FWD_BODY) if way == "fused" else ()),
             f"one {way} train step")
         if way == "unfused":       # the optimizer's launches alone
             opt_kernels = _kernels_by_name(trainer.optimizer.step)
@@ -2182,6 +2237,10 @@ def run_scoring(dev, model="FAT5-small"):
                 t2 = time.perf_counter()
                 score(ways[way])
                 walls[way].append((time.perf_counter() - t2) * 1e3)
+        # one fused eval's kernels: the forward on TMA + wgmma among them
+        eval_kernels = _kernels_by_name(lambda: score(ways["fused"]))
+        _require_kernels(eval_kernels, (FLCE_FWD_BODY,),
+                         f"one fused scoring eval ({model})")
         real_merge = flce.merge_partials
         with _patched(flce, "merge_partials",
                       lambda part, n: real_merge(part, n - 1)):
@@ -2599,5 +2658,79 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# probes: `python3 chip_smoke.py --probe [ROOT]`
+# ---------------------------------------------------------------------------
+
+def host_us(fn, args, calls: int = 200) -> float:
+    """Host time of one call of `fn` in microseconds: `calls` calls
+    enqueued behind a `torch.cuda._sleep`, so none waits on the device."""
+    fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(_cycles_per_ms() * 100))
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def probe(dev) -> int:
+    """Two measurements the smoke does not make, for `flasht5_tpu_torch`
+    as imported (`--probe ROOT` imports it from the checkout at ROOT, so
+    two commits can be run in turns in one call):
+    - "host-cost": the host's time a `quant_matmul` call takes at the
+      decode step's four shapes and a prefill shape (median of 5 runs of
+      `host_us`) beside the kernel's device time;
+    - "convert-rows", where the package has `CONVERT_ROWS`: the bf16 fused
+      lm_head+CE forward of an f32 lm_head at 256-2048 rows, w rounded
+      in shared memory and w rounded once into the scratch, each timed
+      as the smoke times kernels."""
+    from flasht5_tpu_torch.ops import fused_linear_ce as flce
+    from flasht5_tpu_torch.ops import quant
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for m, k_dim, n in ((8, 512, 512), (8, 512, 2048), (8, 2048, 512),
+                        (8, 512, 32768), (4096, 512, 2048)):
+        def make():
+            x = torch.randn((m, k_dim), generator=gen, device=dev).to(
+                torch.bfloat16)
+            return x, quant.quantize_int8(torch.randn(
+                (k_dim, n), generator=gen, device=dev) * k_dim ** -0.5)
+        sets = copies_for(make, k_dim * n + m * k_dim * 2)
+        runs = sorted(host_us(quant.quant_matmul, sets[0])
+                      for _ in range(5))
+        print("host-cost " + json.dumps(dict(
+            shape=f"x ({m}, {k_dim}) bf16 @ int8 ({k_dim}, {n})",
+            host_us=runs[2], host_us_runs=runs,
+            ms=device_ms(quant.quant_matmul, sets, 200))), flush=True)
+    if not hasattr(flce, "CONVERT_ROWS"):
+        return 0
+    default = flce.CONVERT_ROWS
+    for d, v in ((512, 32768), (768, 32128)):
+        for rows in (256, 512, 768, 1024, 1536, 2048):
+            def make():
+                return (torch.randn((rows, d), generator=gen,
+                                    device=dev).to(torch.bfloat16),
+                        torch.randn((d, v), generator=gen, device=dev)
+                        * d ** -0.5)
+            sets = copies_for(make, d * v * 4 + rows * d * 2)
+            row = dict(rows=rows, d=d, v=v, convert_rows=default)
+            for form, limit in (("smem_ms", 1 << 30), ("scratch_ms", 0)):
+                flce.CONVERT_ROWS = limit
+                row[form] = device_ms(flce.fused_linear_ce_fwd, sets, 100)
+            flce.CONVERT_ROWS = default
+            print("convert-rows " + json.dumps(row), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--probe"]:
+        if len(sys.argv) > 2:
+            sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        print(sh("nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader").splitlines()[0], flush=True)
+        sys.exit(probe(torch.device("cuda", 0)))
     sys.exit(main())

@@ -9,23 +9,34 @@
 // Bound on the H100: operations. At the train step's shape (2048 rows,
 // d 512, V 32768) the forward is 68.7 GFLOP (0.0695 ms at the bf16
 // tensor-core rate) and the backward three such products (0.208 ms); the
-// bytes are x, w and the (rows,) vectors. Two forms, chosen by x's dtype:
-// bf16 activations (the train step and scoring paths) on the tensor cores
-// (mma.sync m16n8k16 bf16 -> f32, mma.cuh), f32 activations on the CUDA
+// bytes are x, w and the (rows,) vectors. bf16 activations (the train step
+// and scoring paths) run on the tensor cores, f32 activations on the CUDA
 // cores (f32 FMAs on 4 x 4 or 4 x 2 register tiles, 256 threads a CTA:
-// the port uses no TF32). Both sum exact products in f32 and differ from
-// the plain version only in the order of the sums.
+// the port uses no TF32). Every form sums exact products in f32 and
+// differs from the plain version only in the order of the sums.
 //
 // The TPU grid runs its (vocab tile, row block) steps in order and carries
 // sums in scratch memory between them. Here CTAs run in parallel, and no
 // atomics are used: every run gives the same bits.
 //
-// - forward: a CTA per (row block of 64, vocab split) streams the split's
-//   vocab tiles and writes per-row partial (max, sum of exp, sum of
-//   logits); flce_merge_kernel folds the splits into lse. The split count
-//   (ft5_flce_splits) gives ~4 CTAs an SM: at the scoring batches' 256
-//   label rows there are only 4 row blocks for 132 SMs. Its operands are
-//   staged one K-step at a time (no ring), so it takes any d.
+// - bf16 forward (tma::launch_fwd_wgmma, for d a multiple of 8 and x
+//   16-byte aligned: every path's shapes): a CTA per (row block of 128,
+//   vocab split) runs a TMA ring and wgmma.m64n128k16 in two consumer
+//   warpgroups and reduces each tile's logits on the accumulators. The
+//   f32 lm_head is read from device memory about once a call: for more
+//   than 512 rows (the train step) w is rounded to bf16 and transposed once,
+//   by vocabulary slabs into a scratch of at most 60 MiB
+//   (flce_cast_t_kernel), x staying in shared memory where d <= 512; for
+//   fewer (scoring) each CTA rounds the raw f32 tiles in shared memory as
+//   they land, the row blocks of a tile reading it from the L2 (see the
+//   section below). Each CTA writes per-row partial (max, sum of exp, sum
+//   of logits); flce_merge_kernel folds the splits into lse, a warp a row.
+//   The wrapper's fwd_plan sizes the splits for about one CTA an SM: at
+//   the scoring batches' 256 label rows there are only 2 row blocks.
+// - the other bf16 forward (flce_fwd_mma_kernel: d not a multiple of 8, x
+//   not 16-byte aligned) and the f32 one (flce_fwd_kernel): a CTA per (row
+//   block of 64, vocab split), operands staged one K-step at a time (no
+//   ring), any d; ft5_flce_splits gives ~4 CTAs an SM.
 // - bf16 backward (launch_bwd_gemm): the TPU kernel computes each logits
 //   tile once and contracts it both ways in the same body (:127-187). Here
 //   the rows go in chunks and the vocabulary in slabs, sized by the
@@ -208,26 +219,46 @@ flce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // lse (and the row sum of the logits) of each row from its first `n_merge`
-// splits; `stride` is the splits the partial arrays hold
+// splits: a warp per row, lane l taking splits l, l + 32, ..., then the
+// lanes' maxima and sums folded by a fixed butterfly (the same order on
+// every run)
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __global__ void flce_merge_kernel(const float* __restrict__ part_m,
                                   const float* __restrict__ part_se,
                                   const float* __restrict__ part_sl,
                                   float* __restrict__ lse,
                                   float* __restrict__ total, int rows,
                                   int n_merge) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
   if (r >= rows) return;
   float m = ft5::kNegInf;
-  for (int sp = 0; sp < n_merge; ++sp)
+  for (int sp = lane; sp < n_merge; sp += 32)
     m = fmaxf(m, part_m[static_cast<size_t>(sp) * rows + r]);
+  m = warp_max(m);
   float se = 0.f, sl = 0.f;
-  for (int sp = 0; sp < n_merge; ++sp) {
+  for (int sp = lane; sp < n_merge; sp += 32) {
     const size_t o = static_cast<size_t>(sp) * rows + r;
     se += part_se[o] * expf(part_m[o] - m);
     sl += part_sl[o];
   }
-  lse[r] = logf(se) + m;
-  total[r] = sl;
+  se = warp_sum(se);
+  sl = warp_sum(sl);
+  if (lane == 0) {
+    lse[r] = logf(se) + m;
+    total[r] = sl;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -659,6 +690,342 @@ flce_fwd_mma_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// the bf16 forward on TMA + wgmma (shapes TMA can describe)
+// ---------------------------------------------------------------------------
+//
+// wgmma reads its B operand K-major, in the 128-byte swizzled layout of
+// a TMA tile (as qmm_wgmma_kernel's), and w (d x V) is V-major. So w is
+// rounded to bf16 and transposed, slab by slab of the vocabulary, into a
+// (slab x d) scratch (flce_cast_t_kernel: the f32 lm_head read from device
+// memory once a call, 96 MB moved at the train step), or, with few rows
+// (kConvert), its raw f32 tiles (64 k x 128 columns) stream through the
+// ring and the consumers round and transpose each into a bf16 tile in
+// shared memory (convert_f32) before its products: no scratch and no cast
+// pass, each row block reading the f32 tiles (2 at scoring's 256 rows).
+// flce_fwd_wgmma_kernel: a CTA per (row block of 128, vocab split);
+// warpgroup 0's first thread is the producer, keeping a ring of TMA loads
+// in flight, each stage completing on its `full` mbarrier and freed by the
+// consumers' arrivals on its `empty` one; warpgroups 1 and 2 each own 64
+// rows and run wgmma.m64n128k16 over the ring, one group kept in flight,
+// then reduce each 128-column tile's logits on the accumulator layout
+// (online max, sum of exp, sum of logits, in the TPU kernel's order) before
+// the next. Where d <= 512 (kResident) the CTA's 128 rows of x (at most
+// 128 KB) are loaded once and stay in shared memory while only w streams;
+// otherwise x streams beside w.
+
+namespace tma {
+
+using ft5::mma::bf16;
+constexpr int kBM = 128;            // rows of a CTA: two warpgroups of 64
+constexpr int kBN = 128;            // vocab columns of a tile
+constexpr int kBK = 64;             // d of a K step: one swizzled row
+constexpr int kTile = kBM * kBK * 2;  // 16 KB: an x or a w^T tile
+constexpr int kResidentSteps = 8;   // d <= 512: x stays resident
+constexpr int kThreads = 384;       // producer warpgroup + two consumers
+constexpr int kConsumerWarps = 8;
+
+// The three forms: x resident (d <= 512) or streamed beside w, both on a
+// bf16 w^T from the scratch; or, for few rows, the raw f32 w streamed and
+// converted in shared memory (no scratch, no cast pass).
+enum Form { kResident = 0, kStream = 1, kConvert = 2 };
+
+template <int kForm>
+struct Ring {
+  static constexpr int kStages =
+      kForm == kResident ? 5 : kForm == kStream ? 6 : 3;
+  // a stage: the w^T tile (kResident), or it and then x's (kStream), or
+  // the raw f32 w tile (64 k x 128 columns) and then x's (kConvert)
+  static constexpr int kStageBytes =
+      kForm == kResident ? kTile : kForm == kStream ? 2 * kTile : 3 * kTile;
+  static constexpr int kXOffset = kForm == kConvert ? 2 * kTile : kTile;
+  static constexpr int kXBytes = kForm == kResident ? kResidentSteps * kTile
+                                                    : 0;
+  static constexpr int kConv = kForm == kConvert ? 3 : 0;  // bf16 w^T tiles
+  static constexpr int kSmem = kXBytes + kStages * kStageBytes +
+                               kConv * kTile + (2 * kStages + 1) * 8 + 1024;
+};
+
+// The raw f32 tile (64 k rows x 128 columns, 512-byte rows) into the bf16
+// w^T tile (128 columns x 64 k) in the 128-byte swizzled K-major layout, by
+// the 256 consumer threads: thread c takes column c % 128 and the 16-byte
+// chunks of 8 k c / 128, + 2, + 4, + 6 (a warp reads 32 consecutive words
+// of a row; each 8 threads of a store phase write 8 distinct chunks).
+__device__ __forceinline__ void convert_f32(const uint8_t* raw, uint8_t* dst,
+                                            int c) {
+  const float* src = reinterpret_cast<const float*>(raw);
+  const int col = c & 127;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kc = (c >> 7) + 2 * i;
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = ft5::mma::pack_bf16(src[(8 * kc + 2 * j) * kBN + col],
+                                 src[(8 * kc + 2 * j + 1) * kBN + col]);
+    *reinterpret_cast<uint4*>(dst + col * 128 + ((kc ^ (col & 7)) << 4)) =
+        out;
+  }
+}
+
+template <int kForm>
+__global__ void __launch_bounds__(kThreads, 1)
+flce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                      const __grid_constant__ CUtensorMap tmw,
+                      float* __restrict__ part_m, float* __restrict__ part_se,
+                      float* __restrict__ part_sl, int rows, int d, int n,
+                      int per, int split0, float logit_scale, int smooth) {
+  using R = Ring<kForm>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* xs = base;                         // resident x tiles
+  uint8_t* ring = base + R::kXBytes;
+  uint8_t* conv = ring + R::kStages * R::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(conv + R::kConv * kTile);
+  uint64_t* empty = full + R::kStages;
+  uint64_t* xbar = empty + R::kStages;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int r0 = blockIdx.x * kBM, split = blockIdx.y;
+  const int n_vt = (n + kBN - 1) / kBN;
+  const int t_begin = min(n_vt, split * per), t_end = min(n_vt, t_begin + per);
+  const int nk = (d + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    for (int st = 0; st < R::kStages; ++st) {
+      ft5::mma::mbar_init(&full[st], 1);
+      ft5::mma::mbar_init(&empty[st], kConsumerWarps);
+    }
+    ft5::mma::mbar_init(xbar, 1);
+    ft5::mma::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {          // the producer
+    if (tid == 0) {
+      if (kForm == kResident) {
+        ft5::mma::mbar_expect_tx(xbar, nk * kTile);
+        for (int k = 0; k < nk; ++k)
+          ft5::mma::tma_load_2d(xs + k * kTile, &tmx, xbar, k * kBK, r0);
+      }
+      const int steps = (t_end - t_begin) * nk;
+      for (int i = 0; i < steps; ++i) {
+        const int st = i % R::kStages;
+        if (i >= R::kStages)
+          ft5::mma::mbar_wait(&empty[st], (i / R::kStages - 1) & 1);
+        const int t = t_begin + i / nk, k = i % nk;
+        uint8_t* stage = ring + st * R::kStageBytes;
+        ft5::mma::mbar_expect_tx(&full[st], R::kStageBytes);
+        if (kForm != kResident)
+          ft5::mma::tma_load_2d(stage + R::kXOffset, &tmx, &full[st],
+                                k * kBK, r0);
+        if (kForm == kConvert)   // the raw tile: {column, k row}
+          ft5::mma::tma_load_2d(stage, &tmw, &full[st], t * kBN, k * kBK);
+        else                     // the w^T tile: {k, vocab row}
+          ft5::mma::tma_load_2d(stage, &tmw, &full[st], k * kBK, t * kBN);
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;                       // rows 64 cw .. of the CTA
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  float m[2], se[2], sl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m[h] = ft5::kNegInf, se[h] = sl[h] = 0.f;
+  if (kForm == kResident) ft5::mma::mbar_wait(xbar, 0);
+
+  float acc[64];
+  int i = 0, pending = -1;     // the stage whose products may still run
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) ft5::mma::mbar_arrive(&empty[st]);
+  };
+  for (int t = t_begin; t < t_end; ++t) {
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[r] = 0.f;
+    for (int k = 0; k < nk; ++k, ++i) {
+      const int st = i % R::kStages;
+      ft5::mma::mbar_wait(&full[st], (i / R::kStages) & 1);
+      const uint8_t* stage = ring + st * R::kStageBytes;
+      const uint8_t* xt =
+          kForm == kResident ? xs + k * kTile : stage + R::kXOffset;
+      const uint8_t* wt = stage;
+      if (kForm == kConvert) {
+        // tile i % 3 was last read by step i - 3's products, done in both
+        // warpgroups: each waited for them before step i - 1's barrier
+        uint8_t* ct = conv + (i % R::kConv) * kTile;
+        convert_f32(stage, ct, tid - 128);
+        ft5::mma::fence_proxy_async();
+        ft5::mma::named_sync(1, 256);
+        wt = ct;
+      }
+      const uint64_t da = ft5::mma::wgmma_desc_sw128(xt + cw * (kTile / 2));
+      const uint64_t db = ft5::mma::wgmma_desc_sw128(wt);
+      ft5::mma::fence_all(acc);
+      ft5::mma::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        ft5::mma::wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
+      ft5::mma::wgmma_commit();
+      ft5::mma::wgmma_wait<1>();     // the previous step's products are done
+      if (pending >= 0) release(pending);
+      pending = st;
+    }
+    ft5::mma::wgmma_wait<0>();
+    ft5::mma::fence_all(acc);
+    release(pending);
+    pending = -1;
+
+    // the tile's logits (row 16 warp + g + 8h of the warpgroup's 64, column
+    // c0 + 8j + 2tq + e at acc[4j + 2h + e]) into the row's running sums
+    const int c0 = t * kBN;
+    const bool whole = c0 + kBN <= n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tmax = ft5::kNegInf;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = acc[4 * j + 2 * h + e];
+          v *= logit_scale;
+          if (whole || c0 + 8 * j + 2 * tq + e < n) tmax = fmaxf(tmax, v);
+        }
+      const float m_new = fmaxf(fmaxf(m[h], quad_max(tmax)), ft5::kNegInf);
+      float p = 0.f, lsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (whole || c0 + 8 * j + 2 * tq + e < n) {
+            const float v = acc[4 * j + 2 * h + e];
+            p += expf(v - m_new);
+            lsum += v;
+          }
+      se[h] = se[h] * expf(m[h] - m_new) + quad_sum(p);
+      m[h] = m_new;
+      if (smooth) sl[h] += quad_sum(lsum);
+    }
+  }
+  if (tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 64 * cw + 16 * warp + g + 8 * h;
+      if (r < rows) {
+        const size_t o = static_cast<size_t>(split0 + split) * rows + r;
+        part_m[o] = m[h];
+        part_se[o] = se[h];
+        part_sl[o] = sl[h];
+      }
+    }
+  }
+}
+
+// w's columns [v0, v0 + n) (d rows, row stride V) rounded to bf16 and
+// transposed into wt (n x d, d even): 64 x 64 tiles through shared memory,
+// read along w's rows and written along wt's
+template <typename TW>
+__global__ void __launch_bounds__(256)
+flce_cast_t_kernel(const TW* __restrict__ w, int V, int v0, int n, int d,
+                   bf16* __restrict__ wt) {
+  __shared__ __align__(16) bf16 tile[64][66];   // [column][k]
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int k = (tid >> 6) + 4 * e, c = tid & 63;
+    const float v = k0 + k < d && c0 + c < n
+        ? ft5::to_float(w[static_cast<size_t>(k0 + k) * V + v0 + c0 + c])
+        : 0.f;
+    tile[c][k] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = (tid >> 5) + 8 * e, k = 2 * (tid & 31);
+    if (c0 + c < n && k0 + k < d)
+      *reinterpret_cast<uint32_t*>(wt + static_cast<size_t>(c0 + c) * d +
+                                   k0 + k) =
+          *reinterpret_cast<const uint32_t*>(&tile[c][k]);
+  }
+}
+
+template <int kForm>
+cudaError_t run_fwd(const CUtensorMap& tmx, const CUtensorMap& tmw, float* pm,
+                    float* pse, float* psl, int rows, int d, int n, int per,
+                    int split0, int n_split, float scale, int smooth,
+                    cudaStream_t s) {
+  auto kernel = flce_fwd_wgmma_kernel<kForm>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<kForm>::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((rows + kBM - 1) / kBM, n_split), kThreads,
+           Ring<kForm>::kSmem, s>>>(tmx, tmw, pm, pse, psl, rows, d, n, per,
+                                    split0, scale, smooth);
+  return cudaGetLastError();
+}
+
+// With a scratch wt: the vocabulary in slabs of `slab` columns; for each,
+// its w^T in bf16 into wt, then the forward kernel over it with `per`
+// vocab tiles a split, its splits' partials after the previous slabs'.
+// Without one (an f32 w with 16-byte rows): one pass converting w's tiles
+// in shared memory. `splits` must be their total
+// (ops/fused_linear_ce.py::fwd_plan).
+template <typename TW>
+cudaError_t launch_fwd_wgmma(const bf16* x, const TW* w, bf16* wt, float* pm,
+                             float* pse, float* psl, int rows, int d, int V,
+                             int splits, int slab, int per, float scale,
+                             int smooth, cudaStream_t s) {
+  const bool convert = wt == nullptr;
+  if (d % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wt) % 16 != 0 || slab <= 0 || per <= 0 ||
+      (convert && (!std::is_same<TW, float>::value || V % 4 != 0 ||
+                   reinterpret_cast<uintptr_t>(w) % 16 != 0 || slab < V)))
+    return cudaErrorInvalidValue;
+  int total = 0;
+  for (int v0 = 0; v0 < V; v0 += slab)
+    total += ((std::min(slab, V - v0) + kBN - 1) / kBN + per - 1) / per;
+  if (total != splits) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  CUtensorMap tmx, tmw;
+  if (!ft5::mma::make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, rows, d,
+                          2, kBM, kBK, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  if (convert) {
+    if (!ft5::mma::make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, d, V,
+                            4, kBK, kBN, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return cudaErrorInvalidValue;
+    return run_fwd<kConvert>(tmx, tmw, pm, pse, psl, rows, d, V, per, 0,
+                             splits, scale, smooth, s);
+  }
+  const bool resident = (d + kBK - 1) / kBK <= kResidentSteps;
+  cudaError_t err = cudaSuccess;
+  int split0 = 0;
+  for (int v0 = 0; v0 < V && err == cudaSuccess; v0 += slab) {
+    const int n = std::min(slab, V - v0);
+    flce_cast_t_kernel<TW><<<dim3((n + 63) / 64, (d + 63) / 64), 256, 0, s>>>(
+        w, V, v0, n, d, wt);
+    if ((err = cudaGetLastError()) != cudaSuccess) break;
+    if (!ft5::mma::make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wt, n, d,
+                            2, kBN, kBK, CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+    const int n_split = ((n + kBN - 1) / kBN + per - 1) / per;
+    err = resident ? run_fwd<kResident>(tmx, tmw, pm, pse, psl, rows, d, n,
+                                        per, split0, n_split, scale, smooth,
+                                        s)
+                   : run_fwd<kStream>(tmx, tmw, pm, pse, psl, rows, d, n, per,
+                                      split0, n_split, scale, smooth, s);
+    split0 += n_split;
+  }
+  return err;
+}
+
+}  // namespace tma
 
 // The f32 backward's chunks of d: ceil(d / 512) of them, each NCH blocks
 // of 64 columns (the last chunk masked where d ends inside it)
@@ -1175,27 +1542,43 @@ FT5_EXPORT int ft5_flce_splits(int rows, int d, int V, int backward) {
 
 // Partial (max, sum of exp, sum of logits) of each row over each split:
 // x (rows, d) f32 or bf16 (`x_dtype`); w (d, V) in x's dtype, or f32 when
-// `w_f32`; part_* (splits, rows) f32.
-FT5_EXPORT int ft5_flce_fwd(const void* x, const void* w, float* part_m,
-                            float* part_se, float* part_sl, int rows, int d,
-                            int V, int splits, int x_dtype, int w_f32,
+// `w_f32`; part_* (splits, rows) f32. With slab > 0, bf16 activations
+// take the TMA + wgmma form (d a multiple of 8, x 16-byte aligned; `per`
+// vocab tiles a split; `splits` as ops/fused_linear_ce.py::fwd_plan counts
+// them): given a scratch `wt` (bf16, at least min(slab, V) x d), over
+// vocab slabs of `slab` columns; given none (an f32 w with 16-byte rows,
+// slab >= V), converting w in shared memory. With slab 0, the mma.sync
+// form (ft5_flce_splits's splits).
+FT5_EXPORT int ft5_flce_fwd(const void* x, const void* w, void* wt,
+                            float* part_m, float* part_se, float* part_sl,
+                            int rows, int d, int V, int splits, int slab,
+                            int per, int x_dtype, int w_f32,
                             float logit_scale, int smooth, void* stream) {
   if (d <= 0 || V <= 0 || splits <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == ft5::kFloat32 && !w_f32)
+  if (x_dtype == ft5::kFloat32 && !w_f32 && slab == 0)
     return launch_fwd_f32(static_cast<const float*>(x),
                           static_cast<const float*>(w), part_m, part_se,
                           part_sl, rows, d, V, splits, logit_scale, smooth,
                           s);
+  if (x_dtype != ft5::kBFloat16) return cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
-  if (x_dtype == ft5::kBFloat16)
-    return w_f32 ? launch_fwd_mma(xb, static_cast<const float*>(w), part_m,
-                                  part_se, part_sl, rows, d, V, splits,
-                                  logit_scale, smooth, s)
-                 : launch_fwd_mma(xb, static_cast<const bf16*>(w), part_m,
-                                  part_se, part_sl, rows, d, V, splits,
-                                  logit_scale, smooth, s);
-  return cudaErrorInvalidValue;
+  bf16* wtb = static_cast<bf16*>(wt);
+  if (slab > 0)
+    return w_f32 ? tma::launch_fwd_wgmma(xb, static_cast<const float*>(w),
+                                         wtb, part_m, part_se, part_sl, rows,
+                                         d, V, splits, slab, per,
+                                         logit_scale, smooth, s)
+                 : tma::launch_fwd_wgmma(xb, static_cast<const bf16*>(w),
+                                         wtb, part_m, part_se, part_sl, rows,
+                                         d, V, splits, slab, per,
+                                         logit_scale, smooth, s);
+  return w_f32 ? launch_fwd_mma(xb, static_cast<const float*>(w), part_m,
+                                part_se, part_sl, rows, d, V, splits,
+                                logit_scale, smooth, s)
+               : launch_fwd_mma(xb, static_cast<const bf16*>(w), part_m,
+                                part_se, part_sl, rows, d, V, splits,
+                                logit_scale, smooth, s);
 }
 
 // lse and the row sum of the logits from the first `n_merge` of the
@@ -1206,7 +1589,7 @@ FT5_EXPORT int ft5_flce_merge(const float* part_m, const float* part_se,
                               void* stream) {
   if (n_merge < 0 || n_merge > stride) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  flce_merge_kernel<<<(rows + 255) / 256, 256, 0,
+  flce_merge_kernel<<<(rows + 7) / 8, 256, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       part_m, part_se, part_sl, lse, total, rows, n_merge);
   return cudaGetLastError();

@@ -1,11 +1,13 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
 // (fused_linear_ce.cu, quant_matmul.cu, attention.cuh): mma.sync m16n8k16
 // and the ldmatrix forms that feed it, cp.async, and Hopper's mbarriers,
-// TMA tile loads and wgmma. Inline PTX only; nothing here launches.
+// TMA tile loads and wgmma (inline PTX), and the host's TMA descriptors.
+// Nothing here launches.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ft5 {
@@ -87,6 +89,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
 // wait until the barrier has completed the phase of parity `parity`
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   asm volatile(
@@ -151,6 +157,11 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float& r) {
   asm volatile("" : "+f"(r) :: "memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_all(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) fence_regs(r[i]);
+}
 
 // d (64 x 128, f32, 64 registers a thread) += A (64 x 16) B (16 x 128),
 // A and B K-major bf16 in shared memory. The accumulator of thread t
@@ -184,6 +195,58 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// TMA descriptors (host)
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (no link against libcuda)
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+inline EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) array of `elem` bytes, boxes of (box_rows,
+// box_cols), zeros outside
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* ptr, int rows, int cols, int elem,
+                     int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace mma

@@ -11,7 +11,7 @@
 // 512x2048 weight is 1 MB, read once); at prefill (M = 4096) the bf16
 // tensor-core rate does (2 M K N operations: 8.6 GFLOP, 0.0087 ms at 989
 // TFLOP/s, for both FAT5-small prefill shapes). Three forms, chosen by the
-// call:
+// shapes of the call:
 //
 // - qmm_wgmma_kernel, the prefill form (M > 32, bf16 x, N % 16 == 0, x
 //   and W 16-byte aligned: every prefill projection of the serving and
@@ -42,22 +42,36 @@
 //   not a multiple of 16, unaligned pointers) at M > 32: 64x64 output tiles
 //   per CTA, four warps of 32x32, K in steps of 32 staged through shared
 //   memory as bf16 by scalar loads, mma.sync.m16n8k16 bf16 -> fp32.
-// - qmm_skinny_kernel, the decode form for M <= 32 (with N % 4 == 0 and
-//   aligned x and W): a 64x64 tile would give a 512-wide projection 8 CTAs,
-//   each walking K one latency-bound step at a time, on a card of 132 SMs.
-//   Instead each CTA owns 32 columns and 8 rows of x; its 256 threads stream
-//   the weight slice with 4-byte loads, eight threads per weight row, 32
-//   rows at a time and eight such bands of loads in flight per thread, on
-//   the CUDA cores (at M <= 32 the products are too few for the tensor cores
-//   to matter). Each thread keeps 8 x 4 fp32 sums; warp shuffles and shared
-//   memory reduce them over the 32 rows of a band.
+// - qmm_decode_kernel, the decode form for M <= 32 (N % 16 == 0, x and W
+//   16-byte aligned; the plan is ops/quant.py::decode_plan's). At decode
+//   the weight's bytes bound it: 256 KB to 16 MB read once, 0.08-5.2 us at
+//   3.35 TB/s, so the card must be full of loads. K is split over a
+//   cluster of up to 8 CTAs and, inside each CTA, over up to 8 warps: a
+//   512-wide projection runs on 4 clusters of 8 CTAs, the lm_head on 256
+//   CTAs of 8 warps and no cluster split (a CTA owns 128 columns). Each
+//   thread streams W in 16-byte loads (16 int8 or e4m3 columns; 8 in
+//   flight, read-only, not kept in L1) and keeps x in registers; the
+//   product runs
+//   on the tensor cores as out^T = W^T x^T (mma.sync m16n8k16: 16 output
+//   columns by the CTA's 8 rows of x, so M = 8 wastes none of the mma),
+//   with int8 widened by byte permutes and an FADD, as convert_w does. The
+//   K pieces' f32 partial tiles are added in a fixed order, the warps' in
+//   shared memory, then the cluster's CTAs' through distributed shared
+//   memory, each CTA reducing one slice of the columns: one launch, no
+//   workspace, no atomics, the same bits on every run. Group scales fold
+//   in at each group's end and at a piece's end (a piece's boundary may
+//   fall inside a group); per-channel scales apply once, in the reducing
+//   CTA. M > 8 takes one CTA row per 8 rows of x.
+// - qmm_kernel also takes M <= 32 where the decode form's loads do not fit
+//   (N not a multiple of 16, unaligned pointers).
 //
 // Ragged M and N are masked; K must be a multiple of 32 (and of the group
-// size), which the wrapper checks. A split over K for the decode form is a
-// later step.
+// size), which the wrapper checks.
 
 #include "common.cuh"
 #include "mma.cuh"
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -267,11 +281,7 @@ struct Pick<false> {
   static __device__ __forceinline__ U& get(T&, U& b) { return b; }
 };
 
-template <int R>
-__device__ __forceinline__ void fence_all(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) ft5::mma::fence_regs(r[i]);
-}
+using ft5::mma::fence_all;
 
 // acc += part * the scales of group `grp`, column by column; part = 0
 __device__ __forceinline__ void fold(float (&acc)[64], float (&part)[64],
@@ -420,53 +430,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (no link against libcuda)
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeFn>(p);
-  }
-  return fn;
-}
-
-// a row-major (rows, cols) array of `elem` bytes, boxes of (box_rows,
-// box_cols), zeros outside
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-              int rows, int cols, int elem, int box_rows, int box_cols,
-              CUtensorMapSwizzle swizzle) {
-  EncodeFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using ft5::mma::make_map;
 
 template <typename TW>
 cudaError_t launch(const void* x, const void* w, const float* scales,
@@ -494,182 +458,343 @@ cudaError_t launch(const void* x, const void* w, const float* scales,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// Decode form
+// Decode form: K split over a thread-block cluster, mma.sync on W^T x^T
 // ---------------------------------------------------------------------------
 
-constexpr int kSkMaxM = 32;      // largest M that takes the decode form
-constexpr int kSkBM = 8;         // x rows per CTA
-constexpr int kSkBN = 32;        // output columns per CTA
-constexpr int kSkLanes = 32;     // weight rows per band (one per 8 threads)
-constexpr int kSkKC = 1024;      // x columns staged in shared memory at once
-constexpr int kSkThreads = 256;  // (kSkBN / 4) threads per row x kSkLanes
-constexpr int kSkLoads = 8;      // 4-byte weight loads in flight per thread
+namespace dec {
 
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kSkThreads)
-qmm_skinny_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                  const float* __restrict__ scales, TX* __restrict__ out,
-                  int M, int N, int K, int group_size) {
-  __shared__ float xs[kSkBM][kSkKC];                       // x, bf16-rounded
-  __shared__ float red[kSkThreads / 32][kSkBM][kSkBN];     // per-warp sums
+namespace cg = cooperative_groups;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;          // which 4 columns
-  const int ty = tid >> 3;         // which weight row lane
-  const int n0 = blockIdx.x * kSkBN, m0 = blockIdx.y * kSkBM;
-  const int n = n0 + tx * 4;       // N % 4 == 0: four columns all in or out
-  const bool n_ok = n < N;
+constexpr int kMaxM = 32;        // largest M that takes the decode form
+constexpr int kRows = 8;         // x rows per CTA: the mma's n
+constexpr int kCols = 128;       // output columns per CTA: 16 a quad
+constexpr int kLd = kCols + 4;   // row stride (floats) of a warp's tile
+constexpr int kMaxWarps = 8;     // a CTA's K pieces, one per warp
+constexpr int kMaxSplits = 8;    // a cluster's CTAs (the portable size)
 
-  float part[kSkBM][4], acc[kSkBM][4];
-#pragma unroll
-  for (int m = 0; m < kSkBM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) part[m][j] = acc[m][j] = 0.f;
+// 16 bytes of W, read-only and not kept in L1 (each byte is read once)
+__device__ __forceinline__ uint4 ldg_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
 
-  for (int kc = 0; kc < K; kc += kSkKC) {
-    const int klen = min(kSkKC, K - kc);   // a multiple of 32
-    __syncthreads();                       // the previous chunk is read
-    // x rows in 16-byte loads (x is 16-byte aligned and K a multiple of 32)
-    constexpr int kVec = 16 / sizeof(TX);
-    const int row_vecs = klen / kVec;
-#pragma unroll 4
-    for (int idx = tid; idx < kSkBM * row_vecs; idx += kSkThreads) {
-      const int r = idx / row_vecs, c = (idx - r * row_vecs) * kVec;
-      const int m = m0 + r;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M)
-        raw = *reinterpret_cast<const uint4*>(
-            x + static_cast<size_t>(m) * K + kc + c);
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i)
-        xs[r][c + i] = ft5::round_bf16(ft5::to_float(e[i]));
-    }
-    __syncthreads();
-    // kSkLoads bands of weight rows per batch: all their loads are issued
-    // before the first product, so each batch costs one memory latency
-    for (int b0 = 0; b0 < klen; b0 += kSkLanes * kSkLoads) {
-      uint32_t raw[kSkLoads];
-#pragma unroll
-      for (int u = 0; u < kSkLoads; ++u) {
-        const int kk = b0 + u * kSkLanes + ty;
-        raw[u] = n_ok && kk < klen
-                     ? *reinterpret_cast<const uint32_t*>(
-                           w + static_cast<size_t>(kc + kk) * N + n)
-                     : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < kSkLoads; ++u) {
-        const int band = b0 + u * kSkLanes;   // first row of this band
-        if (band >= klen) break;
-        const TW* e = reinterpret_cast<const TW*>(&raw[u]);
-        float wf[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wf[j] = weight_to_float(e[j]);
-#pragma unroll
-        for (int m = 0; m < kSkBM; ++m) {
-          const float xv = xs[m][band + ty];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[m][j] += xv * wf[j];
-        }
-        // a band that ends on a group boundary closes that scale group
-        const int band_end = kc + band + kSkLanes;
-        if (band_end % group_size == 0) {
-          float s[4] = {0.f, 0.f, 0.f, 0.f};
-          if (n_ok) {
-            const float* srow = scales +
-                static_cast<size_t>(band_end / group_size - 1) * N + n;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[j] = srow[j];
-          }
-#pragma unroll
-          for (int m = 0; m < kSkBM; ++m)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[m][j] += part[m][j] * s[j];
-              part[m][j] = 0.f;
-            }
-        }
-      }
-    }
-  }
-
-  // sum over the 32 row lanes: the 4 lanes of a warp by shuffles, the 8
-  // warps through shared memory
-  const int warp = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int m = 0; m < kSkBM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < 8) red[warp][m][tx * 4 + j] = v;
-    }
-  __syncthreads();
-  {
-    const int m = tid / kSkBN, c = tid - m * kSkBN;   // one output per thread
-    float total = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kSkThreads / 32; ++wi) total += red[wi][m][c];
-    if (m0 + m < M && n0 + c < N)
-      out[static_cast<size_t>(m0 + m) * N + n0 + c] =
-          ft5::from_float<TX>(total);
+// byte b of the rows' words w0 and w1 (one column, two K rows) as a bf16
+// pair, w0's in the low half. int8 words come XOR 0x80808080 (see
+// wg::convert_w: a byte permute into the mantissa of 2^23 and one FADD
+// give the integer exactly, and its f32's high half is its bf16).
+template <typename TW>
+__device__ __forceinline__ uint32_t wpair(uint32_t w0, uint32_t w1, int b) {
+  if constexpr (std::is_same<TW, int8_t>::value) {
+    const uint32_t sel = 0x7540u | static_cast<uint32_t>(b);
+    const float f0 =
+        __uint_as_float(__byte_perm(w0, 0x4B000000u, sel)) - 8388736.0f;
+    const float f1 =
+        __uint_as_float(__byte_perm(w1, 0x4B000000u, sel)) - 8388736.0f;
+    return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632u);
+  } else {
+    return ft5::mma::pack_bf16(wg::e4m3_to_float((w0 >> (8 * b)) & 0xffu),
+                               wg::e4m3_to_float((w1 >> (8 * b)) & 0xffu));
   }
 }
+
+// x[m][k..k+3] rounded to bf16: the mma's B fragment (K rows k, k+1 | k+2,
+// k+3 at column m)
+__device__ __forceinline__ uint2 x_frag(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ uint2 x_frag(const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return make_uint2(ft5::mma::pack_bf16(v.x, v.y),
+                    ft5::mma::pack_bf16(v.z, v.w));
+}
+
+// acc += part * the scales of group `grp` at this quad's 16 columns from
+// nq; part = 0. Fragment f's c[0..1] are column nq + 2f, c[2..3] nq + 2f + 1.
+__device__ __forceinline__ void fold(float (&acc)[8][4], float (&part)[8][4],
+                                     const float* __restrict__ scales,
+                                     int grp, int nq, int N, bool n_ok) {
+  const float* srow = scales + static_cast<size_t>(grp) * N + nq;
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const float s0 = n_ok ? srow[2 * f] : 0.f;
+    const float s1 = n_ok ? srow[2 * f + 1] : 0.f;
+    acc[f][0] += part[f][0] * s0;
+    acc[f][1] += part[f][1] * s0;
+    acc[f][2] += part[f][2] * s1;
+    acc[f][3] += part[f][3] * s1;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[f][e] = 0.f;
+  }
+}
+
+// out (M x N) = x (M x K) @ (W * scales) for M <= 32. The product runs as
+// out^T = W^T x^T on mma.sync m16n8k16: W^T is the A operand (16 output
+// columns x 16 K rows), x^T the B operand (16 K rows x the CTA's 8 rows of
+// x). Thread (g, tq) of a warp loads 16 bytes from each of 4 K rows
+// (k + 4 tq .. + 3) at 16 columns nq = n0 + 16 g: the k order inside a
+// fragment is free as long as A and B agree, so K slots 2tq, 2tq + 1,
+// 2tq + 8, 2tq + 9 are rows k + 4tq + 0..3, and x's B fragment is one
+// 8-byte load of x[m][k + 4tq .. + 3]; fragment f takes columns nq + 2f
+// and nq + 2f + 1 as A rows g and g + 8. Warp `warp` of CTA `rank` of the
+// cluster sums K piece rank * warps + warp (k_piece rows, a multiple of
+// 16; group scales fold in at each group's end and at the piece's end).
+// The warps' partial tiles meet in shared memory and are added in warp
+// order; each CTA stores its tile's column slices into the inboxes of the
+// CTAs that reduce them (slice `rank` of the 128 columns belongs to
+// cluster rank `rank`; distributed shared memory), one cluster barrier,
+// then each CTA adds its inbox's tiles in rank order, applies per-channel
+// scales and writes the output. No atomics: the same bits on every run.
+template <typename TX, typename TW, bool kGroups>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+qmm_decode_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                  const float* __restrict__ scales, TX* __restrict__ out,
+                  int M, int N, int K, int group_size, int k_piece) {
+  // the warps' partial tiles [warps][kRows][kLd], then the inbox of the
+  // cluster's CTA tiles of this CTA's columns [splits][kRows][slice + 4]
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int warps = blockDim.x >> 5;
+  float* inbox = red + warps * kRows * kLd;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = (blockIdx.x / splits) * kCols, m0 = blockIdx.y * kRows;
+  const int nq = n0 + 16 * g;          // N % 16 == 0: all 16 in or all out
+  const bool n_ok = nq < N;
+  const int k_begin = min(K, (rank * warps + warp) * k_piece);
+  const int k_end = min(K, k_begin + k_piece);
+  const bool m_ok = m0 + g < M;
+  const TX* xrow = x + static_cast<size_t>(m_ok ? m0 + g : 0) * K;
+  // every CTA of the cluster must have started before another stores into
+  // its shared memory: arrive now, wait before the stores
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  float acc[8][4], part[kGroups ? 8 : 1][4];
+#pragma unroll
+  for (int f = 0; f < 8; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+#pragma unroll
+  for (int f = 0; f < (kGroups ? 8 : 1); ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[f][e] = 0.f;
+  auto& sum = wg::Pick<kGroups>::get(part, acc);
+
+  // two steps of 16 K rows a batch: 8 loads of 16 bytes in flight a thread
+  for (int k = k_begin; k < k_end; k += 32) {
+    uint4 ld[2][4];
+    uint2 xb[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int kr = k + 16 * u + 4 * tq;
+      const bool in = k + 16 * u < k_end;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ld[u][j] = in && n_ok
+            ? ldg_stream(w + static_cast<size_t>(kr + j) * N + nq)
+            : make_uint4(0u, 0u, 0u, 0u);
+      xb[u] = in && m_ok ? x_frag(xrow + kr) : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (k + 16 * u >= k_end) break;
+      uint32_t lw[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lw[j][0] = ld[u][j].x, lw[j][1] = ld[u][j].y;
+        lw[j][2] = ld[u][j].z, lw[j][3] = ld[u][j].w;
+        if constexpr (std::is_same<TW, int8_t>::value) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) lw[j][q] ^= 0x80808080u;
+        }
+      }
+      const uint32_t b[2] = {xb[u].x, xb[u].y};
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        const int q = f >> 1, bb = 2 * (f & 1);
+        uint32_t a[4];
+        a[0] = wpair<TW>(lw[0][q], lw[1][q], bb);       // column 2f
+        a[1] = wpair<TW>(lw[0][q], lw[1][q], bb + 1);   // column 2f + 1
+        a[2] = wpair<TW>(lw[2][q], lw[3][q], bb);
+        a[3] = wpair<TW>(lw[2][q], lw[3][q], bb + 1);
+        ft5::mma::mma_bf16_16816(sum[f], a, b);
+      }
+      if constexpr (kGroups) {
+        const int ke = k + 16 * (u + 1);   // a group or the piece ends here
+        if (ke % group_size == 0 || ke == k_end)
+          fold(acc, part, scales, (ke - 1) / group_size, nq, N, n_ok);
+      }
+    }
+  }
+
+  // the warp's partial tile: rows 2tq + e, columns 16g + c (c[e] of
+  // fragment c / 2 for even c, c[e + 2] for odd)
+  float* mine = red + warp * kRows * kLd;
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4)
+      *reinterpret_cast<float4*>(mine + (2 * tq + e) * kLd + 16 * g +
+                                 4 * c4) =
+          make_float4(acc[2 * c4][e], acc[2 * c4][e + 2],
+                      acc[2 * c4 + 1][e], acc[2 * c4 + 1][e + 2]);
+  __syncthreads();
+
+  // the CTA's tile, its warps' tiles added in warp order, straight into
+  // the inbox of the CTA that reduces those columns (slice `owner` of the
+  // 128 belongs to cluster rank `owner`), in this CTA's slot
+  const int slice = kCols / splits, ld = slice + 4;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  for (int i = tid; i < kRows * kCols / 4; i += blockDim.x) {
+    const int r = i / (kCols / 4), c = 4 * (i % (kCols / 4));
+    float4 v[kMaxWarps];
+#pragma unroll
+    for (int wi = 0; wi < kMaxWarps; ++wi)
+      if (wi < warps)
+        v[wi] = *reinterpret_cast<const float4*>(red + (wi * kRows + r) *
+                                                 kLd + c);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int wi = 0; wi < kMaxWarps; ++wi)
+      if (wi < warps)
+        s.x += v[wi].x, s.y += v[wi].y, s.z += v[wi].z, s.w += v[wi].w;
+    const int owner = c / slice;
+    *reinterpret_cast<float4*>(cluster.map_shared_rank(inbox, owner) +
+                               (rank * kRows + r) * ld + c - owner * slice) =
+        s;
+  }
+  cluster.sync();   // every CTA's slices are in their reducing CTAs
+
+  // this CTA's columns: the cluster's tiles added in rank order
+  for (int i = tid; i < kRows * slice / 4; i += blockDim.x) {
+    const int r = i / (slice / 4), c = 4 * (i % (slice / 4));
+    float4 v[kMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < splits)
+        v[sp] = *reinterpret_cast<const float4*>(inbox + (sp * kRows + r) *
+                                                 ld + c);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < splits)
+        s.x += v[sp].x, s.y += v[sp].y, s.z += v[sp].z, s.w += v[sp].w;
+    const int m = m0 + r, n = n0 + rank * slice + c;
+    if (m < M && n < N) {
+      if (!kGroups) {
+        s.x *= scales[n], s.y *= scales[n + 1];
+        s.z *= scales[n + 2], s.w *= scales[n + 3];
+      }
+      TX* o = out + static_cast<size_t>(m) * N + n;
+      o[0] = ft5::from_float<TX>(s.x);
+      o[1] = ft5::from_float<TX>(s.y);
+      o[2] = ft5::from_float<TX>(s.z);
+      o[3] = ft5::from_float<TX>(s.w);
+    }
+  }
+}
+
+// the decode form's plan (ops/quant.py::decode_plan): `splits` CTAs of a
+// cluster along K, `warps` warps a CTA, k_piece K rows a warp
+template <typename TX, typename TW>
+cudaError_t launch(const TX* x, const TW* w, const float* scales, TX* out,
+                   int M, int N, int K, int group_size, int splits,
+                   int warps, int k_piece, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + kCols - 1) / kCols) * splits,
+                     (M + kRows - 1) / kRows);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes =
+      (warps * kRows * kLd + splits * kRows * (kCols / splits + 4)) *
+      sizeof(float);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err =
+      group_size < K
+          ? cudaLaunchKernelEx(&cfg, qmm_decode_kernel<TX, TW, true>, x, w,
+                               scales, out, M, N, K, group_size, k_piece)
+          : cudaLaunchKernelEx(&cfg, qmm_decode_kernel<TX, TW, false>, x, w,
+                               scales, out, M, N, K, group_size, k_piece);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace dec
+
+struct DecodePlan {
+  int splits, warps, k_piece;
+};
 
 template <typename TX, typename TW>
 cudaError_t launch(const void* x, const void* w, const float* scales,
                    void* out, int M, int N, int K, int group_size,
-                   cudaStream_t stream) {
+                   const DecodePlan& plan, cudaStream_t stream) {
   const TX* xp = static_cast<const TX*>(x);
   const TW* wp = static_cast<const TW*>(w);
   TX* op = static_cast<TX*>(out);
-  const bool skinny = M <= kSkMaxM && N % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(w) % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool tma = std::is_same<TX, __nv_bfloat16>::value && N % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (skinny) {
-    dim3 grid((N + kSkBN - 1) / kSkBN, (M + kSkBM - 1) / kSkBM);
-    qmm_skinny_kernel<TX, TW><<<grid, kSkThreads, 0, stream>>>(
-        xp, wp, scales, op, M, N, K, group_size);
-  } else if (tma) {
-    return wg::launch<TW>(x, w, scales, out, M, N, K, group_size, stream);
-  } else {
-    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    qmm_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(xp, wp, scales, op, M,
-                                                      N, K, group_size);
+  const bool aligned = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       N % 16 == 0;
+  if (M <= dec::kMaxM && aligned) {
+    if (plan.splits < 1 || plan.splits > dec::kMaxSplits ||
+        (plan.splits & (plan.splits - 1)) != 0 || plan.warps < 1 ||
+        plan.warps > dec::kMaxWarps || plan.k_piece <= 0 ||
+        plan.k_piece % 16 != 0 ||
+        static_cast<long long>(plan.splits) * plan.warps * plan.k_piece < K)
+      return cudaErrorInvalidValue;
+    return dec::launch<TX, TW>(xp, wp, scales, op, M, N, K, group_size,
+                               plan.splits, plan.warps, plan.k_piece, stream);
   }
+  if (M > dec::kMaxM && aligned && std::is_same<TX, __nv_bfloat16>::value)
+    return wg::launch<TW>(x, w, scales, out, M, N, K, group_size, stream);
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  qmm_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(xp, wp, scales, op, M, N,
+                                                    K, group_size);
   return cudaGetLastError();
 }
 
 template <typename TX>
 cudaError_t launch_w(const void* x, const void* w, const float* scales,
                      void* out, int M, int N, int K, int group_size, int w_fp8,
-                     cudaStream_t stream) {
+                     const DecodePlan& plan, cudaStream_t stream) {
   if (w_fp8)
     return launch<TX, __nv_fp8_e4m3>(x, w, scales, out, M, N, K, group_size,
-                                     stream);
-  return launch<TX, int8_t>(x, w, scales, out, M, N, K, group_size, stream);
+                                     plan, stream);
+  return launch<TX, int8_t>(x, w, scales, out, M, N, K, group_size, plan,
+                            stream);
 }
 
 }  // namespace
 
 // x (M,K) in `x_dtype`; w (K,N) int8 or e4m3 bytes; scales (K/group_size, N)
-// f32; out (M,N) in `x_dtype`. K and group_size multiples of 32.
+// f32; out (M,N) in `x_dtype`. K and group_size multiples of 32. For M <=
+// 32 (the decode form) splits, warps and k_piece are the K plan of
+// ops/quant.py::decode_plan; other forms ignore them.
 FT5_EXPORT int ft5_quant_matmul(const void* x, const void* w,
                                 const float* scales, void* out, int M, int N,
                                 int K, int group_size, int x_dtype, int w_fp8,
+                                int splits, int warps, int k_piece,
                                 void* stream) {
   if (K % kBK != 0 || group_size % kBK != 0 || K % group_size != 0)
     return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  const DecodePlan plan{splits, warps, k_piece};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == ft5::kFloat32)
-    return launch_w<float>(x, w, scales, out, M, N, K, group_size, w_fp8, s);
+    return launch_w<float>(x, w, scales, out, M, N, K, group_size, w_fp8,
+                           plan, s);
   if (x_dtype == ft5::kBFloat16)
     return launch_w<__nv_bfloat16>(x, w, scales, out, M, N, K, group_size,
-                                   w_fp8, s);
+                                   w_fp8, plan, s);
   return cudaErrorInvalidValue;
 }

@@ -8,7 +8,10 @@ computes the same function with the logits materialized.
 
 - forward kernel: logits = x @ w (w rounded to x's dtype, f32 sums, times
   `logit_scale`), reduced on the fly to each row's log-sum-exp and, with
-  label smoothing, the row sum of the logits;
+  label smoothing, the row sum of the logits; for bf16 activations w is
+  first rounded and transposed into a scratch of at most `WORKSPACE_BYTES`,
+  a vocabulary slab at a time (`fwd_plan`), or, for few rows and an f32 w,
+  rounded in shared memory as its tiles load;
 - backward kernels: dlogits from the probabilities, the one-hot label, the
   smoothing and z-loss terms, rounded to x's dtype, then dx = dl @ w^T
   (x's dtype) and dW = x^T dl (f32 sums, stored in w's dtype). For bf16
@@ -27,6 +30,7 @@ backward runs the backward kernels only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -98,7 +102,7 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ft5_flce_splits.argtypes = [i] * 4
         lib.ft5_flce_splits.restype = i
-        lib.ft5_flce_fwd.argtypes = [vp] * 5 + [i] * 6 + [f, i, vp]
+        lib.ft5_flce_fwd.argtypes = [vp] * 6 + [i] * 8 + [f, i, vp]
         lib.ft5_flce_merge.argtypes = [vp] * 5 + [i] * 3 + [vp]
         lib.ft5_flce_bwd.argtypes = ([vp] * 9 + [i] * 9 + [f] * 3 + [vp])
         lib.ft5_flce_bwd_mma.argtypes = ([vp] * 13 + [i] * 10 + [f] * 3
@@ -137,6 +141,60 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def fwd_plan(rows: int, d: int, v: int, sms: int = 132,
+             convert: bool = False) -> Tuple[int, int, int]:
+    """(vocabulary columns per slab, vocab tiles of 128 per split, splits in
+    all) of the bf16 forward on TMA + wgmma.
+
+    Each slab's w^T in bf16 (slab x d) fits WORKSPACE_BYTES (one slab up to
+    d 960 at V 32768), the slabs evened out to multiples of 128; with
+    `convert` (the form that rounds an f32 lm_head in shared memory) one
+    slab is the whole vocabulary and there is no scratch. A CTA takes 128
+    rows and one split of a slab's tiles; the splits give about one CTA for
+    each of the card's `sms` SMs (each CTA holds ~200 KB of shared memory),
+    and no split is empty. The splits of slab s follow those of slabs
+    0..s-1 in the partials."""
+    if convert:
+        slab = -(-v // _TILE) * _TILE
+    else:
+        slab = max(_TILE, WORKSPACE_BYTES // (2 * d) // _TILE * _TILE)
+        n_slabs = -(-v // slab)
+        slab = -(-(-(-v // n_slabs)) // _TILE) * _TILE
+    tiles = -(-min(slab, v) // _TILE)
+    row_blocks = max(1, -(-rows // _TILE))
+    per = -(-tiles // max(1, min(tiles, sms // row_blocks)))
+    splits = sum(-(-(-(-min(slab, v - v0) // _TILE)) // per)
+                 for v0 in range(0, v, slab))
+    return slab, per, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _fwd_tma(x: torch.Tensor) -> bool:
+    """Whether the bf16 forward's TMA tiles can describe x (made contiguous
+    and 16-byte aligned by `_aligned`): its rows must be 16-byte multiples."""
+    return x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
+
+
+# Up to this many rows the bf16 forward rounds an f32 lm_head in shared
+# memory, each row block's CTAs reading its f32 tiles (from the L2 after
+# the first); more rows round it once into the scratch, whose bf16 tiles
+# cost half the bytes to read again. On an H100 80GB HBM3 (`chip_smoke.py
+# --probe`, d 512 and 768) the shared-memory form is the faster at 256 and
+# 512 rows, the scratch form from 768 rows on.
+CONVERT_ROWS = 512
+
+
+def _fwd_convert(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the forward rounds w in shared memory: an f32 w whose rows
+    TMA can describe, at most CONVERT_ROWS rows."""
+    return (w.dtype == torch.float32 and w.shape[1] % 4 == 0
+            and w.data_ptr() % 16 == 0 and x.shape[0] <= CONVERT_ROWS)
+
+
 def fwd_partials(x: torch.Tensor, w: torch.Tensor, *, logit_scale=1.0,
                  label_smoothing=0.0) -> torch.Tensor:
     """The forward kernel's first pass: (3, splits, rows) f32 partial
@@ -145,14 +203,23 @@ def fwd_partials(x: torch.Tensor, w: torch.Tensor, *, logit_scale=1.0,
     x, w = _aligned(x), w.contiguous()
     rows, d = x.shape
     v = w.shape[1]
-    splits = lib.ft5_flce_splits(rows, d, v, 0)
+    wt, slab, per = None, 0, 0
+    if _fwd_tma(x):
+        convert = _fwd_convert(x, w)
+        slab, per, splits = fwd_plan(rows, d, v, _sms(x.device), convert)
+        if not convert:
+            wt = torch.empty((min(slab, v), d), dtype=torch.bfloat16,
+                             device=x.device)
+    else:
+        splits = lib.ft5_flce_splits(rows, d, v, 0)
     part = torch.empty((3, splits, rows), dtype=torch.float32,
                        device=x.device)
     xc, wc = _type_codes(x, w)
-    rc = lib.ft5_flce_fwd(runtime.ptr(x), runtime.ptr(w),
+    rc = lib.ft5_flce_fwd(runtime.ptr(x), runtime.ptr(w), runtime.ptr(wt),
                           runtime.ptr(part[0]), runtime.ptr(part[1]),
-                          runtime.ptr(part[2]), rows, d, v, splits, xc, wc,
-                          float(logit_scale), int(label_smoothing > 0.0),
+                          runtime.ptr(part[2]), rows, d, v, splits, slab,
+                          per, xc, wc, float(logit_scale),
+                          int(label_smoothing > 0.0),
                           runtime.stream_handle(x))
     runtime.check_launch(lib, rc, "fused_linear_ce_fwd")
     return part

@@ -3,12 +3,15 @@
 `quant_matmul` runs the CUDA kernel `csrc/quant_matmul.cu`, which replaces
 the Pallas kernel `flasht5_tpu/ops/quant.py::_qmm_kernel` (its source says
 what bounds it and how). Unlike the JAX wrapper, which quietly takes the XLA
-path for shapes its kernel cannot tile, this wrapper raises for them.
+path for shapes its kernel cannot tile, this wrapper raises for them. At
+decode (M <= 32) the kernel splits K over a cluster of CTAs and their warps
+as `decode_plan` says, computed once per weight shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -17,6 +20,14 @@ from flasht5_tpu_torch import runtime
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _K_TILE = 32
+
+# the decode form (csrc/quant_matmul.cu::qmm_decode_kernel, M <= 32)
+_DECODE_ROWS = 32        # rows of x at most
+_DECODE_COLS = 128       # output columns of a CTA
+_DECODE_STEP = 16        # K rows of one mma step
+_DECODE_CTAS = 256       # about two CTAs for each of the H100's 132 SMs
+_MAX_SPLITS = 8          # CTAs of a cluster (the portable size)
+_MAX_WARPS = 8
 
 
 class QuantizedTensor(NamedTuple):
@@ -100,11 +111,45 @@ def quant_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return acc.to(x.dtype).reshape(*x.shape[:-1], w.shape[1])
 
 
+@functools.lru_cache(maxsize=None)
+def decode_plan(k_dim: int, n_dim: int) -> Tuple[int, int, int]:
+    """(splits, warps, k_piece) of the decode form for a (K, N) weight.
+
+    A CTA owns 128 output columns; `splits` CTAs of one cluster split K
+    between them and each CTA's `warps` warps split its share again, so K
+    is cut into splits * warps pieces of `k_piece` rows (a multiple of 16,
+    the mma's depth; the last pieces may be shorter or empty). `splits` is
+    the least power of two (at most 8) that gives about two CTAs an SM, as
+    far as K has 4 warps of 16 rows for each; `warps` (at most 8) cuts each
+    CTA's share into pieces of at least 16 rows: the lm_head (512, 32768)
+    takes 256 CTAs of 8 warps and no cluster, a 512-wide projection
+    clusters of 8. A piece's boundaries need not fall on scale-group
+    boundaries: the kernel folds group scales in at each group's end and
+    at each piece's end."""
+    col_blocks = -(-n_dim // _DECODE_COLS)
+    splits = 1
+    while (splits < _MAX_SPLITS and col_blocks * splits < _DECODE_CTAS
+           and 2 * splits * 4 * _DECODE_STEP <= k_dim):
+        splits *= 2
+    warps = max(1, min(_MAX_WARPS, k_dim // (_DECODE_STEP * splits)))
+    per = -(-k_dim // (splits * warps))
+    k_piece = -(-per // _DECODE_STEP) * _DECODE_STEP
+    return splits, warps, k_piece
+
+
+def decode_pieces(k_dim: int, n_dim: int):
+    """The K rows [begin, end) of each piece of the decode form, in the
+    order the kernel adds them (cluster rank, then warp)."""
+    splits, warps, k_piece = decode_plan(k_dim, n_dim)
+    return [(min(k_dim, p * k_piece), min(k_dim, (p + 1) * k_piece))
+            for p in range(splits * warps)]
+
+
 def _lib():
     lib = runtime.kernel_library("quant_matmul")
     fn = lib.ft5_quant_matmul
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
@@ -138,9 +183,11 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     w = qt.qvalues.contiguous()
     scales = qt.scales.contiguous()
     out = torch.empty((x2.shape[0], n_dim), dtype=x.dtype, device=x.device)
+    plan = (decode_plan(k_dim, n_dim) if x2.shape[0] <= _DECODE_ROWS
+            else (0, 0, 0))
     rc = fn(runtime.ptr(x2), runtime.ptr(w), runtime.ptr(scales),
             runtime.ptr(out), x2.shape[0], n_dim, k_dim, k_dim // groups,
-            _X_CODES[x.dtype], int(w.dtype == torch.float8_e4m3fn),
+            _X_CODES[x.dtype], int(w.dtype == torch.float8_e4m3fn), *plan,
             runtime.stream_handle(x))
     runtime.check_launch(lib, rc, "quant_matmul")
     quant_matmul.launches += 1

@@ -113,7 +113,7 @@ def test_flash_attention_no_bias_kernel(dev, causal, m_len, n_len, d, dtype):
     torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
 
 
-# M <= 32 with N % 4 == 0 takes the decode form; above it bf16 x with
+# M <= 32 with N % 16 == 0 takes the decode form; above it bf16 x with
 # N % 16 == 0 takes the TMA + wgmma form (128 x 128 tiles, K steps of 64)
 # and the rest the mma.sync form. The cases cover the three, their ragged
 # edges (M 129 and 4097, N 96 and 2050, K 96: a multiple of 32, not of
@@ -145,6 +145,53 @@ def test_quant_matmul_kernel(dev, m, k_dim, n, mode, group_size):
     torch.testing.assert_close(quant.quant_matmul(x32, qt),
                                quant.quant_matmul_plain(x32, qt),
                                rtol=1e-4, atol=1e-4)
+
+
+# The decode form (M <= 32, N % 16 == 0): K split over a cluster of CTAs
+# and their warps (`quant.decode_plan`); M 1, 8, 20 and 32 (one to four CTA
+# rows of 8), K 512, 2048 and 4096, int8 and fp8, per-channel scales and
+# groups of 32-256 whose boundaries fall inside a K piece or a piece's
+# inside a group (K 512: pieces of 16 rows), bf16 and f32 x
+_DECODE_MODES = [("int8", None), ("fp8", None), ("int8", 32), ("int8", 64),
+                 ("int8", 128), ("int8", 256), ("fp8", 64)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 20, 32])
+@pytest.mark.parametrize("k_dim,n", [(512, 512), (2048, 512), (4096, 1024),
+                                     (512, 32768)])
+@pytest.mark.parametrize("mode,group_size", _DECODE_MODES)
+def test_quant_matmul_decode_form(dev, m, k_dim, n, mode, group_size):
+    w = torch.randn((k_dim, n), device=dev) * 0.05
+    qt = {"int8": quant.quantize_int8, "fp8": quant.quantize_fp8}[mode](
+        w, group_size)
+    x = torch.randn((m, k_dim), device=dev).to(torch.bfloat16)
+    torch.testing.assert_close(quant.quant_matmul(x, qt).float(),
+                               quant.quant_matmul_plain(x, qt).float(),
+                               rtol=1e-2, atol=1e-2)
+    x32 = x.float()
+    torch.testing.assert_close(quant.quant_matmul(x32, qt),
+                               quant.quant_matmul_plain(x32, qt),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k_dim,n,group_size", [(512, 32768, None),
+                                                (2048, 512, 64),
+                                                (512, 512, 256)])
+def test_quant_matmul_decode_is_deterministic(dev, k_dim, n, group_size):
+    """Bit-equal over three runs, and a K split left out of the sum (its
+    weight rows zeroed, the planted fault of the on-card check) moves the
+    output."""
+    qt = quant.quantize_int8(torch.randn((k_dim, n), device=dev) * 0.05,
+                             group_size)
+    x = torch.randn((8, k_dim), device=dev).to(torch.bfloat16)
+    runs = [quant.quant_matmul(x, qt) for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    begin, end = [p for p in quant.decode_pieces(k_dim, n) if p[1] > p[0]][-1]
+    qvalues = qt.qvalues.clone()
+    qvalues[begin:end] = 0
+    dropped = quant.quant_matmul(x, quant.QuantizedTensor(qvalues, qt.scales))
+    assert (dropped.float() - runs[0].float()).abs().max() > 0.1
 
 
 def test_quant_matmul_refuses_untileable_k(dev):
@@ -627,6 +674,49 @@ def test_fused_linear_ce_kernels_at_d_2048_train_rows(dev):
         x, w, labels, lse0, dloss, dz, lse_square_scale=1e-4)
     _flce_close(dx, dx0, True)
     _flce_close(dw, dw0, True)
+
+
+# The bf16 forward on TMA + wgmma (d a multiple of 8): the scoring's 256
+# rows and up to 512 (an f32 lm_head rounded in shared memory), 513 and the
+# train step's 2048 (w^T rounded into the scratch; d 512 with x resident in
+# shared memory, 768, 1024 and 2048 with x streamed, d 2048 in three
+# vocabulary slabs), V 32128 and 32768, an f32 lm_head (every path's) and a
+# bf16 one
+@pytest.mark.parametrize("rows", [256, 512, 513, 2048])
+@pytest.mark.parametrize("d", [512, 768, 1024, 2048])
+@pytest.mark.parametrize("v", [32128, 32768])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(), dict(label_smoothing=0.1,
+                                             logit_scale=2.0)],
+                         ids=["plain", "smoothing_scale"])
+def test_fused_linear_ce_fwd_tma(dev, rows, d, v, w_dtype, kw):
+    x, w, *_ = _flce_inputs(dev, rows, d, v, torch.bfloat16, w_dtype)
+    lse, total = fused_linear_ce.fused_linear_ce_fwd(x, w, **kw)
+    lse0, total0 = fused_linear_ce.fused_linear_ce_fwd_plain(x, w, **kw)
+    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-5)
+    if kw:
+        abs_sum = fused_linear_ce._logits(x, w, kw["logit_scale"]).abs() \
+            .sum(-1)
+        assert bool(((total - total0).abs() <= 1e-6 * abs_sum).all())
+    part = fused_linear_ce.fwd_partials(x, w, **kw)
+    assert part.shape[1] == fused_linear_ce.fwd_plan(
+        rows, d, v, torch.cuda.get_device_properties(dev)
+        .multi_processor_count, fused_linear_ce._fwd_convert(x, w))[2]
+
+
+@pytest.mark.parametrize("rows,d", [(2048, 512), (256, 768), (300, 200),
+                                    (37, 97)])
+def test_fused_linear_ce_fwd_is_deterministic(dev, rows, d):
+    """lse bit-equal over three runs, on both bf16 forms (d 97: not a
+    multiple of 8, the mma.sync form)."""
+    x, w, *_ = _flce_inputs(dev, rows, d, 32768, torch.bfloat16,
+                            torch.float32)
+    runs = [fused_linear_ce.fused_linear_ce_fwd(x, w)[0] for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    torch.testing.assert_close(
+        runs[0], fused_linear_ce.fused_linear_ce_fwd_plain(x, w)[0],
+        rtol=1e-5, atol=1e-5)
 
 
 def test_fused_linear_ce_is_deterministic(dev):

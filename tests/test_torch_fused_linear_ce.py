@@ -211,3 +211,90 @@ def test_bwd_plan_keeps_the_workspace_bounded(rows, d, v, cast):
     assert scratch <= flce.WORKSPACE_BYTES <= 64 * 10 ** 6
     assert chunk % 128 == 0 and slab % 128 == 0 and 1 <= splits <= 16
     assert -(-rows // chunk) == -(-rows // flce.max_chunk_rows(d))
+
+
+def _fwd_splits(rows, d, v, sms, convert=False):
+    """The vocabulary columns [begin, end) of each split of the bf16
+    forward's plan, in the partials' order (slab by slab)."""
+    slab, per, splits = flce.fwd_plan(rows, d, v, sms, convert)
+    cols = []
+    for v0 in range(0, v, slab):
+        n = min(slab, v - v0)
+        tiles = -(-n // 128)
+        for t0 in range(0, tiles, per):
+            cols.append((v0 + 128 * t0, v0 + min(n, 128 * (t0 + per))))
+    assert len(cols) == splits
+    return slab, per, cols
+
+
+@pytest.mark.parametrize("rows,d,v", [(2048, 512, 32768), (256, 512, 32768),
+                                      (256, 768, 32128), (2048, 2048, 32128),
+                                      (1, 64, 300), (300, 968, 50257),
+                                      (20_000, 512, 32768)])
+@pytest.mark.parametrize("convert", [False, True])
+def test_fwd_plan_covers_the_vocabulary(rows, d, v, convert):
+    """The bf16 forward's slabs and splits cover the vocabulary once, in
+    order, with no empty split; a slab's bf16 w^T fits WORKSPACE_BYTES (the
+    form that converts w in shared memory has one slab and no scratch);
+    the CTAs (row blocks of 128 by splits) fill the H100's 132 SMs about
+    once where the vocabulary has the tiles."""
+    slab, per, cols = _fwd_splits(rows, d, v, 132, convert)
+    assert slab % 128 == 0
+    if convert:
+        assert slab >= v
+    else:
+        assert min(slab, v) * d * 2 <= flce.WORKSPACE_BYTES
+    assert cols[0][0] == 0 and cols[-1][1] == v
+    for (_, end), (begin, _) in zip(cols, cols[1:]):
+        assert end == begin
+    assert all(end > begin for begin, end in cols)
+    row_blocks = -(-rows // 128)
+    tiles = -(-min(slab, v) // 128)
+    per_slab = -(-tiles // per)
+    assert row_blocks * per_slab <= 132 or per_slab == 1
+    assert row_blocks * per_slab >= min(66, row_blocks * tiles)
+
+
+@pytest.mark.parametrize("rows,d,v,sms,convert", [(40, 64, 1000, 8, False),
+                                                  (40, 64, 1000, 8, True),
+                                                  (6, 2048, 32128, 132,
+                                                   False)])
+@pytest.mark.parametrize("logit_scale", [1.0, 2.0])
+def test_fwd_plan_partials_merge_to_the_lse(rows, d, v, sms, convert,
+                                            logit_scale):
+    """Each split's (max, sum of exp, sum of logits), merged as
+    flce_merge_kernel merges them, gives the plain forward's lse and row
+    sum: the plan's splits, d 2048's three slabs among them, lose no
+    column."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((d, v)).astype(np.float32)
+                         * d ** -0.5)
+    logits = flce._logits(x, w, logit_scale)
+    _, _, cols = _fwd_splits(rows, d, v, sms, convert)
+    part_m = torch.stack([logits[:, a:b].amax(-1) for a, b in cols])
+    part_se = torch.stack([torch.exp(logits[:, a:b] - part_m[i, :, None])
+                           .sum(-1) for i, (a, b) in enumerate(cols)])
+    part_sl = torch.stack([logits[:, a:b].sum(-1) for a, b in cols])
+    m = part_m.amax(0)
+    lse = torch.log((part_se * torch.exp(part_m - m)).sum(0)) + m
+    lse0, total0 = flce.fused_linear_ce_fwd_plain(
+        x, w, logit_scale=logit_scale, label_smoothing=0.1)
+    torch.testing.assert_close(lse, lse0, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(part_sl.sum(0), total0, rtol=1e-5, atol=1e-3)
+
+
+def test_fwd_form_follows_rows_and_weight():
+    """Few rows and an f32 lm_head whose rows TMA can describe take the
+    form that rounds w in shared memory; more rows, a bf16 lm_head or a
+    vocabulary that is not a multiple of 4 take the scratch."""
+    x = torch.zeros((flce.CONVERT_ROWS, 64), dtype=torch.bfloat16)
+    w = torch.zeros((64, 1000))
+    assert flce._fwd_tma(x) and flce._fwd_convert(x, w)
+    assert not flce._fwd_convert(torch.zeros((flce.CONVERT_ROWS + 1, 64),
+                                             dtype=torch.bfloat16), w)
+    assert not flce._fwd_convert(x, w.to(torch.bfloat16))
+    assert not flce._fwd_convert(x, torch.zeros((64, 1001)))
+    assert not flce._fwd_tma(torch.zeros((4, 97), dtype=torch.bfloat16))
+    assert not flce._fwd_tma(torch.zeros((4, 64)))

@@ -236,6 +236,84 @@ def test_quant_matmul_matches_jax_kernel(mode, group_size):
         rtol=1e-5, atol=1e-5)
 
 
+# The decode form's K plan: FAT5-small's decode projections and lm_head,
+# a wider K, K too short for four warps of 16 rows, and shapes that take
+# the mma.sync form on the card (N not a multiple of 16), whose plan is
+# computed and ignored
+_DECODE_SHAPES = [(512, 512), (512, 2048), (2048, 512), (512, 32768),
+                  (4096, 1024), (96, 512), (32, 64), (512, 90), (2048, 100)]
+
+
+@pytest.mark.parametrize("k_dim,n_dim", _DECODE_SHAPES)
+def test_decode_plan_covers_k_exactly(k_dim, n_dim):
+    """The pieces run in the kernel's order, cover K once without a gap,
+    and start and end on the mma's 16-row steps; the cluster is a power of
+    two of at most 8 CTAs of at most 8 warps."""
+    splits, warps, k_piece = quant.decode_plan(k_dim, n_dim)
+    assert splits in (1, 2, 4, 8) and 1 <= warps <= 8
+    assert k_piece % 16 == 0 and splits * warps * k_piece >= k_dim
+    pieces = quant.decode_pieces(k_dim, n_dim)
+    assert len(pieces) == splits * warps
+    assert pieces[0][0] == 0 and pieces[-1][1] == k_dim
+    for (_, end), (begin, _) in zip(pieces, pieces[1:]):
+        assert end == begin
+    assert all(0 <= b - a <= k_piece and a % 16 == 0 and b % 16 == 0
+               for a, b in pieces)
+    assert sum(b - a for a, b in pieces) == k_dim
+
+
+def test_decode_plan_fills_the_card():
+    """At FAT5-small's decode shapes K is cut into 8 pieces or more (the
+    on-card check leaves one out), the lm_head runs on about two CTAs an SM
+    of the H100's 132, and a 512-wide projection on clusters of 8 CTAs,
+    32 in all."""
+    ctas = {}
+    for k_dim, n_dim in [(512, 512), (512, 2048), (2048, 512), (512, 32768)]:
+        splits, warps, k_piece = quant.decode_plan(k_dim, n_dim)
+        assert splits * warps >= 8 and 16 <= k_piece <= 64
+        ctas[(k_dim, n_dim)] = -(-n_dim // 128) * splits
+    assert ctas[(512, 32768)] >= 1.9 * 132
+    assert ctas[(512, 512)] == ctas[(2048, 512)] == 32
+    assert quant.decode_plan(512, 512)[0] == 8
+
+
+@pytest.mark.parametrize("k_dim,group_size", [(512, None), (512, 32),
+                                              (512, 256), (2048, 64),
+                                              (4096, 128), (4096, 256)])
+def test_decode_pieces_fold_group_scales(k_dim, group_size):
+    """The decode form's arithmetic over its pieces, in plain PyTorch: each
+    piece's products summed per scale group and scaled at the group's end
+    or the piece's end (a piece boundary inside a group splits its sum),
+    the pieces added in the kernel's order, per-channel scales last; it
+    agrees with the plain version's order of sums."""
+    rng = np.random.default_rng(9)
+    n_dim = 256
+    x = _t(rng.standard_normal((8, k_dim)).astype(np.float32)).to(
+        torch.bfloat16)
+    qt = quant.quantize_int8(_t(_weight(10, (k_dim, n_dim))),
+                             group_size)
+    xb, w = x.float(), qt.qvalues.float()
+    groups = qt.scales.shape[0]
+    gs = k_dim // groups
+    pieces = quant.decode_pieces(k_dim, n_dim)
+    assert groups == 1 or any(a % gs or b % gs for a, b in pieces)
+    total = torch.zeros((8, n_dim))
+    for a, b in pieces:
+        acc = torch.zeros((8, n_dim))
+        k = a
+        while k < b:
+            end = min(b, (k // gs + 1) * gs)
+            part = xb[:, k:end] @ w[k:end]
+            acc = acc + (part * qt.scales[k // gs] if groups > 1 else part)
+            k = end
+        total = total + acc
+    if groups == 1:
+        total = total * qt.scales
+    torch.testing.assert_close(total.to(torch.bfloat16).float(),
+                               quant.quant_matmul_plain(x, qt).float(),
+                               rtol=2.0 ** -7, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------
