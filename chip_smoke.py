@@ -335,8 +335,21 @@ def check_kernels(dev):
         (q, kq, vq, ks, vs, _, bias), lib = make()
         used = sum(min(n, L) for n in lengths)     # positions read
         per_pos = 8 * (2 * 64 + 2 * 4 + (4 if with_bias else 0))
+        # the last cluster rank of the plan that holds positions
+        warps = decode_attention.decode_plan(8, 8, L)[1]
+        first = max(a for a, _ in decode_attention.decode_pieces(
+            8, 8, L)[::warps] if a < L)
+
+        def last_split_zeroed(q, kq, vq, ks, vs, lens, bias):
+            v = vq.clone()
+            v[:, :, first:] = 0
+            return decode_attention.decode_attention(
+                q, kq, v, ks, vs, lengths=lens, bias=bias)
         cases.append(dict(
             name="decode_attention", label=label, make=make,
+            faults=[(f"the V rows of the last split's positions "
+                     f"({first}..{L - 1}) zeroed", last_split_zeroed)],
+            extra=dict(plan=decode_attention.decode_plan(8, 8, L)),
             in_bytes=nbytes(kq, vq, ks, vs, bias, *lib),
             kernel=lambda q, kq, vq, ks, vs, lens, bias:
                 decode_attention.decode_attention(
@@ -380,8 +393,9 @@ def check_paged_kernels(dev):
     """paged_decode_attention at the paged engine's serving shape (a) and at
     the roofline shape of tools/paged_roofline.py (b), through the engine's
     route (the fused record, with the softmax state), each against its plain
-    version; at (a), two planted faults in what the kernel is given, and the
-    standard-layout routes (arrays, ragged) once each. The library call:
+    version with a planted fault in what the kernel is given (the V pages of
+    the plan's last split zeroed); at (a), two more, and the standard-layout
+    routes (arrays, ragged) once each. The library call:
     SDPA over the slots' pages gathered beforehand into a dense bf16 cache
     (the gather is not timed; no single PyTorch call reads pages)."""
     from flasht5_tpu_torch.inference import paged_kv
@@ -426,7 +440,17 @@ def check_paged_kernels(dev):
         (q, pkv, skv, _, _, bias), lib = make()
         used = sum(lengths)                  # live tokens of every head
         per_tok = h * (2 * d + 2 * 4 + (4 if with_bias else 0))
-        faults = []
+        # the last cluster rank of the plan that holds pages
+        warps = pa.paged_plan(slots, h, maxp)[1]
+        first = max(a for a, _ in pa.paged_pieces(slots, h, maxp)[::warps]
+                    if a < maxp)
+
+        def last_split_zeroed(q, pkv, skv, table, lengths, bias):
+            zeroed = pkv.clone()
+            zeroed[table[:, first:].flatten().long(), 1] = 0
+            return kernel(q, zeroed, skv, table, lengths, bias)
+        faults = [(f"the V pages of the last split (table entries {first}.."
+                   f"{maxp - 1}) zeroed", last_split_zeroed)]
         if main:
             def swapped(q, pkv, skv, table, lengths, bias):
                 t = table.clone()
@@ -437,12 +461,13 @@ def check_paged_kernels(dev):
                 n = lengths.clone()
                 n[3] -= 1
                 return kernel(q, pkv, skv, table, n, bias)
-            faults = [("pages 0 and 1 of the last slot swapped", swapped),
-                      ("slot 3 one token short", short)]
+            faults += [("pages 0 and 1 of the last slot swapped", swapped),
+                       ("slot 3 one token short", short)]
         cases.append(dict(
             name="paged_decode_attention", label=label, make=make, outputs=3,
             in_bytes=nbytes(pkv, skv, bias, *lib), kernel=kernel,
             plain=plain, faults=faults,
+            extra=dict(plan=pa.paged_plan(slots, h, maxp)),
             library=lambda q, k, v, mask: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=1.0),
             library_note="F.scaled_dot_product_attention over the pages "
@@ -932,7 +957,8 @@ def run_engine(dev):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-    _require_kernels(by_name, (QMM_DECODE_BODY,), "one decode window")
+    _require_kernels(by_name, (QMM_DECODE_BODY, DECODE_ATTN_BODY),
+                     "one decode window")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print("profile of one decode window: " + json.dumps({
         "kernels_per_step": sum(n for _, n in by_name.values()) / k,
@@ -1090,7 +1116,8 @@ def run_paged_engine(dev):
         device_ms=device_ms, launches=next(
             w["launches"] for w in windows if w["committed"]))
     window["device_idle_share"] = 1.0 - device_ms / window["wall_ms"]
-    _require_kernels(kernels, (QMM_DECODE_BODY,), "one paged window")
+    _require_kernels(kernels, (QMM_DECODE_BODY, PAGED_ATTN_BODY),
+                     "one paged window")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     print(f"paged decode window ({sync} steps, committed pages): "
           f"{json.dumps(window)} (wall: median of the warm run's "
@@ -1985,6 +2012,11 @@ BWD_BODIES = ("dkdv_mma_kernel", "dq_mma_kernel")
 # scoring evals run
 QMM_DECODE_BODY = "qmm_decode_kernel"
 FLCE_FWD_BODY = "flce_fwd_wgmma_kernel"
+# the single-query attention kernels split over warps and a cluster
+# (csrc/single_query.cuh): decode_attention's, which every decode step
+# runs, and the paged one, which every paged window runs
+DECODE_ATTN_BODY = "decode_attn_kernel"
+PAGED_ATTN_BODY = "paged_attn_kernel"
 
 
 def _require_kernels(by_name, bodies, what):
@@ -2681,8 +2713,10 @@ def probe(dev) -> int:
     as imported (`--probe ROOT` imports it from the checkout at ROOT, so
     two commits can be run in turns in one call):
     - "host-cost": the host's time a `quant_matmul` call takes at the
-      decode step's four shapes and a prefill shape (median of 5 runs of
-      `host_us`) beside the kernel's device time;
+      decode step's four shapes and a prefill shape, a `decode_attention`
+      call at the cross shape and a `paged_attention` call at the paged
+      engine's serving shape (median of 5 runs of `host_us`) beside the
+      kernel's device time;
     - "convert-rows", where the package has `CONVERT_ROWS`: the bf16 fused
       lm_head+CE forward of an f32 lm_head at 256-2048 rows, w rounded
       in shared memory and w rounded once into the scratch, each timed
@@ -2704,6 +2738,46 @@ def probe(dev) -> int:
             shape=f"x ({m}, {k_dim}) bf16 @ int8 ({k_dim}, {n})",
             host_us=runs[2], host_us_runs=runs,
             ms=device_ms(quant.quant_matmul, sets, 200))), flush=True)
+    from flasht5_tpu_torch.ops import decode_attention as da
+    from flasht5_tpu_torch.ops import paged_attention as pa
+
+    def dec_make():
+        kq, ks = quant.quantize_kv(torch.randn((8, 8, 512, 64),
+                                               generator=gen, device=dev))
+        vq, vs = quant.quantize_kv(torch.randn((8, 8, 512, 64),
+                                               generator=gen, device=dev))
+        q = torch.randn((8, 8, 64), generator=gen, device=dev).to(
+            torch.bfloat16)
+        lens = torch.full((8,), 512, dtype=torch.int32, device=dev)
+        return q, kq, vq, ks, vs, lens
+
+    def dec_call(q, kq, vq, ks, vs, lens):
+        return da.decode_attention(q, kq, vq, ks, vs, lengths=lens)
+
+    def paged_make():
+        pkv, skv = _paged_pool(dev, gen, 40, 8, 64, 64)
+        q = torch.randn((8, 8, 64), generator=gen, device=dev)
+        table = torch.randperm(40, device=dev).reshape(8, 5).int()
+        lens = torch.tensor([1, 40, 64, 65, 130, 200, 257, 320],
+                            dtype=torch.int32, device=dev)
+        bias = torch.randn((8, 8, 320), generator=gen, device=dev)
+        return q, pkv, skv, table, lens, bias
+
+    def paged_call(q, pkv, skv, table, lens, bias):
+        return pa.paged_attention(q, pkv[:, 0], pkv[:, 1], skv[:, 0],
+                                  skv[:, 1], table, lens, bias=bias,
+                                  return_state=True)
+    for label, make, call, n_bytes in (
+            ("decode_attention q (8, 8, 64) bf16, int8 K/V (8, 8, 512, 64)",
+             dec_make, dec_call, 8 * 8 * 512 * 136),
+            ("paged_attention q (8, 8, 64) f32, int8 fused pool (41, 2, 8, "
+             "64, 64), table (8, 5), bias, state", paged_make, paged_call,
+             41 * 2 * 8 * 64 * 68)):
+        sets = copies_for(make, n_bytes)
+        runs = sorted(host_us(call, sets[0]) for _ in range(5))
+        print("host-cost " + json.dumps(dict(
+            shape=label, host_us=runs[2], host_us_runs=runs,
+            ms=device_ms(call, sets, 200))), flush=True)
     if not hasattr(flce, "CONVERT_ROWS"):
         return 0
     default = flce.CONVERT_ROWS

@@ -2,7 +2,8 @@
 
 `decode_attention` runs the CUDA kernel `csrc/decode_attention.cu`, which
 replaces the Pallas kernels `flasht5_tpu/ops/decode_attention.py::_kernel_flat`
-and `::_kernel` (its source says what bounds it and how).
+and `::_kernel` (its source and `csrc/single_query.cuh` say what bounds it
+and how), on the split that `decode_plan` chooses from the shapes.
 
 Layout: q (B, H, D); k, v (B, H, L, D) in f32, bf16 or int8 with scales
 (B, H, L, 1); lengths (B,) valid positions per slot; bias (B, H, L).
@@ -11,6 +12,8 @@ Layout: q (B, H, D); k, v (B, H, L, D) in f32, bf16 or int8 with scales
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -20,6 +23,12 @@ _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# the kernel's split (csrc/single_query.cuh)
+_WARPS = 4               # warps a CTA, one share of positions each
+_MAX_SPLITS = 8          # CTAs of a cluster (the portable size)
+_TARGET_CTAS = 256       # about two CTAs for each of the H100's 132 SMs
+_MIN_SPLIT = 64          # positions a CTA keeps at least once split
 
 
 def decode_attention_ref(q, k, v, k_scales=None, v_scales=None, lengths=None,
@@ -76,13 +85,40 @@ def decode_attention_plain(q, k, v, k_scales=None, v_scales=None,
     return (pv / torch.where(l > 0.0, l, 1.0)).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def decode_plan(b: int, h: int, L: int) -> Tuple[int, int, int]:
+    """(splits, warps, unit) of the kernel for a (b, h, L, D) cache: each
+    (slot, head) runs on a cluster of `splits` CTAs of `warps` warps, and
+    warp `warp` of cluster rank `rank` owns the positions from
+    (rank * warps + warp) * unit, `unit` of them. `splits` is the least power
+    of two (at most 8) that gives about two CTAs an SM, as far as each CTA
+    keeps 64 positions or more: the cross cache (8, 8, 512) runs on 256
+    CTAs of 4 warps of 32 positions, a 66-position self cache takes no
+    split. From shapes alone (the lengths live on the card), once per
+    shape."""
+    splits = 1
+    while (splits < _MAX_SPLITS and b * h * splits < _TARGET_CTAS
+           and L >= 2 * splits * _MIN_SPLIT):
+        splits *= 2
+    return splits, _WARPS, -(-L // (splits * _WARPS))
+
+
+def decode_pieces(b: int, h: int, L: int) -> List[Tuple[int, int]]:
+    """The positions [begin, end) of each warp's share, in the order the
+    kernel merges them (cluster rank, then warp); the last ones may be
+    short or empty."""
+    splits, warps, unit = decode_plan(b, h, L)
+    return [(min(L, u * unit), min(L, (u + 1) * unit))
+            for u in range(splits * warps)]
+
+
 def _lib():
     lib = runtime.kernel_library("decode_attention")
     fn = lib.ft5_decode_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -130,7 +166,8 @@ def decode_attention(q, k, v, k_scales=None, v_scales=None, lengths=None,
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(ks),
             runtime.ptr(vs), runtime.ptr(lens), runtime.ptr(bias),
             runtime.ptr(out), b, h, L, d, float(sm_scale), _Q_CODES[q.dtype],
-            _KV_CODES[k.dtype], runtime.stream_handle(q))
+            _KV_CODES[k.dtype], *decode_plan(b, h, L),
+            runtime.stream_handle(q))
     runtime.check_launch(lib, rc, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -4,8 +4,9 @@ version.
 `paged_attention` runs the CUDA kernel `csrc/paged_decode_attention.cu`,
 which replaces the three Pallas kernels of
 `flasht5_tpu/inference/paged_kv.py` (`_paged_kernel`, `_ragged_kernel`,
-`_chunked_kernel`; its source says what bounds it and how). The public
-functions of that module, in both page layouts, are in
+`_chunked_kernel`; its source and `csrc/single_query.cuh` say what bounds
+it and how), on the split that `paged_plan` chooses from the shapes. The
+public functions of that module, in both page layouts, are in
 `flasht5_tpu_torch/inference/paged_kv.py`; all of them come here.
 
 Layout: q (B, H, D); k_pages, v_pages (N, H, P, D) with rows of D contiguous
@@ -20,6 +21,8 @@ m = -1e30 and l = 0 for a slot of length 0, whose out is 0.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -29,6 +32,13 @@ _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# the kernel's split (csrc/single_query.cuh)
+_MAX_WARPS = 4           # warps a CTA, one share of pages each
+_MAX_SPLITS = 8          # CTAs of a cluster (the portable size)
+_TARGET_CTAS = 128       # about one CTA for each of the H100's 132 SMs
+_WAVE_WARPS = 132 * 12   # warps the H100 holds at once at the kernel's
+                         # 160-odd registers a thread
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor
@@ -48,7 +58,7 @@ def paged_attention_plain(q, k_pages, v_pages, k_scales, v_scales,
     q, k, P and v rounded to bf16 unless the pool is int8 or q and the pool
     are both f32; the k scales multiply the scores and the v scales fold
     into P; fp32 sums; one softmax maximum per slot (the kernel's running
-    maximum over chunks of 256 positions gives the same sums to rounding)."""
+    maximum a warp, merged at the end, gives the same sums to rounding)."""
     bf16 = not (k_pages.dtype == torch.int8
                 or (q.dtype == torch.float32
                     and k_pages.dtype == torch.float32))
@@ -80,14 +90,47 @@ def paged_attention_plain(q, k_pages, v_pages, k_scales, v_scales,
     return out, torch.where(l > 0.0, m, _NEG_INF), l
 
 
+@functools.lru_cache(maxsize=None)
+def paged_plan(b: int, h: int, maxp: int) -> Tuple[int, int, int]:
+    """(splits, warps, pages) of the kernel for b slots of h heads and
+    page tables of maxp pages: each (slot, head) runs on a cluster of
+    `splits` CTAs of `warps` warps, and warp `warp` of cluster rank `rank`
+    owns the table entries from (rank * warps + warp) * pages, `pages` of
+    them (whole pages: a share that ended inside a page would cut its runs
+    into more, smaller copies). `splits` is the least power of two (at most
+    8) that gives about one CTA an SM, as far as each CTA keeps two pages
+    or more; `warps` (at most 4) cuts a CTA's pages again, halved while the
+    grid would not fit on the card at once. The serving shape (8 slots of
+    8 heads, 5 pages) runs on 128 CTAs of 3 warps of one page; 64 slots of
+    16 pages on 512 CTAs of 2 warps of 8 pages. From shapes alone (the
+    lengths live on the card), once per shape."""
+    splits = 1
+    while (splits < _MAX_SPLITS and b * h * splits < _TARGET_CTAS
+           and maxp >= 4 * splits):
+        splits *= 2
+    warps = min(_MAX_WARPS, -(-maxp // splits))
+    while warps > 1 and b * h * splits * warps > _WAVE_WARPS:
+        warps //= 2
+    return splits, warps, -(-maxp // (splits * warps))
+
+
+def paged_pieces(b: int, h: int, maxp: int) -> List[Tuple[int, int]]:
+    """The table entries [begin, end) of each warp's share, in the order
+    the kernel merges them (cluster rank, then warp); the last ones may be
+    short or empty."""
+    splits, warps, pages = paged_plan(b, h, maxp)
+    return [(min(maxp, u * pages), min(maxp, (u + 1) * pages))
+            for u in range(splits * warps)]
+
+
 def _lib():
     lib = runtime.kernel_library("paged_decode_attention")
     fn = lib.ft5_paged_decode_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -159,7 +202,7 @@ def paged_attention(q, k_pages, v_pages, k_scales, v_scales, page_table,
             runtime.ptr(m), runtime.ptr(l), b, h, d, psize, maxp,
             k_pages.stride(0), k_pages.stride(1), ks_stride[0], ks_stride[1],
             float(sm_scale), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
-            runtime.stream_handle(q))
+            *paged_plan(b, h, maxp), runtime.stream_handle(q))
     runtime.check_launch(lib, rc, "paged_attention")
     paged_attention.launches += 1
     return (out, m, l) if return_state else out

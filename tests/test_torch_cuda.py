@@ -15,10 +15,10 @@ near 0), and 2e-2 where P is also rounded to bf16 at values that differ
 one pass).
 
 The paged decode kernel: 1e-4 for f32 and int8 pools (both compute in f32);
-a bf16 pool rounds q, K, P and V to bf16, and the kernel rounds P against a
-running maximum over chunks of 256 positions where the plain version uses
-one maximum, so 2e-2 for its output; m and l are fp32 sums of the same
-products in both: 1e-4.
+a bf16 pool rounds q, K, P and V to bf16, and the kernel rounds P against
+each warp's running maximum where the plain version uses one maximum, so
+2e-2 for its output; m and l are fp32 sums of the same products in both:
+1e-4.
 
 The backward kernels: f32 gradients within 1e-3 of the largest entry of
 each output (the kernels sum over up to 1024 keys or rows, and dW over
@@ -229,9 +229,85 @@ def test_decode_attention_kernel(dev, kv, L, with_bias):
     assert torch.all(got[0] == 0)
 
 
-def _paged_case(dev, kv, d, layout, with_bias, b=6, h=4, P=16, maxp=40):
-    """A fragmented pool (random page order) and slots of lengths 0, 1, 17,
-    256, 300 and maxp * P: (q, kernel args, bias)."""
+def _decode_case(dev, kv, b, h, L, d, lengths, with_bias=True):
+    """q, the cache arguments, lengths and a bias for decode_attention."""
+    q = torch.randn((b, h, d), device=dev).to(
+        torch.float32 if kv == "f32" else torch.bfloat16)
+    k = torch.randn((b, h, L, d), device=dev)
+    v = torch.randn((b, h, L, d), device=dev)
+    if kv == "int8":
+        (kq, ks), (vq, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+        args = [kq, vq, ks, vs]
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        args = [k.to(dt), v.to(dt)]
+    lens = torch.tensor([lengths[i % len(lengths)] for i in range(b)],
+                        device=dev, dtype=torch.int32)
+    bias = torch.randn((b, h, L), device=dev) if with_bias else None
+    return q, args, lens, bias
+
+
+def _edges(unit, cta, total):
+    """Lengths 0, 1, a warp's share and a CTA's share +- 1, and the whole."""
+    return sorted({min(total, max(0, x)) for x in
+                   (0, 1, unit - 1, unit, unit + 1, cta - 1, cta + 1,
+                    total - 1, total)})
+
+
+# (b, h, L) with the split the plan gives them: 1, 2, 4 and 8 CTAs a
+# cluster, at 512 positions or less (one maximum agreed over the cluster)
+# and beyond (an online softmax a warp)
+_DECODE_SPLITS = [((64, 8, 512), 1), ((16, 8, 512), 2), ((8, 8, 512), 4),
+                  ((2, 8, 512), 8), ((4, 8, 1024), 8), ((8, 8, 66), 1),
+                  ((4, 4, 1000), 8)]
+
+
+@pytest.mark.parametrize("shape,splits", _DECODE_SPLITS)
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_decode_attention_splits(dev, shape, splits, kv, d):
+    """Every split the plan chooses, at lengths on each side of a warp's
+    and a CTA's share."""
+    b, h, L = shape
+    plan = decode_attention.decode_plan(b, h, L)
+    assert plan[0] == splits
+    q, args, lens, bias = _decode_case(
+        dev, kv, b, h, L, d, _edges(plan[2], plan[1] * plan[2], L))
+    got = decode_attention.decode_attention(q, *args, lengths=lens,
+                                            bias=bias, sm_scale=d ** -0.5)
+    want = decode_attention.decode_attention_plain(
+        q, *args, lengths=lens, bias=bias, sm_scale=d ** -0.5)
+    tol = 1e-4 if kv == "f32" else (1e-2 if L <= 512 else 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.all(got[lens == 0] == 0)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 512), (2, 8, 512), (8, 8, 66),
+                                   (4, 4, 1000)])
+def test_decode_attention_is_deterministic(dev, shape):
+    """Bit-equal over three runs, and the V rows of the last split's
+    positions zeroed (the planted fault of the on-card check; the last
+    cluster rank that holds positions) move the output."""
+    b, h, L = shape
+    q, args, lens, bias = _decode_case(dev, "int8", b, h, L, 64, [L])
+    runs = [decode_attention.decode_attention(q, *args, lengths=lens,
+                                              bias=bias) for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    warps = decode_attention.decode_plan(b, h, L)[1]
+    first = max(a for a, _ in decode_attention.decode_pieces(b, h, L)[::warps]
+                if a < L)     # the last cluster rank that holds positions
+    vq = args[1].clone()
+    vq[:, :, first:] = 0
+    zeroed = decode_attention.decode_attention(
+        q, args[0], vq, *args[2:], lengths=lens, bias=bias)
+    assert (zeroed.float() - runs[0].float()).abs().max() > 0.05
+
+
+def _paged_case(dev, kv, d, layout, with_bias, b=6, h=4, P=16, maxp=40,
+                lengths=(0, 1, 17, 256, 300, 640)):
+    """A fragmented pool (random page order) and slots of `lengths` (cycled
+    over the slots): (q, kernel args, bias)."""
     n = b * maxp + 16
     k = torch.randn((n, h, P, d), device=dev)
     v = torch.randn((n, h, P, d), device=dev)
@@ -248,8 +324,8 @@ def _paged_case(dev, kv, d, layout, with_bias, b=6, h=4, P=16, maxp=40):
         args = [k, v] + ([None, None] if ks is None
                          else [ks[..., 0], vs[..., 0]])
     table = torch.randperm(n, device=dev)[:b * maxp].reshape(b, maxp)
-    lengths = torch.tensor([0, 1, 17, 256, 300, maxp * P], device=dev,
-                           dtype=torch.int32)
+    lengths = torch.tensor([lengths[i % len(lengths)] for i in range(b)],
+                           device=dev, dtype=torch.int32)
     q = torch.randn((b, h, d), device=dev).to(
         torch.bfloat16 if kv == "bf16" else torch.float32)
     bias = torch.randn((b, h, maxp * P), device=dev) if with_bias else None
@@ -278,6 +354,65 @@ def test_paged_attention_kernel(dev, layout, kv, d, with_bias):
     out = paged_attention.paged_attention(q, *args, sm_scale=d ** -0.5,
                                           bias=bias)
     assert torch.equal(out, got[0])
+
+
+# (b, h, P, maxp) with the split the plan gives them: 1, 2, 4 and 8 CTAs a
+# cluster (the paged engine's serving shape takes 2)
+_PAGED_SPLITS = [((16, 8, 16, 6), 1), ((8, 8, 64, 5), 2),
+                 ((4, 8, 16, 16), 4), ((2, 4, 16, 40), 8)]
+
+
+@pytest.mark.parametrize("shape,splits", _PAGED_SPLITS)
+@pytest.mark.parametrize("layout", ["standard", "fused"])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_attention_splits(dev, shape, splits, layout, kv, d):
+    """Every split the plan chooses, at lengths on each side of a warp's
+    and a CTA's share of pages, both layouts, with the state."""
+    b, h, P, maxp = shape
+    plan = paged_attention.paged_plan(b, h, maxp)
+    assert plan[0] == splits
+    unit = plan[2] * P
+    lengths = _edges(unit, plan[1] * unit, maxp * P)
+    q, args, bias = _paged_case(dev, kv, d, layout, True, b=b, h=h, P=P,
+                                maxp=maxp, lengths=lengths)
+    kw = dict(sm_scale=d ** -0.5, bias=bias, return_state=True)
+    got = paged_attention.paged_attention(q, *args, **kw)
+    want = paged_attention.paged_attention_plain(q, *args, **kw)
+    tol = 2e-2 if kv == "bf16" else 1e-4
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    empty = args[-1] == 0
+    assert torch.all(got[0][empty] == 0) and torch.all(got[2][empty] == 0)
+    assert torch.all(got[1][empty] == -1e30)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 64, 5), (64, 8, 128, 16),
+                                   (2, 4, 16, 40)])
+def test_paged_attention_is_deterministic(dev, shape):
+    """Output and state bit-equal over three runs, the output without the
+    state bit-equal to it, and the V pages of the last split zeroed (the
+    planted fault of the on-card check; the last cluster rank that holds
+    pages) move the output."""
+    b, h, P, maxp = shape
+    q, args, bias = _paged_case(dev, "int8", 64, "fused", True, b=b, h=h,
+                                P=P, maxp=maxp, lengths=[maxp * P])
+    kw = dict(bias=bias, return_state=True)
+    runs = [paged_attention.paged_attention(q, *args, **kw)
+            for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(r, runs[0]))
+    assert torch.equal(paged_attention.paged_attention(q, *args, bias=bias),
+                       runs[0][0])
+    warps = paged_attention.paged_plan(b, h, maxp)[1]
+    first = max(a for a, _ in paged_attention.paged_pieces(b, h, maxp)[::warps]
+                if a < maxp)  # the last cluster rank that holds pages
+    k, v = args[0].clone(), args[1].clone()   # one layout for both planes
+    v[args[4][:, first:].flatten().long()] = 0
+    zeroed = paged_attention.paged_attention(q, k, v, *args[2:], bias=bias)
+    assert (zeroed - runs[0][0]).abs().max() > 0.05
 
 
 def test_paged_attention_refuses_what_it_does_not_take(dev):

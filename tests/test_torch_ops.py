@@ -13,6 +13,8 @@ the summation order and rare one-ulp bf16 flips of values that differ by an
 f32 ulp.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -364,6 +366,58 @@ def test_decode_attention_empty_slot_gives_zero():
     out = decode_attention.decode_attention(
         q, k, k, lengths=torch.tensor([0, 8], dtype=torch.int32))
     assert torch.all(out[0] == 0) and torch.allclose(out[1], torch.ones(32))
+
+
+class _NoTensorOps(torch.overrides.TorchFunctionMode):
+    """Raises on any torch function or tensor method called inside it."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        raise AssertionError(f"the plan called {func}")
+
+
+# the cross and self caches of the slot engine, long caches (online
+# softmax a warp), a single slot, many slots, and caches too short to split
+_ATTN_SHAPES = [(8, 8, 512), (8, 8, 66), (8, 8, 1000), (1, 8, 4096),
+                (64, 8, 512), (2, 2, 127), (2, 2, 128), (3, 4, 1), (1, 1, 9)]
+
+
+@pytest.mark.parametrize("b,h,L", _ATTN_SHAPES)
+def test_decode_plan_covers_positions_once(b, h, L):
+    """The warps' shares run in the kernel's merge order (cluster rank,
+    then warp), cover [0, L) once without a gap, and fit the kernel: a
+    cluster of 1-8 CTAs (a power of two) of 1-8 warps; a split CTA keeps
+    64 positions or more."""
+    splits, warps, unit = decode_attention.decode_plan(b, h, L)
+    assert splits in (1, 2, 4, 8) and 1 <= warps <= 8
+    assert unit == -(-L // (splits * warps))
+    assert splits == 1 or L >= 64 * splits
+    pieces = decode_attention.decode_pieces(b, h, L)
+    assert len(pieces) == splits * warps
+    assert pieces[0][0] == 0 and pieces[-1][1] == L
+    for (_, end), (begin, _) in zip(pieces, pieces[1:]):
+        assert end == begin
+    covered = [t for a, e in pieces for t in range(a, e)]
+    assert covered == list(range(L))
+
+
+def test_decode_plan_fills_the_card():
+    """The cross cache (8, 8, 512) runs on at least ~128 CTAs of the H100's
+    132 SMs; the 66-position self cache takes no split; a plan depends on
+    nothing but the shape and reads no tensor (the lengths live on the
+    card, and reading them would synchronize the step)."""
+    splits, warps, _ = decode_attention.decode_plan(8, 8, 512)
+    assert 8 * 8 * splits >= 128
+    assert decode_attention.decode_plan(8, 8, 66)[0] == 1
+    assert decode_attention.decode_plan(64, 8, 512)[0] == 1
+    with _NoTensorOps():
+        plans = [decode_attention.decode_plan.__wrapped__(*s)
+                 for s in _ATTN_SHAPES]
+        pieces = decode_attention.decode_pieces(8, 8, 512)
+    assert plans == [decode_attention.decode_plan(*s) for s in _ATTN_SHAPES]
+    assert len(pieces) == splits * warps
+    assert set(inspect.signature(
+        decode_attention.decode_plan.__wrapped__).parameters) == {"b", "h",
+                                                                  "L"}
 
 
 # ---------------------------------------------------------------------------

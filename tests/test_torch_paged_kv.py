@@ -27,6 +27,7 @@ import torch
 
 from flasht5_tpu.inference import paged_kv as jpk
 from flasht5_tpu_torch.inference import paged_kv as pk
+from flasht5_tpu_torch.ops import paged_attention as pa
 
 H, D, P, MAXP, SLOTS, NPAGES = 2, 32, 8, 4, 4, 20
 LENGTHS = (19, 0, 32, 5)     # an empty slot, a full one, two partial pages
@@ -266,3 +267,112 @@ def test_pool_exhaustion_and_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pk.PagedKVPool(2, 2, 4, 8, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split over warps and a cluster, and the merge it relies on
+# ---------------------------------------------------------------------------
+
+class _NoTensorOps(torch.overrides.TorchFunctionMode):
+    """Raises on any torch function or tensor method called inside it."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        raise AssertionError(f"the plan called {func}")
+
+
+# the paged engine's serving shape (8 slots of 8 heads, 5 pages), the
+# roofline shape (64 slots of 16 pages), these tests' pools, long tables,
+# one page, many slots
+_PAGED_SHAPES = [(8, 8, 5), (64, 8, 16), (SLOTS, H, MAXP), (4, 2, 12),
+                 (6, 4, 40), (1, 1, 1), (2, 8, 3), (1, 8, 257), (64, 16, 128)]
+
+
+@pytest.mark.parametrize("b,h,maxp", _PAGED_SHAPES)
+def test_paged_plan_covers_pages_once(b, h, maxp):
+    """The warps' shares of the table run in the kernel's merge order
+    (cluster rank, then warp), cover its maxp entries once without a gap,
+    and fit the kernel: a cluster of 1-8 CTAs (a power of two) of 1-4
+    warps, a split CTA keeping two pages or more, the grid on the card at
+    once."""
+    splits, warps, pages = pa.paged_plan(b, h, maxp)
+    assert splits in (1, 2, 4, 8) and 1 <= warps <= 4
+    assert pages == -(-maxp // (splits * warps))
+    assert splits == 1 or maxp >= 2 * splits
+    assert warps == 1 or b * h * splits * warps <= 132 * 12
+    pieces = pa.paged_pieces(b, h, maxp)
+    assert len(pieces) == splits * warps
+    assert pieces[0][0] == 0 and pieces[-1][1] == maxp
+    covered = [j for a, e in pieces for j in range(a, e)]
+    assert covered == list(range(maxp))
+
+
+def test_paged_plan_fills_the_card():
+    """The serving shape (64 (slot, head) pairs of 5 pages) runs on about
+    128 CTAs of the H100's 132 SMs, a page a warp; the roofline shape's 512
+    pairs on one CTA each, in one wave of the card; a plan depends on
+    nothing but the shape and reads no tensor (the lengths live on the
+    card, and reading them would synchronize the step)."""
+    splits, warps, pages = pa.paged_plan(8, 8, 5)
+    assert 8 * 8 * splits >= 128 and pages == 1
+    assert pa.paged_plan(64, 8, 16) == (1, 2, 8)
+    with _NoTensorOps():
+        plans = [pa.paged_plan.__wrapped__(*s) for s in _PAGED_SHAPES]
+        pa.paged_pieces(8, 8, 5)
+    assert plans == [pa.paged_plan(*s) for s in _PAGED_SHAPES]
+
+
+def _merge(states):
+    """(out, m, l) states merged in order as the kernel merges them: the
+    largest m, each state's sum weighted by exp(m_i - m), out = sum / l."""
+    m = torch.stack([s[1] for s in states]).amax(0)
+    w = [torch.exp(s[1] - m) for s in states]
+    l = sum(s[2] * wi for s, wi in zip(states, w))
+    acc = sum(s[0] * (s[2] * wi)[..., None] for s, wi in zip(states, w))
+    return (acc / torch.where(l > 0, l, 1.0)[..., None],
+            torch.where(l > 0, m, -1e30), l)
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_paged_state_merges_in_rank_order(kv):
+    """paged_attention_plain over each warp's share of the table (its
+    pages, its length clipped to them: shares beyond a slot's length give
+    the empty state out 0, m -1e30, l 0), merged warp by warp within each
+    CTA and then CTA by CTA in rank order, is the plain version over the
+    whole table, an empty slot included: the state contract the kernel's
+    merge relies on. f32 sums in another grouping: 1e-6."""
+    rng = np.random.default_rng(11)
+    b, h, p, maxp, d = 4, 2, 8, 12, 16
+    n = b * maxp + 3
+    k = torch.from_numpy(rng.normal(size=(n, h, p, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(n, h, p, d)).astype(np.float32))
+    ks = vs = None
+    if kv == "int8":
+        (k, ks), (v, vs) = pk.quantize_kv(k), pk.quantize_kv(v)
+        ks, vs = ks[..., 0], vs[..., 0]
+    table = torch.from_numpy(rng.permutation(n)[:b * maxp].reshape(
+        b, maxp).astype(np.int32))
+    lengths = torch.tensor([0, 1, 50, maxp * p], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(b, h, maxp * p)).astype(
+        np.float32))
+    kw = dict(sm_scale=0.4, return_state=True)
+    whole = pa.paged_attention_plain(q, k, v, ks, vs, table, lengths,
+                                     bias=bias, **kw)
+    splits, warps, _ = pa.paged_plan(b, h, maxp)
+    parts = []
+    for a, e in pa.paged_pieces(b, h, maxp):
+        if e == a:      # a share past the table: the empty state
+            parts.append((torch.zeros_like(q), torch.full((b, h), -1e30),
+                          torch.zeros((b, h))))
+            continue
+        clipped = (lengths - a * p).clamp(0, (e - a) * p).to(torch.int32)
+        parts.append(pa.paged_attention_plain(
+            q, k, v, ks, vs, table[:, a:e].contiguous(), clipped,
+            bias=bias[..., a * p:e * p], **kw))
+    assert any(float(s[2][0].sum()) == 0 for s in parts[1:])
+    ctas = [_merge(parts[r * warps:(r + 1) * warps]) for r in range(splits)]
+    got = _merge(ctas)
+    for g, w in zip(got, whole):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    assert not got[0][0].any() and bool((got[1][0] == -1e30).all())
+    assert not got[2][0].any()
