@@ -17,7 +17,9 @@ of JAX. In order:
    never calls; for the fused lm_head+CE kernels the two calls F.linear
    and F.cross_entropy, with the port's own unfused path beside them);
    each output is held entry by entry to a stated limit, and
-   faults planted in the attention forward (the keys rolled by one
+   faults planted in the `rms_norm` kernels (the last row of x taken from
+   the first; the last row's rstd doubled; dy zeroed on the rows of the
+   backward's last CTA), the attention forward (the keys rolled by one
    position), `quant_matmul` (each column's scales taken from its
    neighbour; at decode also the last K split left out of the
    reduction), the attention backward (the bucket one above), the
@@ -44,7 +46,8 @@ of JAX. In order:
    weights and KV cache, the decode kernel) by wall clock and by device
    time, counts its `quant_matmul` launches by shape, and lists the kernels
    one decode window launches (`torch.profiler`; `quant_matmul`'s decode
-   form must be among them, as in the paged window below);
+   form, the decode attention and the `rms_norm` forward must be among
+   them, as in the paged window below);
 7. serves 16 requests of 512 random tokens with that engine, three times,
    with every launch count set to 0 just before each run and read just
    after; each serving kernel must have launched in each;
@@ -62,9 +65,9 @@ of JAX. In order:
    launched in each of its loops, every loss must be finite and the loss
    must fall; then each step's device time (the sum of one profiled
    step's kernel times), its peak memory, its kernels by name (the
-   attention backward's tensor-core bodies must be among them, and the
-   fused step's GEMMs and TMA + wgmma forward) and the optimizer's
-   launches;
+   attention backward's tensor-core bodies and the `rms_norm` kernels
+   must be among them, and the fused step's GEMMs and TMA + wgmma
+   forward) and the optimizer's launches;
 10. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
    12 heads, vocabulary 32128: the fused lm_head+CE kernels in chunks of
    d), seeded weights written as FAT5-named safetensors by the port's
@@ -84,7 +87,7 @@ of JAX. In order:
    tokens/s as the trainer logs it and between synchronized clock readings,
    the collator's time, a step's wall and device time (its profiled
    kernels' sum), its kernels (the attention backward's tensor-core bodies
-   must be among them), peak memory;
+   and the `rms_norm` kernels must be among them), peak memory;
 12. prints JSON lines of the serving, paged serving, training, scoring and
    pretraining results and of the kernels (each with its launches in each
    path that runs it, and their sum), the
@@ -211,27 +214,42 @@ def check_kernels(dev):
 
     cases = []
 
-    # -- A. rms_norm (Triton): every pre-norm and final norm --------------
-    def rms_case(rows, label):
+    # -- A. rms_norm (CUDA): every pre-norm and final norm, the fp32 weight
+    # as the model passes it (the kernel rounds it to bf16 as it loads it)
+    def last_row_from_first(x, w):
+        """A planted fault: the last row of x taken from the first."""
+        x = x.clone()
+        x[-1] = x[0]
+        return rmsnorm.rms_norm_fwd(x, w, 1e-6)
+
+    def rms_case(rows, label, main=False):
         d = 512
 
         def make():
             x = randn(rows, d)
-            w = (1 + 0.1 * randn(d, dtype=torch.float32)).to(torch.bfloat16)
-            return (x, w), (x, w)
+            w = 1 + 0.1 * randn(d, dtype=torch.float32)
+            return (x, w), (x, w.to(torch.bfloat16))
         (x, w), _ = make()
         cases.append(dict(
-            name="rms_norm", label=label, make=make, in_bytes=nbytes(x, w),
+            name="rms_norm", label=label, make=make, outputs=2,
+            in_bytes=nbytes(x, w),
             kernel=lambda x, w: rmsnorm.rms_norm_fwd(x, w, 1e-6),
             plain=lambda x, w: rmsnorm.rms_norm_plain(x, w, 1e-6),
             library=((lambda x, w: F.rms_norm(x, (d,), w, 1e-6))
                      if hasattr(F, "rms_norm") else None),
+            library_note="F.rms_norm, the weight cast to bf16 beforehand",
             atol=1e-6, rtol=BF16_ULP, bytes=nbytes(x, w) + nbytes(x)
-            + rows * 4, ops=4 * rows * d, ops_type="f32", main=rows == 8,
+            + rows * 4, ops=4 * rows * d, ops_type="f32", main=main,
+            faults=[("the last row of x taken from the first",
+                     last_row_from_first)],
             why="bf16 output: one bf16 ulp (rstd by another sqrt)"))
 
-    rms_case(8 * 512, "prefill x (4096, 512) bf16")
-    rms_case(8, "decode x (8, 512) bf16")
+    rms_case(8, "decode x (8, 512) bf16, w f32", main=True)
+    rms_case(8 * 512, "prefill x (4096, 512) bf16, w f32")
+    rms_case(PRETRAIN_B * TRAIN_DEC, "pretraining decoder x (16384, 512) "
+             "bf16, w f32")
+    rms_case(PRETRAIN_B * TRAIN_ENC, "pretraining encoder x (65536, 512) "
+             "bf16, w f32")
 
     # -- B. flash_attention_rpe forward (CUDA): encoder self-attention ----
     b, h, s, d = 8, 8, 512, 64
@@ -957,8 +975,8 @@ def run_engine(dev):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-    _require_kernels(by_name, (QMM_DECODE_BODY, DECODE_ATTN_BODY),
-                     "one decode window")
+    _require_kernels(by_name, (QMM_DECODE_BODY, DECODE_ATTN_BODY,
+                               RMS_FWD_BODY), "one decode window")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print("profile of one decode window: " + json.dumps({
         "kernels_per_step": sum(n for _, n in by_name.values()) / k,
@@ -1116,8 +1134,8 @@ def run_paged_engine(dev):
         device_ms=device_ms, launches=next(
             w["launches"] for w in windows if w["committed"]))
     window["device_idle_share"] = 1.0 - device_ms / window["wall_ms"]
-    _require_kernels(kernels, (QMM_DECODE_BODY, PAGED_ATTN_BODY),
-                     "one paged window")
+    _require_kernels(kernels, (QMM_DECODE_BODY, PAGED_ATTN_BODY,
+                               RMS_FWD_BODY), "one paged window")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     print(f"paged decode window ({sync} steps, committed pages): "
           f"{json.dumps(window)} (wall: median of the warm run's "
@@ -1185,6 +1203,7 @@ def run_paged_engine(dev):
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_ENC, TRAIN_DEC = 8, 1024, 256     # bench.py:45
+PRETRAIN_B = 64     # configs/fr/fat5-fr-small.yaml's per-device batch
 
 
 def check_training_kernels(dev):
@@ -1205,17 +1224,35 @@ def check_training_kernels(dev):
 
     cases = []
 
-    # -- rms_norm backward (Triton) ---------------------------------------
+    # -- rms_norm backward (CUDA) ----------------------------------------
+    def rstd_row_doubled(x, w, rstd, dy):
+        """A planted fault: the last row's rstd doubled."""
+        rstd = rstd.clone()
+        rstd[-1] *= 2
+        return rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+
+    def last_cta_dy_zeroed(x, w, rstd, dy):
+        """A planted fault: dy zeroed on the rows of the plan's last CTA,
+        as dW would come out had the merge left that CTA out."""
+        rows, d = x.shape
+        cpl, warps, grid, _ = rmsnorm.plan(
+            True, rows, d, x.dtype, dy.dtype,
+            rmsnorm._vectors(d, x, w, dy), x.device.index)
+        r = torch.arange(rows, device=x.device)
+        dy = torch.where(((r // (warps if cpl else 1)) % grid
+                          == grid - 1)[:, None], 0.0, dy).to(dy.dtype)
+        return rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+
     def rms_bwd_case(rows, label, main=False):
         d = 512
 
         def make():
             x = randn(rows, d)
-            w = (1 + 0.1 * randn(d, dtype=torch.float32)).to(torch.bfloat16)
+            w = 1 + 0.1 * randn(d, dtype=torch.float32)
             dy = randn(rows, d)
             _, rstd = rmsnorm.rms_norm_plain(x, w)
             xl = x.detach().requires_grad_(True)
-            wl = w.detach().requires_grad_(True)
+            wl = w.to(torch.bfloat16).requires_grad_(True)
             y = F.rms_norm(xl, (d,), wl, 1e-6)
             return (x, w, rstd, dy), (y, xl, wl, dy)
         (x, w, rstd, dy), _ = make()
@@ -1225,16 +1262,24 @@ def check_training_kernels(dev):
             kernel=rmsnorm.rms_norm_bwd, plain=rmsnorm.rms_norm_bwd_plain,
             library=lambda y, x, w, dy: torch.autograd.grad(
                 y, (x, w), dy, retain_graph=True),
-            library_note="autograd backward of F.rms_norm",
+            library_note="autograd backward of F.rms_norm, the weight "
+                         "cast to bf16 beforehand",
             atol=1e-3, rtol=BF16_ULP, scaled=True,
             bytes=nbytes(x, dy, rstd, w) + nbytes(x) + d * 4,
             ops=8 * rows * d, ops_type="f32", main=main,
+            faults=[("the last row's rstd doubled", rstd_row_doubled),
+                    ("dy zeroed on the last CTA's rows",
+                     last_cta_dy_zeroed)],
             why="dx in bf16: one bf16 ulp; dW an fp32 sum over the rows in "
                 "another order: 1e-3 of its largest entry"))
 
-    rms_bwd_case(TRAIN_B * TRAIN_ENC, "encoder x, dy (8192, 512) bf16",
+    rms_bwd_case(TRAIN_B * TRAIN_ENC, "encoder x, dy (8192, 512) bf16, w f32",
                  main=True)
-    rms_bwd_case(TRAIN_B * TRAIN_DEC, "decoder x, dy (2048, 512) bf16")
+    rms_bwd_case(TRAIN_B * TRAIN_DEC, "decoder x, dy (2048, 512) bf16, w f32")
+    rms_bwd_case(PRETRAIN_B * TRAIN_DEC, "pretraining decoder x, dy "
+                 "(16384, 512) bf16, w f32")
+    rms_bwd_case(PRETRAIN_B * TRAIN_ENC, "pretraining encoder x, dy "
+                 "(65536, 512) bf16, w f32")
 
     # -- attention backward (CUDA) and the forward without a table -------
     def attn_case(m_len, n_len, causal, table, label, main=False):
@@ -1841,10 +1886,10 @@ def _training_faults():
     attn_bwd_bucket_one_above = _bucket_one_above(fa.flash_attention_bwd)
     real_rms_bwd, real_ce_bwd = rn.rms_norm_bwd, ce.cross_entropy_bwd
 
-    def rms_bwd_row_rstd(x, w, rstd, dy):
+    def rms_bwd_row_rstd(x, w, rstd, dy, **kw):
         rstd = rstd.clone()
         rstd.view(-1)[-1] = rstd.view(-1)[0]
-        return real_rms_bwd(x, w, rstd, dy)
+        return real_rms_bwd(x, w, rstd, dy, **kw)
 
     def ce_bwd_lse_rolled(logits, labels, lse, dloss, dz, **kw):
         return real_ce_bwd(logits, labels, torch.roll(lse, 1), dloss, dz,
@@ -2017,6 +2062,11 @@ FLCE_FWD_BODY = "flce_fwd_wgmma_kernel"
 # runs, and the paged one, which every paged window runs
 DECODE_ATTN_BODY = "decode_attn_kernel"
 PAGED_ATTN_BODY = "paged_attn_kernel"
+# the rms_norm kernels' one-warp-a-row forms (csrc/rmsnorm.cu), which every
+# path at d_model 512 runs: the forward in each decode window and step, the
+# backward in each train and pretrain step
+RMS_FWD_BODY = "rms_fwd_warp_kernel"
+RMS_BWD_BODY = "rms_bwd_warp_kernel"
 
 
 def _require_kernels(by_name, bodies, what):
@@ -2127,7 +2177,7 @@ def run_training(dev):
         trainer._step(db)
         torch.cuda.synchronize()
         step["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        _require_kernels(by_name, BWD_BODIES + (
+        _require_kernels(by_name, BWD_BODIES + (RMS_FWD_BODY, RMS_BWD_BODY) + (
             ("flce_gemm_kernel", FLCE_FWD_BODY) if way == "fused" else ()),
             f"one {way} train step")
         if way == "unfused":       # the optimizer's launches alone
@@ -2521,7 +2571,8 @@ def run_pretraining(dev):
     step["kernels_per_step"] = sum(n for _, n in by_name.values())
     step["device_ms"] = sum(t for t, _ in by_name.values())
     step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
-    _require_kernels(by_name, BWD_BODIES, "one pretrain step")
+    _require_kernels(by_name, BWD_BODIES + (RMS_FWD_BODY, RMS_BWD_BODY),
+                     "one pretrain step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     print(f"pretrain step: {json.dumps(step)} (wall: median of 3 steps; "
           f"device: the sum of one profiled step's kernel times); peak "
@@ -2541,9 +2592,9 @@ def run_pretraining(dev):
 # ---------------------------------------------------------------------------
 
 KERNELS = {
-    "rms_norm": ("triton", "flasht5_tpu_torch/ops/rmsnorm.py",
+    "rms_norm": ("cuda", "flasht5_tpu_torch/csrc/rmsnorm.cu",
                  "flasht5_tpu/ops/rmsnorm.py:85"),
-    "rms_norm_bwd": ("triton", "flasht5_tpu_torch/ops/rmsnorm.py",
+    "rms_norm_bwd": ("cuda", "flasht5_tpu_torch/csrc/rmsnorm.cu",
                      "flasht5_tpu/ops/rmsnorm.py:115"),
     "flash_attention_rpe": ("cuda",
                             "flasht5_tpu_torch/csrc/flash_attention_rpe.cu",
@@ -2709,14 +2760,17 @@ def host_us(fn, args, calls: int = 200) -> float:
 
 
 def probe(dev) -> int:
-    """Two measurements the smoke does not make, for `flasht5_tpu_torch`
+    """Measurements the smoke does not make, for `flasht5_tpu_torch`
     as imported (`--probe ROOT` imports it from the checkout at ROOT, so
     two commits can be run in turns in one call):
     - "host-cost": the host's time a `quant_matmul` call takes at the
       decode step's four shapes and a prefill shape, a `decode_attention`
-      call at the cross shape and a `paged_attention` call at the paged
-      engine's serving shape (median of 5 runs of `host_us`) beside the
-      kernel's device time;
+      call at the cross shape, a `paged_attention` call at the paged
+      engine's serving shape, an `rms_norm_fwd` call at the decode shape
+      and an `rms_norm_bwd` call at the train step's encoder shape
+      (median of 5 runs of `host_us`) beside the kernel's device time;
+    - "rms-rows": the two `rms_norm` kernels' device ms at the serving,
+      train step and pretraining shapes (an fp32 weight);
     - "convert-rows", where the package has `CONVERT_ROWS`: the bf16 fused
       lm_head+CE forward of an f32 lm_head at 256-2048 rows, w rounded
       in shared memory and w rounded once into the scratch, each timed
@@ -2778,6 +2832,41 @@ def probe(dev) -> int:
         print("host-cost " + json.dumps(dict(
             shape=label, host_us=runs[2], host_us_runs=runs,
             ms=device_ms(call, sets, 200))), flush=True)
+    from flasht5_tpu_torch.ops import rmsnorm
+
+    def rms_make(rows, d=512):
+        def make():
+            x = torch.randn((rows, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            w = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+            dy = torch.randn((rows, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            return x, w, rmsnorm.rms_norm_fwd(x, w)[1], dy
+        return make
+
+    def rms_fwd(x, w, rstd, dy):
+        return rmsnorm.rms_norm_fwd(x, w)
+
+    def rms_bwd(x, w, rstd, dy):
+        return rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+    for label, fn, rows in (
+            ("rms_norm_fwd x (8, 512) bf16, w f32", rms_fwd, 8),
+            ("rms_norm_bwd x, dy (8192, 512) bf16, w f32", rms_bwd, 8192)):
+        sets = copies_for(rms_make(rows), rows * 512 * 4)
+        runs = sorted(host_us(fn, sets[0]) for _ in range(5))
+        print("host-cost " + json.dumps(dict(
+            shape=label, host_us=runs[2], host_us_runs=runs,
+            ms=device_ms(fn, sets, 200))), flush=True)
+    # device ms at the paths' shapes
+    for fn, all_rows in ((rms_fwd, (8, 4096, 16384, 65536)),
+                         (rms_bwd, (2048, 8192, 16384, 65536))):
+        for rows in all_rows:
+            sets = copies_for(rms_make(rows), rows * 512 * 4)
+            iters = 200 if rows <= 8192 else 50
+            row = dict(kernel=fn.__name__, shape=f"({rows}, 512) bf16, w f32",
+                       ms=device_ms(fn, sets, iters))
+            print("rms-rows " + json.dumps(row), flush=True)
+            del sets
     if not hasattr(flce, "CONVERT_ROWS"):
         return 0
     default = flce.CONVERT_ROWS

@@ -179,7 +179,9 @@ def init_params(config: FlashT5Config, seed: int = 0,
 def _layer_norm(config: FlashT5Config, w: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     if config.use_fused_layernorm:
-        return rms_norm(x, w.to(x.dtype), config.layer_norm_epsilon)
+        # the kernel rounds w to x.dtype as it loads it: the JAX model's
+        # `w.astype(x.dtype)`, with no launch of its own
+        return rms_norm(x, w, config.layer_norm_epsilon)
     return rms_norm_ref(x, w.to(x.dtype), config.layer_norm_epsilon)
 
 

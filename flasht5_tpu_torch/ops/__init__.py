@@ -3,7 +3,7 @@
 Each kernel wrapper launches its kernel for CUDA tensors, runs its plain
 version for CPU tensors, and counts its launches in a `.launches` integer.
 
-- rmsnorm:             RMS norm forward and backward (Triton)
+- rmsnorm:             RMS norm forward and backward -> csrc/rmsnorm.cu
 - flash_attention_rpe: attention with the T5 bias from the bucket table, or
                        none, forward and backward (CUDA)
 - flash_attention:     attention with an additive bias tensor (the

@@ -1,32 +1,43 @@
-"""T5-style RMS norm: plain PyTorch versions and the fused kernels in Triton.
+"""T5-style RMS norm: plain PyTorch versions and the fused kernels in CUDA.
 
 Replaces the Pallas kernels of `flasht5_tpu/ops/rmsnorm.py`: the forward
 `_fwd_kernel` (launched by `_pallas_fwd`) and the backward `_bwd_kernel`
-(launched by `_pallas_bwd`). `rms_norm` is differentiable in x and w through
-`_RMSNormFn`, whose backward is the second kernel.
+(launched by `_pallas_bwd`), both with `csrc/rmsnorm.cu`. `rms_norm` is
+differentiable in x and w through `_RMSNormFn`, whose backward is the second
+kernel.
+
+The weight is taken as stored: the kernels round it to x.dtype as they load
+it (the bits of `w.to(x.dtype)`), so the model passes its fp32 parameter and
+its cast costs no launch; `rms_norm`'s gradient of w is dW rounded to x.dtype
+and then widened to w.dtype, the gradient of that cast.
 
 Bound on the H100: bytes. The forward reads x once and writes y once (plus
 one fp32 rstd per row); the backward reads x, dy and rstd once and writes
-dx once. Both do a handful of operations per element, far below the card's
-ratio of operations to bytes. The design does the one thing that matters for
-such a kernel: a single pass over the rows, each row kept in registers
-between its reduction and its elementwise step, several rows per program.
+dx once. The design (the source says more): one warp a row (a CTA a row for
+wide rows), the row's 16-byte vectors in registers, row sums by warp
+shuffles; the forward a CTA for every four rows, the backward a persistent
+grid sized from the SM count in which each warp has its next row's loads in
+flight.
 
 The weight gradient is a sum over all rows. The TPU kernel accumulated it
-across a sequential grid, which blocks running in parallel cannot do: here
-each backward program writes one fp32 partial row for the rows it owns, and
-the partials are summed afterwards in a fixed order (as the reference's own
-Triton backward does), so dW is deterministic.
+across a sequential grid; here each lane keeps its columns' sums in
+registers over all its rows, and the CTAs' partials meet in the same launch
+through clusters and an arrival ticket, every sum in a fixed order: dW is
+deterministic and needs no second launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-_FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
-_BWD_PROGRAMS = 264          # two programs per SM of an H100
+from flasht5_tpu_torch import runtime
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_FLOAT_TYPES = tuple(_CODES)
+_MAX_CLUSTER = 8         # the backward's tickets, one per cluster rank
 
 
 def rms_norm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -43,120 +54,126 @@ def rms_norm_ref(x: torch.Tensor, w: torch.Tensor,
 
 def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """The kernel's arithmetic in plain PyTorch: (y in x.dtype, fp32 rstd
-    of shape x.shape[:-1]). Unlike `rms_norm_ref`, the weight multiplies in
-    fp32 and only y is rounded (as the TPU kernel does)."""
+    of shape x.shape[:-1]). w is rounded to x.dtype first; unlike
+    `rms_norm_ref`, the weight multiplies in fp32 and only y is rounded (as
+    the TPU kernel does)."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1)
     rstd = torch.rsqrt(var + eps)
-    y = x32 * rstd[..., None] * w.float()
+    y = x32 * rstd[..., None] * w.to(x.dtype).float()
     return y.to(x.dtype), rstd
 
 
 def rms_norm_bwd_plain(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
-                       dy: torch.Tensor):
+                       dy: torch.Tensor, *, round_dw: bool = False):
     """The backward kernel's arithmetic: (dx in dy.dtype, fp32 dW).
 
-    x̂ = x·rstd is recomputed; dx = (w·dy − x̂·mean(w·dy·x̂))·rstd in fp32;
-    dW = Σ_rows dy·x̂ in fp32 (the TPU kernel's `_bwd_kernel`)."""
+    w is rounded to x.dtype first; x̂ = x·rstd is recomputed;
+    dx = (w·dy − x̂·mean(w·dy·x̂))·rstd in fp32; dW = Σ_rows dy·x̂ in fp32
+    (the TPU kernel's `_bwd_kernel`), rounded to x.dtype if `round_dw` (as
+    `rms_norm`'s backward does; unrounded for the kernel checks)."""
     d = x.shape[-1]
     x32 = x.reshape(-1, d).float()
     dy32 = dy.reshape(-1, d).float()
     r = rstd.reshape(-1, 1)
     xhat = x32 * r
-    wdy = dy32 * w.float()
+    wdy = dy32 * w.to(x.dtype).float()
     c = torch.mean(wdy * xhat, dim=-1, keepdim=True)
     dx = (wdy - xhat * c) * r
     dw = torch.sum(dy32 * xhat, dim=0)
+    if round_dw:
+        dw = dw.to(x.dtype).float()
     return dx.to(dy.dtype).reshape(dy.shape), dw
 
 
+def _lib():
+    lib = runtime.kernel_library("rmsnorm")
+    if lib.ft5_rms_norm_fwd.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ft5_rms_norm_plan.argtypes = [i, ll, i, i, i, i, p]
+        lib.ft5_rms_norm_fwd.argtypes = ([p] * 4 + [ll, i, ctypes.c_float]
+                                         + [i] * 4 + [p])
+        lib.ft5_rms_norm_bwd.argtypes = [p] * 8 + [ll] + [i] * 8 + [p]
+        for fn in (lib.ft5_rms_norm_plan, lib.ft5_rms_norm_fwd,
+                   lib.ft5_rms_norm_bwd):
+            fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
-def _triton_kernels():
-    import triton
-    import triton.language as tl
+def plan(backward: bool, rows: int, d: int, x_dtype: torch.dtype,
+         y_dtype: torch.dtype, vec: bool, device: int):
+    """(cpl, warps, grid, cluster) of the kernel for x (rows, d): the warp
+    form's 16-byte chunks a lane (1, 2 or 4; 0 for the CTA form, one CTA a
+    row), a CTA's warps, the CTAs (the forward's warp form: one for every
+    CTA's worth of rows; else at most what the card holds at once) and, for
+    the backward (`y_dtype` is dy's), the CTAs a cluster. From the shapes and
+    the card alone, once per shape."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = lib.ft5_rms_norm_plan(int(backward), rows, d, _CODES[x_dtype],
+                                   _CODES[y_dtype], int(vec), out)
+    runtime.check_launch(lib, rc, "rms_norm plan")
+    return tuple(out)
 
-    @triton.jit
-    def fwd(x_ptr, w_ptr, y_ptr, rstd_ptr, n_rows, d, eps,
-            ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-        cols = tl.arange(0, BLOCK_D)
-        rmask = rows < n_rows
-        cmask = cols < d
-        mask = rmask[:, None] & cmask[None, :]
-        offs = rows[:, None].to(tl.int64) * d + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=1) / d
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        y = x * rstd[:, None] * w[None, :]
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-        tl.store(rstd_ptr + rows, rstd, mask=rmask)
 
-    @triton.jit
-    def bwd(x_ptr, w_ptr, rstd_ptr, dy_ptr, dx_ptr, dw_part_ptr, n_rows, d,
-            rows_per_prog, ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        # program p owns rows [p * rows_per_prog, (p + 1) * rows_per_prog)
-        # and writes row p of the (programs, d) fp32 dW partials
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < d
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        acc = tl.zeros((BLOCK_D,), dtype=tl.float32)
-        start = pid * rows_per_prog
-        end = tl.minimum(start + rows_per_prog, n_rows)
-        for r0 in range(start, end, ROWS):
-            rows = r0 + tl.arange(0, ROWS)
-            rmask = rows < end
-            mask = rmask[:, None] & cmask[None, :]
-            offs = rows[:, None].to(tl.int64) * d + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            rstd = tl.load(rstd_ptr + rows, mask=rmask, other=0.0)
-            xhat = x * rstd[:, None]
-            wdy = dy * w[None, :]
-            c = tl.sum(wdy * xhat, axis=1) / d
-            dx = (wdy - xhat * c[:, None]) * rstd[:, None]
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-            acc += tl.sum(dy * xhat, axis=0)
-        tl.store(dw_part_ptr + pid.to(tl.int64) * d + cols, acc, mask=cmask)
+_TICKETS = {}
 
-    return triton, fwd, bwd
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """The backward's arrival tickets for this device and stream: zeroed
+    once, and left at zero by each launch's last CTAs."""
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((_MAX_CLUSTER,), dtype=torch.int32,
+                                    device=device)
+    return _TICKETS[key]
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, *more) -> None:
-    d = x.shape[-1]
+    d = x.shape[-1] if x.dim() else 0
     if x.dtype not in _FLOAT_TYPES or w.dtype not in _FLOAT_TYPES:
         raise TypeError(f"{name}: unsupported dtypes {x.dtype}, {w.dtype}")
     if not x.is_cuda or any(t.device != x.device for t in (w, *more)):
         raise ValueError(f"{name}: x on {x.device}, w on {w.device}")
-    if w.shape != (d,):
-        raise ValueError(f"{name}: w {tuple(w.shape)} for d={d}")
+    if d < 1 or w.shape != (d,):
+        raise ValueError(f"{name}: w {tuple(w.shape)} for x "
+                         f"{tuple(x.shape)}")
 
 
-def _rows_per_program(d_block: int) -> int:
-    return max(1, min(16, 4096 // d_block))
+def _vectors(d: int, *ts: torch.Tensor) -> bool:
+    """Whether rows are whole 16-byte vectors of the first tensor's type and
+    each tensor is aligned to 16 bytes and to its vectors of as many
+    elements."""
+    v = 16 // ts[0].element_size()
+    return d % v == 0 and all(
+        t.data_ptr() % max(16, v * t.element_size()) == 0 for t in ts)
 
 
 def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
-    """Fused RMS norm over the last axis: (y, rstd). x (..., d), w (d,).
+    """Fused RMS norm over the last axis: (y, rstd). x (..., d), w (d,) in
+    any of f32, bf16, f16 (rounded to x.dtype).
 
-    A CUDA tensor goes to the Triton kernel, a CPU tensor to
-    `rms_norm_plain`; anything the kernel does not take raises."""
+    A CUDA tensor goes to the kernel, a CPU tensor to `rms_norm_plain`;
+    anything the kernel does not take raises."""
     d = x.shape[-1]
     if x.device.type == "cpu":
         return rms_norm_plain(x, w, eps)
     _check("rms_norm", x, w)
-    triton, kernel, _ = _triton_kernels()
     x2 = x.reshape(-1, d).contiguous()
     w = w.contiguous()
-    n_rows = x2.shape[0]
+    rows = x2.shape[0]
     y = torch.empty_like(x2)
-    rstd = torch.empty((n_rows,), dtype=torch.float32, device=x.device)
-    block_d = triton.next_power_of_2(d)
-    rows = _rows_per_program(block_d)
-    kernel[(triton.cdiv(n_rows, rows),)](
-        x2, w, y, rstd, n_rows, d, eps, ROWS=rows, BLOCK_D=block_d,
-        num_warps=4)
+    rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    vec = _vectors(d, x2, w)
+    grid = plan(False, rows, d, x.dtype, x.dtype, vec, x.device.index)[2]
+    lib = _lib()
+    rc = lib.ft5_rms_norm_fwd(
+        runtime.ptr(x2), runtime.ptr(w), runtime.ptr(y), runtime.ptr(rstd),
+        rows, d, float(eps), _CODES[x.dtype], _CODES[w.dtype], int(vec), grid,
+        runtime.stream_handle(x))
+    runtime.check_launch(lib, rc, "rms_norm")
     rms_norm_fwd.launches += 1
     return y.reshape(x.shape), rstd.reshape(x.shape[:-1])
 
@@ -165,36 +182,48 @@ rms_norm_fwd.launches = 0
 
 
 def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
-                 dy: torch.Tensor):
-    """Gradient of the fused RMS norm: (dx in dy.dtype, fp32 dW).
+                 dy: torch.Tensor, *, round_dw: bool = False):
+    """Gradient of the fused RMS norm: (dx in dy.dtype, fp32 dW; dW's values
+    rounded to x.dtype if `round_dw`). `rms_norm`'s backward always rounds;
+    unrounded sums exist for the kernel checks, which hold them to the plain
+    version tighter than one ulp of x.dtype.
 
-    A CUDA tensor goes to the Triton kernel (dx and one dW partial row per
-    program, the partials then summed in order), a CPU tensor to
-    `rms_norm_bwd_plain`; anything the kernel does not take raises."""
-    d = x.shape[-1]
+    A CUDA tensor goes to the kernel (dx and dW in one launch), a CPU
+    tensor to `rms_norm_bwd_plain`; anything the kernel does not take
+    raises."""
     if x.device.type == "cpu":
-        return rms_norm_bwd_plain(x, w, rstd, dy)
+        return rms_norm_bwd_plain(x, w, rstd, dy, round_dw=round_dw)
     _check("rms_norm_bwd", x, w, rstd, dy)
     if dy.shape != x.shape or dy.dtype not in _FLOAT_TYPES:
         raise ValueError(f"rms_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
                          f"for x {tuple(x.shape)}")
-    triton, _, kernel = _triton_kernels()
+    d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
     dy2 = dy.reshape(-1, d).contiguous()
     r = rstd.reshape(-1).float().contiguous()
-    n_rows = x2.shape[0]
-    block_d = triton.next_power_of_2(d)
-    rows = _rows_per_program(block_d)
-    per_prog = rows * max(1, triton.cdiv(triton.cdiv(n_rows, rows),
-                                         _BWD_PROGRAMS))
-    programs = max(1, triton.cdiv(n_rows, per_prog))
+    w = w.contiguous()
+    rows = x2.shape[0]
+    if r.numel() != rows:
+        raise ValueError(f"rms_norm_bwd: rstd {tuple(rstd.shape)} for x "
+                         f"{tuple(x.shape)}")
     dx = torch.empty_like(dy2)
-    partials = torch.empty((programs, d), dtype=torch.float32,
-                           device=x.device)
-    kernel[(programs,)](x2, w.contiguous(), r, dy2, dx, partials, n_rows, d,
-                        per_prog, ROWS=rows, BLOCK_D=block_d, num_warps=4)
+    vec = _vectors(d, x2, w, dy2, dx)
+    _, _, grid, cluster = plan(True, rows, d, x.dtype, dy.dtype, vec,
+                               x.device.index)
+    dw = torch.empty((d,), dtype=torch.float32, device=x.device)
+    part = torch.empty(((grid + grid // cluster) * d,), dtype=torch.float32,
+                       device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _lib()
+    rc = lib.ft5_rms_norm_bwd(
+        runtime.ptr(x2), runtime.ptr(w), runtime.ptr(r), runtime.ptr(dy2),
+        runtime.ptr(dx), runtime.ptr(dw), runtime.ptr(part),
+        runtime.ptr(_tickets(x.device, stream)), rows, d, _CODES[x.dtype],
+        _CODES[w.dtype], _CODES[dy.dtype], int(vec), grid, cluster,
+        int(round_dw), ctypes.c_void_p(stream))
+    runtime.check_launch(lib, rc, "rms_norm_bwd")
     rms_norm_bwd.launches += 1
-    return dx.reshape(dy.shape), partials.sum(dim=0)
+    return dx.reshape(dy.shape), dw
 
 
 rms_norm_bwd.launches = 0
@@ -210,11 +239,13 @@ class _RMSNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, rstd = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(x, w, rstd, dy)
+        dx, dw = rms_norm_bwd(x, w, rstd, dy, round_dw=True)
         return dx, dw.to(w.dtype), None
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """Fused RMS norm over the last axis, differentiable in x and w."""
+    """Fused RMS norm over the last axis, differentiable in x and w. w may
+    be stored in a wider type than x: the result is that of
+    `rms_norm(x, w.to(x.dtype))`, and w's gradient that cast's."""
     return _RMSNormFn.apply(x, w, eps)

@@ -469,6 +469,109 @@ def test_rms_norm_bwd_kernel(dev, shape, dtype):
     _close_to_max(dw, dw0, 1e-3)
 
 
+# the rms_norm kernels' forms: d 96-768 one warp a row (16-byte vectors, or
+# one element a lane at d 100 in 2-byte types), d 2048-8192 one CTA a row,
+# d 5001 and 40960 a CTA a row with chunks read again; rows from one CTA of
+# one warp a row (1, 8) to a persistent grid with backward clusters
+_RMS_SHAPES = ([(r, d) for d in (96, 100, 512, 768, 2048, 4096, 8192, 5001)
+                for r in (1, 8, 33, 4096)]
+               + [(65536, d) for d in (100, 512, 768, 8192)] + [(33, 40960)])
+_RMS_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _rms_inputs(rows, d, x_dtype, w_dtype=torch.float32, dy_dtype=None):
+    x = torch.randn((rows, d), device="cuda").to(x_dtype)
+    w = (1 + 0.1 * torch.randn(d, device="cuda")).to(w_dtype)
+    dy = torch.randn((rows, d), device="cuda").to(dy_dtype or x_dtype)
+    return x, w, dy
+
+
+def _rms_check(x, w, dy):
+    y, rstd = rmsnorm.rms_norm_fwd(x, w)
+    y0, rstd0 = rmsnorm.rms_norm_plain(x, w)
+    torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    dx, dw = rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+    dx0, dw0 = rmsnorm.rms_norm_bwd_plain(x, w, rstd, dy)
+    assert dx.dtype == dy.dtype and dw.dtype == torch.float32
+    tol = 1e-5 if dy.dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(dx.float(), dx0.float(), rtol=tol, atol=tol)
+    _close_to_max(dw, dw0, 1e-3)
+
+
+@pytest.mark.parametrize("shape", _RMS_SHAPES)
+def test_rms_norm_kernels_at_every_form(dev, shape):
+    """bf16 x and dy with the fp32 weight, as the model passes them."""
+    _rms_check(*_rms_inputs(*shape, torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", [(33, 100), (300, 512), (5, 2048)])
+@pytest.mark.parametrize("w_dtype", _RMS_TYPES)
+@pytest.mark.parametrize("x_dtype", _RMS_TYPES)
+def test_rms_norm_kernels_at_every_dtype_pair(dev, x_dtype, w_dtype, shape):
+    _rms_check(*_rms_inputs(*shape, x_dtype, w_dtype))
+
+
+@pytest.mark.parametrize("dy_dtype", _RMS_TYPES)
+@pytest.mark.parametrize("x_dtype", _RMS_TYPES)
+def test_rms_norm_bwd_kernel_takes_any_dy_dtype(dev, x_dtype, dy_dtype):
+    _rms_check(*_rms_inputs(300, 512, x_dtype, dy_dtype=dy_dtype))
+
+
+@pytest.mark.parametrize("shape", [(65536, 512), (8192, 512), (4096, 100),
+                                   (33, 8192), (33, 5001), (1, 512)])
+def test_rms_norm_kernels_bit_equal_over_runs(dev, shape):
+    """Every sum in a fixed order: y, rstd, dx and dW the same bits twice
+    (dW over the CTAs, the clusters and the last CTAs' merge)."""
+    x, w, dy = _rms_inputs(*shape, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        y, rstd = rmsnorm.rms_norm_fwd(x, w)
+        dx, dw = rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+        runs.append((y, rstd, dx, dw))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(8192, 512), (33, 100), (33, 2048)])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float16])
+def test_rms_norm_folded_cast_bit_equal(dev, x_dtype, shape):
+    """The fp32 weight rounded by the kernel as it loads it, and dW rounded
+    to x.dtype by the kernel as it writes it: the same bits as the cast
+    made first (`w.to(x.dtype)`, then the cast's gradient)."""
+    x, w, dy = _rms_inputs(*shape, x_dtype)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ya = rmsnorm.rms_norm(xa, wa)
+    yb = rmsnorm.rms_norm(xb, wb.to(x_dtype))
+    ya.backward(dy)
+    yb.backward(dy)
+    assert wa.grad.dtype == torch.float32
+    assert torch.equal(ya, yb)
+    assert torch.equal(xa.grad, xb.grad)
+    assert torch.equal(wa.grad, wb.grad)
+
+
+def test_rms_norm_kernels_refuse_what_they_do_not_take(dev):
+    x, w, dy = _rms_inputs(8, 512, torch.bfloat16)
+    _, rstd = rmsnorm.rms_norm_fwd(x, w)
+    with pytest.raises(TypeError):
+        rmsnorm.rms_norm_fwd(x.double(), w)
+    with pytest.raises(TypeError):
+        rmsnorm.rms_norm_bwd(x, w.to(torch.int32), rstd, dy)
+    with pytest.raises(ValueError):
+        rmsnorm.rms_norm_fwd(x, w[:-1])
+    with pytest.raises(ValueError):
+        rmsnorm.rms_norm_bwd(x, torch.ones((2, 256), device=dev), rstd, dy)
+    with pytest.raises(ValueError):
+        rmsnorm.rms_norm_fwd(x, w.cpu())
+    with pytest.raises(ValueError):
+        rmsnorm.rms_norm_bwd(x, w, rstd, dy[:4])
+    with pytest.raises(ValueError):
+        rmsnorm.rms_norm_bwd(x, w, rstd[:4], dy)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("m_len,n_len,d", [(77, 77, 32), (100, 300, 64),
                                            (300, 100, 64), (256, 1024, 64),

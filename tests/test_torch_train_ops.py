@@ -75,6 +75,32 @@ def test_rms_norm_backward_matches_jax(dtype, shape):
     _close(wt.grad, dw_j, tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_folded_cast_matches_jax(dtype):
+    """The model passes its fp32 weight as stored and the kernel rounds it
+    to x.dtype: y, dx and the fp32 parameter's gradient against `jax.vjp`
+    of the JAX model's cast followed by its kernel. 37 rows: not a multiple
+    of the JAX kernel's row block."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((37, 128)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    dy = rng.standard_normal((37, 128)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    y_j, vjp = jax.vjp(lambda a, b: jrms.rms_norm(a, b.astype(a.dtype), 1e-6),
+                       jnp.asarray(x, jdt), jnp.asarray(w))
+    dx_j, dw_j = vjp(jnp.asarray(dy, jdt))
+    xt, wt = _t(x, tdt, True), _t(w, torch.float32, True)
+    y = rmsnorm.rms_norm(xt, wt, 1e-6)
+    y.backward(_t(dy, tdt))
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert y.dtype == tdt and wt.grad.dtype == torch.float32
+    assert dw_j.dtype == jnp.float32
+    _close(y, y_j, tol)
+    _close(xt.grad, dx_j, tol)
+    _close(wt.grad, dw_j, tol)
+
+
 # ---------------------------------------------------------------------------
 # attention backward
 # ---------------------------------------------------------------------------
