@@ -10,8 +10,8 @@ of JAX. In order:
 2. builds the CUDA kernels from `flasht5_tpu_torch/csrc/` (one `nvcc` per
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the full-width serving engine, train step, pretraining driver
-   and scoring path give it, and times
+   shapes the full-width serving engine, generation, train step,
+   pretraining driver and scoring path give it, and times
    the kernel, the plain version and, where one exists, the one PyTorch
    call that computes the same function (`library_ms`, a yardstick the port
    never calls; for the fused lm_head+CE kernels the two calls F.linear
@@ -42,22 +42,36 @@ of JAX. In order:
    without `use_fused_lm_head_ce`) and on `pallas` with `use_masking`, and
    that planted faults in what the backward kernels are given move the
    gradients beyond the tolerance;
-6. times a full-width FAT5-small decode step (seeded random weights, int8
+6. checks on a tiny f32 model (d_kv 64) that greedy `generate`,
+   `beam_generate` and `speculative_generate` on the card give the CPU's
+   tokens and the decode steps its logits within a stated limit, that
+   sampled `generate` gives one stream from one seed and the greedy one
+   at top_k=1, and that two planted faults (the self cache written one
+   position late; the decode kernel reading one position too few) move
+   the logits beyond the limit;
+7. times a full-width FAT5-small decode step (seeded random weights, int8
    weights and KV cache, the decode kernel) by wall clock and by device
    time, counts its `quant_matmul` launches by shape, and lists the kernels
    one decode window launches (`torch.profiler`; `quant_matmul`'s decode
    form, the decode attention and the `rms_norm` forward must be among
    them, as in the paged window below);
-7. serves 16 requests of 512 random tokens with that engine, three times,
+8. serves 16 requests of 512 random tokens with that engine, three times,
    with every launch count set to 0 just before each run and read just
    after; each serving kernel must have launched in each;
-8. serves 16 requests of 512 random tokens and up to 256 new ones with the
+9. serves 16 requests of 512 random tokens and up to 256 new ones with the
    paged engine at full width (int8, pages of 64, sync 64): a warm run read
    window by window (wall, launches, one profiled window), then three runs
    interleaved with the slot engine at the same settings, each with the
    launch counts set to 0 just before and read just after; each paged-path
    kernel must have launched in each paged run;
-9. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
+10. generates at full width (FAT5-small, int8 weights, bf16 caches, 8
+   inputs of 512 random tokens, max_length 64): greedy `generate` with
+   every launch count set to 0 just before it and read just after (each
+   generation kernel must have launched), a decode step's wall, device
+   time and kernels, then sampled `generate`, `beam_generate` (2 inputs,
+   4 beams) and `speculative_generate` (window 4); each with its wall,
+   tokens/s and launches a decode step;
+11. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
    256) tokens a step, one seeded batch repeated), beside a second trainer
    with `use_fused_lm_head_ce`: 3 warm-up steps each, then three loops of
    10 steps each, the two in turns, each with the launch counts set to 0
@@ -68,7 +82,7 @@ of JAX. In order:
    attention backward's tensor-core bodies and the `rms_norm` kernels
    must be among them, and the fused step's GEMMs and TMA + wgmma
    forward) and the optimizer's launches;
-10. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
+12. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
    12 heads, vocabulary 32128: the fused lm_head+CE kernels in chunks of
    d), seeded weights written as FAT5-named safetensors by the port's
    exporter to a temporary directory, through `quality.main` on the card:
@@ -77,7 +91,7 @@ of JAX. In order:
    must match the CPU's (the plain versions) within a stated limit, and a
    planted fault must not; one fused eval's profiled kernels must include
    the TMA + wgmma forward;
-11. runs the pretraining driver (`train.cli.run`) on
+13. runs the pretraining driver (`train.cli.run`) on
    `configs/fr/fat5-fr-small.yaml` at full width, batch 64 x (1024 + 256),
    `pallas` attention on the three bias kernels: 4 steps with a checkpoint,
    then a second run that resumes from it and takes steps 5-8 (a stub
@@ -88,9 +102,9 @@ of JAX. In order:
    the collator's time, a step's wall and device time (its profiled
    kernels' sum), its kernels (the attention backward's tensor-core bodies
    and the `rms_norm` kernels must be among them), peak memory;
-12. prints JSON lines of the serving, paged serving, training, scoring and
-   pretraining results and of the kernels (each with its launches in each
-   path that runs it, and their sum), the
+14. prints JSON lines of the serving, paged serving, generation, training,
+   scoring and pretraining results and of the kernels (each with its
+   launches in each path that runs it, and their sum), the
    `nvidia-smi` name and power limit line, and, last,
    {"ok": true, "device": {...}}.
 
@@ -215,29 +229,35 @@ def check_kernels(dev):
     cases = []
 
     # -- A. rms_norm (CUDA): every pre-norm and final norm, the fp32 weight
-    # as the model passes it (the kernel rounds it to bf16 as it loads it)
-    def last_row_from_first(x, w):
-        """A planted fault: the last row of x taken from the first."""
-        x = x.clone()
-        x[-1] = x[0]
-        return rmsnorm.rms_norm_fwd(x, w, 1e-6)
-
-    def rms_case(rows, label, main=False):
+    # as the model passes it (`cast_w`: the kernel rounds it to bf16 as it
+    # loads it); and the op's own form, the fp32 weight unrounded
+    def rms_case(rows, label, main=False, cast_w=True):
         d = 512
+
+        def fwd(x, w):
+            return rmsnorm.rms_norm_fwd(x, w, 1e-6, cast_w=cast_w)
+
+        def last_row_from_first(x, w):
+            """A planted fault: the last row of x taken from the first."""
+            x = x.clone()
+            x[-1] = x[0]
+            return fwd(x, w)
 
         def make():
             x = randn(rows, d)
             w = 1 + 0.1 * randn(d, dtype=torch.float32)
-            return (x, w), (x, w.to(torch.bfloat16))
+            return (x, w), (x, w.to(torch.bfloat16) if cast_w else w)
         (x, w), _ = make()
         cases.append(dict(
             name="rms_norm", label=label, make=make, outputs=2,
-            in_bytes=nbytes(x, w),
-            kernel=lambda x, w: rmsnorm.rms_norm_fwd(x, w, 1e-6),
-            plain=lambda x, w: rmsnorm.rms_norm_plain(x, w, 1e-6),
+            in_bytes=nbytes(x, w), kernel=fwd,
+            plain=lambda x, w: rmsnorm.rms_norm_plain(x, w, 1e-6,
+                                                      cast_w=cast_w),
             library=((lambda x, w: F.rms_norm(x, (d,), w, 1e-6))
                      if hasattr(F, "rms_norm") else None),
-            library_note="F.rms_norm, the weight cast to bf16 beforehand",
+            library_note=("F.rms_norm, the weight cast to bf16 beforehand"
+                          if cast_w else "F.rms_norm, the fp32 weight as "
+                          "it is (PyTorch's unfused mixed-dtype form)"),
             atol=1e-6, rtol=BF16_ULP, bytes=nbytes(x, w) + nbytes(x)
             + rows * 4, ops=4 * rows * d, ops_type="f32", main=main,
             faults=[("the last row of x taken from the first",
@@ -250,6 +270,8 @@ def check_kernels(dev):
              "bf16, w f32")
     rms_case(PRETRAIN_B * TRAIN_ENC, "pretraining encoder x (65536, 512) "
              "bf16, w f32")
+    rms_case(8 * 512, "op form: x (4096, 512) bf16, w f32 unrounded",
+             cast_w=False)
 
     # -- B. flash_attention_rpe forward (CUDA): encoder self-attention ----
     b, h, s, d = 8, 8, 512, 64
@@ -329,30 +351,45 @@ def check_kernels(dev):
     qmm_case(4096, 2048, 512, "prefill wo x (4096, 2048) @ int8 (2048, 512), "
              "scale groups of 64 (scoring's g64)", group_size=64)
 
-    # -- D. decode_attention (CUDA): decoder self- and cross-attention ----
-    def dec_case(L, lengths, with_bias, label, main=False):
+    # -- D. decode_attention (CUDA): decoder self- and cross-attention, on
+    # the slot engine's int8 caches and on generation's caches in the
+    # activations' dtype (bf16 at FAT5-small; f32 on the tiny f32 model)
+    def dec_case(L, lengths, with_bias, label, main=False, kv="int8"):
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         valid = (torch.arange(L, device=dev)[None, :]
                  < lens[:, None])[:, None, None, :]
+        f32 = kv == torch.float32
+        q_dtype = torch.float32 if f32 else torch.bfloat16
 
         def make():
-            kq, ks = quant.quantize_kv(randn(8, 8, L, 64, dtype=torch.float32))
-            vq, vs = quant.quantize_kv(randn(8, 8, L, 64, dtype=torch.float32))
+            if kv == "int8":
+                kq, ks = quant.quantize_kv(randn(8, 8, L, 64,
+                                                 dtype=torch.float32))
+                vq, vs = quant.quantize_kv(randn(8, 8, L, 64,
+                                                 dtype=torch.float32))
+                k_lib = quant.dequantize_kv(kq, ks, torch.bfloat16)
+                v_lib = quant.dequantize_kv(vq, vs, torch.bfloat16)
+            else:
+                kq, vq = randn(8, 8, L, 64, dtype=kv), randn(8, 8, L, 64,
+                                                              dtype=kv)
+                ks = vs = None
+                k_lib, v_lib = kq, vq
             bias = (randn(8, 8, L, dtype=torch.float32) if with_bias
                     else None)
-            q = randn(8, 8, 64)
-            # the library call: SDPA over the same cache in bf16, with the
-            # lengths and the bias folded into one additive mask
+            q = randn(8, 8, 64, dtype=q_dtype)
+            # the library call: SDPA over the same cache in the cache's
+            # float type, with the lengths and the bias folded into one
+            # additive mask
             mask = torch.where(valid, 0.0, -1e30)
             if bias is not None:
                 mask = mask + bias[:, :, None, :]
-            lib = (q[:, :, None], quant.dequantize_kv(kq, ks, torch.bfloat16),
-                   quant.dequantize_kv(vq, vs, torch.bfloat16),
-                   mask.to(torch.bfloat16))
+            lib = (q[:, :, None], k_lib, v_lib, mask.to(k_lib.dtype))
             return (q, kq, vq, ks, vs, lens, bias), lib
         (q, kq, vq, ks, vs, _, bias), lib = make()
         used = sum(min(n, L) for n in lengths)     # positions read
-        per_pos = 8 * (2 * 64 + 2 * 4 + (4 if with_bias else 0))
+        per_pos = 8 * (2 * 64 * kq.element_size()
+                       + (2 * 4 if ks is not None else 0)
+                       + (4 if with_bias else 0))
         # the last cluster rank of the plan that holds positions
         warps = decode_attention.decode_plan(8, 8, L)[1]
         first = max(a for a, _ in decode_attention.decode_pieces(
@@ -377,10 +414,13 @@ def check_kernels(dev):
                     q, kq, vq, ks, vs, lengths=lens, bias=bias),
             library=lambda q, k, v, mask: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=1.0),
-            atol=4e-3, rtol=BF16_ULP,
+            atol=1e-4 if f32 else 4e-3, rtol=1e-4 if f32 else BF16_ULP,
             bytes=used * per_pos + nbytes(q, lens) + nbytes(q),
-            ops=4 * 8 * used * 64, ops_type="bf16", main=main,
-            why="bf16 output: one bf16 ulp, and P from another exp"))
+            ops=4 * 8 * used * 64, ops_type="f32" if f32 else "bf16",
+            main=main,
+            why=("f32 throughout: sums in another order and another exp"
+                 if f32 else "bf16 output: one bf16 ulp, and P from "
+                 "another exp")))
 
     dec_case(512, [512] * 8, False,
              "decode cross-attention q (8, 8, 64) bf16, int8 K/V "
@@ -388,6 +428,19 @@ def check_kernels(dev):
     dec_case(66, [1, 9, 17, 25, 33, 41, 49, 57], True,
              "decode self-attention q (8, 8, 64) bf16, int8 K/V "
              "(8, 8, 66, 64), bias, lengths 1..57")
+    # generation (`inference.generate` at max_length 64: a self cache of 64
+    # positions)
+    dec_case(512, [512] * 8, False,
+             "generation cross-attention q (8, 8, 64) bf16, bf16 K/V "
+             "(8, 8, 512, 64), lengths 512", kv=torch.bfloat16)
+    dec_case(GEN_MAX_LENGTH, [1, 9, 17, 25, 33, 41, 49, 57], True,
+             f"generation self-attention q (8, 8, 64) bf16, bf16 K/V "
+             f"(8, 8, {GEN_MAX_LENGTH}, 64), bias, lengths 1..57",
+             kv=torch.bfloat16)
+    dec_case(GEN_MAX_LENGTH, [1, 9, 17, 25, 33, 41, 49, 57], True,
+             f"generation self-attention on an f32 model: q (8, 8, 64) f32, "
+             f"f32 K/V (8, 8, {GEN_MAX_LENGTH}, 64), bias, lengths 1..57",
+             kv=torch.float32)
 
     return run_checks(cases)
 
@@ -1199,6 +1252,319 @@ def run_paged_engine(dev):
 
 
 # ---------------------------------------------------------------------------
+# generation: the decode state, generate, beam search, speculation
+# ---------------------------------------------------------------------------
+
+GEN_MAX_LENGTH = 64      # the generation phase's max_length (self cache 64)
+GEN_LOGIT_TOL = 1e-4     # the tiny f32 model's decode-step logits
+
+
+def _generation_faults():
+    """Faults in what the generation path's kernel is given: (name, context
+    manager)."""
+    from flasht5_tpu_torch.inference import kv_cache
+    real = kv_cache.decode_attention
+
+    def late_write(cache, new, t):
+        n = max(0, min(new.shape[2], cache.shape[2] - t - 1))
+        cache[:, :, t + 1:t + 1 + n] = new[:, :, :n]
+
+    def short_lengths(q, k, v, k_scales=None, v_scales=None, lengths=None,
+                      **kw):
+        return real(q, k, v, k_scales, v_scales, (lengths - 1).clamp(min=0),
+                    **kw)
+
+    return [("the self cache written one position late",
+             _patched(kv_cache, "_write", late_write)),
+            ("the decode kernel reading one position too few",
+             _patched(kv_cache, "decode_attention", short_lengths))]
+
+
+def _returned_tokens(cfg, out):
+    """Tokens each row of a (B, max_length + 1) generation returns: the
+    positions after the start token up to its first EOS; their sum."""
+    is_eos = out[:, 1:] == cfg.eos_token_id
+    first = torch.where(is_eos.any(dim=-1), is_eos.int().argmax(dim=-1),
+                        out.shape[1] - 2)
+    return int((first + 1).sum())
+
+
+def _check_generated(cfg, out, rows, max_length):
+    """The generation contract: (rows, max_length + 1) in-vocabulary ids,
+    the start token 0 first, one EOS a row and zeros after it."""
+    out = out.cpu()
+    eos = cfg.eos_token_id
+    if (out.shape != (rows, max_length + 1) or (out[:, 0] != 0).any()
+            or (out < 0).any() or (out >= cfg.vocab_size).any()
+            or ((out == eos).sum(dim=-1) != 1).any()):
+        raise AssertionError(f"bad generation {out.shape}: {out}")
+    first = (out == eos).int().argmax(dim=-1)
+    pos = torch.arange(max_length + 1)[None, :]
+    if (out[pos > first[:, None]] != 0).any():
+        raise AssertionError("tokens after a row's EOS")
+
+
+def check_small_generation(dev):
+    """A tiny f32 model (d_kv 64) through the generation entry points on the
+    card (the kernels: `decode_attention` on f32 caches at every step) and
+    on the CPU (their plain versions). Everything is f32, so the two differ
+    in summation order and exp only: (1) the teacher-forced decode steps'
+    logits agree within GEN_LOGIT_TOL, and greedy `generate`, `beam_generate`
+    (4 beams) and `speculative_generate` (window 4) give the CPU's token
+    streams (the smallest top-two logit margin of the CPU's greedy steps
+    says how far that is from a tie); (2) sampled `generate` gives the same
+    stream twice from one seed, and with top_k=1 the greedy stream; (3)
+    each planted fault moves the logits beyond GEN_LOGIT_TOL."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.inference import (beam_generate, decode_step,
+                                             generate, init_decode_state,
+                                             speculative_generate)
+    from flasht5_tpu_torch.models import t5
+
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=64, num_heads=4,
+                        d_ff=256, num_layers=2, num_decoder_layers=2,
+                        dropout_rate=0.0, dtype="float32",
+                        attention_type="pallas_rpe",
+                        use_fused_layernorm=True)
+    cpu_params = t5.init_params(cfg, seed=5, device="cpu")
+    gpu_params = _to(cpu_params, dev)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        2, 512, size=(4, 24)))
+    max_len = 16
+
+    def streams(params, device):
+        x = ids.to(device)
+        return dict(
+            greedy=generate(cfg, params, x, max_length=max_len),
+            beam=beam_generate(cfg, params, x, num_beams=4,
+                               max_length=max_len)[0],
+            speculative=speculative_generate(cfg, params, x,
+                                             max_length=max_len, window=4))
+
+    want = {k: v.tolist() for k, v in streams(cpu_params, "cpu").items()}
+
+    def forced_logits(params, device):
+        """Each decode step's logits along the CPU's greedy tokens."""
+        enc = t5.encode(cfg, params, ids.to(device))
+        state = init_decode_state(cfg, params, enc, max_len)
+        toks = torch.tensor(want["greedy"], device=device)
+        out = []
+        for t in range(max_len):
+            logits, state = decode_step(cfg, params, state, toks[:, t])
+            out.append(logits.float().cpu())
+        return torch.stack(out)
+
+    cpu_logits = forced_logits(cpu_params, "cpu")
+    top2 = cpu_logits.topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    gap = float((forced_logits(gpu_params, dev) - cpu_logits).abs().max())
+    got = {k: v.tolist() for k, v in streams(gpu_params, dev).items()}
+    if not gap <= GEN_LOGIT_TOL:
+        raise AssertionError(f"tiny generation logits: card vs cpu {gap} > "
+                             f"{GEN_LOGIT_TOL}")
+    for key in want:
+        if got[key] != want[key]:
+            raise AssertionError(f"tiny generation ({key}): card "
+                                 f"{got[key]} != cpu {want[key]}")
+    if want["speculative"] != want["greedy"]:
+        raise AssertionError("speculative tokens differ from greedy")
+
+    def sampled(**kw):
+        return generate(cfg, gpu_params, ids.to(dev), max_length=max_len,
+                        temperature=1.0, generator=torch.Generator(
+                            device=dev).manual_seed(7), **kw).tolist()
+    first, second = sampled(top_k=20, top_p=0.9), sampled(top_k=20,
+                                                         top_p=0.9)
+    if first != second:
+        raise AssertionError(f"sampled generate from one seed: {first} != "
+                             f"{second}")
+    if sampled(top_k=1) != got["greedy"]:
+        raise AssertionError("sampled generate at top_k=1 is not greedy")
+    print(f"small-generation: decode-step logits card vs cpu max abs diff "
+          f"{gap} (tol {GEN_LOGIT_TOL}); greedy, beam (4) and speculative "
+          f"(window 4) tokens == cpu for {ids.shape[0]} rows of "
+          f"{max_len}; smallest top-two margin {margin}; sampled streams "
+          f"bit-equal from one seed; top_k=1 == greedy", flush=True)
+    for name, fault in _generation_faults():
+        with fault:
+            fault_gap = float((forced_logits(gpu_params, dev)
+                               - cpu_logits).abs().max())
+            moved = streams(gpu_params, dev)["greedy"].tolist() != want[
+                "greedy"]
+        print(f"small-generation: planted fault, {name}: logits card vs "
+              f"cpu max abs diff {fault_gap} (tol {GEN_LOGIT_TOL}); greedy "
+              f"tokens {'moved' if moved else 'unchanged'}", flush=True)
+        if not fault_gap > GEN_LOGIT_TOL:
+            raise AssertionError(f"planted fault ({name}) moves the logits "
+                                 f"by {fault_gap}, within the tolerance")
+
+
+def run_generation(dev):
+    """The generation path at full width: FAT5-small with int8 weights
+    (seeded), 8 inputs of 512 random tokens, max_length 64, through the
+    entry points a user calls: greedy `generate` (every launch count set to
+    0 just before it and read just after: the path's run), sampled
+    `generate`, `beam_generate` (2 inputs, 4 beams) and
+    `speculative_generate` (window 4). Also a decode step's launches by
+    kernel, its wall and its device time (one profiled step) and the
+    kernels of a profiled short `generate`."""
+    from flasht5_tpu_torch import flagship_config, ops
+    from flasht5_tpu_torch.inference import (beam_generate, decode_step,
+                                             decode_window_step, generate,
+                                             init_decode_state,
+                                             speculative_generate)
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.quantize import quantize_params
+
+    cfg = flagship_config()
+    params = quantize_params(t5.init_params(cfg, seed=0, device=dev), "int8")
+    b, enc_len, max_len = 8, 512, GEN_MAX_LENGTH
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        2, cfg.vocab_size, size=(b, enc_len))).to(dev)
+    generate(cfg, params, ids, max_length=2)          # plans and warm-up
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(fn):
+        """fn's output, wall seconds and launches, every count set to 0
+        just before it and read just after."""
+        ops.reset_launch_counts()
+        out, wall = timed(fn)
+        return out, wall, ops.launch_counts()
+
+    # the set-up every entry point runs once: encode and the cross K/V
+    _, _, setup = counted(lambda: init_decode_state(
+        cfg, params, t5.encode(cfg, params, ids), max_len))
+    layers = cfg.num_decoder_layers
+
+    def per_step(launches, steps):
+        """Launches of one decode step (or verify window), by kernel."""
+        return {name: (n - setup[name]) / steps
+                for name, n in launches.items() if n - setup[name]}
+
+    result = {}
+    greedy, wall, launches = counted(lambda: generate(cfg, params, ids,
+                                                      max_length=max_len))
+    missing = [name for name in GENERATION if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched while generating: "
+                             f"{missing}")
+    _check_generated(cfg, greedy, b, max_len)
+    steps = launches["decode_attention"] // (2 * layers)
+    tokens = _returned_tokens(cfg, greedy)
+    result["greedy"] = dict(wall_s=wall, tokens=tokens,
+                            tokens_per_s=tokens / wall, decode_steps=steps,
+                            launches=launches,
+                            launches_per_step=per_step(launches, steps))
+    print(f"generation: FAT5-small int8 weights, bf16 caches, {b} inputs x "
+          f"{enc_len} tokens, max_length {max_len}: greedy generate "
+          f"{json.dumps(result['greedy'])}", flush=True)
+
+    # a decode step's wall (8 steps) and one profiled step's kernels
+    state = init_decode_state(cfg, params, t5.encode(cfg, params, ids),
+                              max_len)
+    tok = greedy[:, 1]
+    _, step_wall = timed(lambda: [decode_step(cfg, params,
+                                              state._replace(t=8 + i), tok)
+                                  for i in range(8)])
+    by_name = _kernels_by_name(lambda: decode_step(
+        cfg, params, state._replace(t=16), tok))
+    step = dict(wall_ms=step_wall * 1e3 / 8,
+                device_ms=sum(t for t, _ in by_name.values()),
+                kernels=sum(n for _, n in by_name.values()))
+    step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+    # as the slot engine's "decode step" line reads it: first kernel's start
+    # to last kernel's end, the step queued behind a sleep so the device
+    # never waits for the host (kernels and the gaps between them)
+    spans = []
+    for i in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * step["wall_ms"]
+                                                  + 5.0)))
+        start.record()
+        decode_step(cfg, params, state._replace(t=17 + i), tok)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    step["queued_device_ms"] = sum(spans) / 3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"generation decode step ({b} rows, cross length {enc_len}, "
+          f"position 16): {json.dumps(step)} (wall: mean of 8 steps; "
+          f"device: one profiled step's kernels; queued: mean of 3 steps "
+          f"queued behind a sleep); top kernels " + json.dumps(
+              [{"name": name[:80], "ms": t, "launches": n}
+               for name, (t, n) in top]), flush=True)
+    # a speculative verify window (Q = 4): its attention is plain PyTorch
+    w_in = torch.cat([tok[:, None], greedy[:, 2:5]], dim=1)
+    _, win_wall = timed(lambda: [decode_window_step(
+        cfg, params, state._replace(t=24 + 4 * i), w_in) for i in range(4)])
+    win_kernels = _kernels_by_name(lambda: decode_window_step(
+        cfg, params, state._replace(t=40), w_in))
+    window = dict(wall_ms=win_wall * 1e3 / 4,
+                  device_ms=sum(t for t, _ in win_kernels.values()),
+                  kernels=sum(n for _, n in win_kernels.values()))
+    top = sorted(win_kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"generation verify window (Q 4, {b} rows): {json.dumps(window)} "
+          f"(wall: mean of 4 windows; device: one profiled window's "
+          f"kernels); top kernels " + json.dumps(
+              [{"name": name[:80], "ms": t, "launches": n}
+               for name, (t, n) in top]), flush=True)
+    result["verify_window"] = window
+    _require_kernels(_kernels_by_name(lambda: generate(
+        cfg, params, ids, max_length=4)), (DECODE_ATTN_BODY, RPE_FWD_BODY,
+                                           RMS_FWD_BODY, QMM_DECODE_BODY),
+        "one generate (max_length 4)")
+    result["decode_step"] = step
+
+    sampled, wall, launches = counted(lambda: generate(
+        cfg, params, ids, max_length=max_len, temperature=0.8, top_k=50,
+        top_p=0.95, generator=torch.Generator(device=dev).manual_seed(0)))
+    _check_generated(cfg, sampled, b, max_len)
+    steps = launches["decode_attention"] // (2 * layers)
+    tokens = _returned_tokens(cfg, sampled)
+    result["sampled"] = dict(wall_s=wall, tokens=tokens,
+                             tokens_per_s=tokens / wall, temperature=0.8,
+                             top_k=50, top_p=0.95, decode_steps=steps,
+                             launches_per_step=per_step(launches, steps))
+
+    (beams, scores), wall, launches = counted(lambda: beam_generate(
+        cfg, params, ids[:2], num_beams=4, max_length=max_len))
+    _check_generated(cfg, beams, 2, max_len)
+    if not torch.isfinite(scores).all():
+        raise AssertionError(f"beam scores {scores}")
+    steps = launches["decode_attention"] // (2 * layers)
+    tokens = _returned_tokens(cfg, beams)
+    result["beam"] = dict(wall_s=wall, tokens=tokens,
+                          tokens_per_s=tokens / wall, rows=2, num_beams=4,
+                          scores=scores.tolist(), decode_steps=steps,
+                          launches_per_step=per_step(launches, steps))
+
+    (spec, stats), wall, launches = counted(lambda: speculative_generate(
+        cfg, params, ids, max_length=max_len, window=4, return_stats=True))
+    _check_generated(cfg, spec, b, max_len)
+    tokens = _returned_tokens(cfg, spec)
+    result["speculative"] = dict(
+        wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall, window=4,
+        windows=stats["windows"],
+        tokens_per_window=stats["generated"] / stats["windows"],
+        launches_per_window=per_step(launches, stats["windows"]),
+        # bf16: a near-tied argmax may flip between the window's Q-row and
+        # the single step's one-row matmuls; printed, not gated
+        agreement_with_greedy=float((spec[:, 1:] == greedy[:, 1:]).float()
+                                    .mean()))
+    for key in ("sampled", "beam", "speculative"):
+        print(f"generation ({key}): {json.dumps(result[key])}", flush=True)
+    return result["greedy"]["launches"], result
+
+
+# ---------------------------------------------------------------------------
 # training: kernel checks at the train step's shapes
 # ---------------------------------------------------------------------------
 
@@ -1224,46 +1590,53 @@ def check_training_kernels(dev):
 
     cases = []
 
-    # -- rms_norm backward (CUDA) ----------------------------------------
-    def rstd_row_doubled(x, w, rstd, dy):
-        """A planted fault: the last row's rstd doubled."""
-        rstd = rstd.clone()
-        rstd[-1] *= 2
-        return rmsnorm.rms_norm_bwd(x, w, rstd, dy)
-
-    def last_cta_dy_zeroed(x, w, rstd, dy):
-        """A planted fault: dy zeroed on the rows of the plan's last CTA,
-        as dW would come out had the merge left that CTA out."""
-        rows, d = x.shape
-        cpl, warps, grid, _ = rmsnorm.plan(
-            True, rows, d, x.dtype, dy.dtype,
-            rmsnorm._vectors(d, x, w, dy), x.device.index)
-        r = torch.arange(rows, device=x.device)
-        dy = torch.where(((r // (warps if cpl else 1)) % grid
-                          == grid - 1)[:, None], 0.0, dy).to(dy.dtype)
-        return rmsnorm.rms_norm_bwd(x, w, rstd, dy)
-
-    def rms_bwd_case(rows, label, main=False):
+    # -- rms_norm backward (CUDA): the model's form (`cast_w`: w rounded to
+    # bf16 on load, dW on store) and the op's (w and dW in fp32) ----------
+    def rms_bwd_case(rows, label, main=False, cast_w=True):
         d = 512
+
+        def bwd(x, w, rstd, dy):
+            return rmsnorm.rms_norm_bwd(x, w, rstd, dy, cast_w=cast_w)
+
+        def rstd_row_doubled(x, w, rstd, dy):
+            """A planted fault: the last row's rstd doubled."""
+            rstd = rstd.clone()
+            rstd[-1] *= 2
+            return bwd(x, w, rstd, dy)
+
+        def last_cta_dy_zeroed(x, w, rstd, dy):
+            """A planted fault: dy zeroed on the rows of the plan's last
+            CTA, as dW would come out had the merge left that CTA out."""
+            rows, d = x.shape
+            cpl, warps, grid, _ = rmsnorm.plan(
+                True, rows, d, x.dtype, dy.dtype,
+                rmsnorm._vectors(d, x, w, dy), x.device.index)
+            r = torch.arange(rows, device=x.device)
+            dy = torch.where(((r // (warps if cpl else 1)) % grid
+                              == grid - 1)[:, None], 0.0, dy).to(dy.dtype)
+            return bwd(x, w, rstd, dy)
 
         def make():
             x = randn(rows, d)
             w = 1 + 0.1 * randn(d, dtype=torch.float32)
             dy = randn(rows, d)
-            _, rstd = rmsnorm.rms_norm_plain(x, w)
+            _, rstd = rmsnorm.rms_norm_plain(x, w, cast_w=cast_w)
             xl = x.detach().requires_grad_(True)
-            wl = w.to(torch.bfloat16).requires_grad_(True)
+            wl = (w.to(torch.bfloat16) if cast_w else w).requires_grad_(True)
             y = F.rms_norm(xl, (d,), wl, 1e-6)
             return (x, w, rstd, dy), (y, xl, wl, dy)
         (x, w, rstd, dy), _ = make()
         cases.append(dict(
             name="rms_norm_bwd", label=label, make=make, outputs=2,
-            in_bytes=3 * nbytes(x),
-            kernel=rmsnorm.rms_norm_bwd, plain=rmsnorm.rms_norm_bwd_plain,
+            in_bytes=3 * nbytes(x), kernel=bwd,
+            plain=lambda x, w, rstd, dy: rmsnorm.rms_norm_bwd_plain(
+                x, w, rstd, dy, cast_w=cast_w),
             library=lambda y, x, w, dy: torch.autograd.grad(
                 y, (x, w), dy, retain_graph=True),
-            library_note="autograd backward of F.rms_norm, the weight "
-                         "cast to bf16 beforehand",
+            library_note=("autograd backward of F.rms_norm, the weight "
+                          "cast to bf16 beforehand" if cast_w else
+                          "autograd backward of F.rms_norm, the fp32 "
+                          "weight as it is"),
             atol=1e-3, rtol=BF16_ULP, scaled=True,
             bytes=nbytes(x, dy, rstd, w) + nbytes(x) + d * 4,
             ops=8 * rows * d, ops_type="f32", main=main,
@@ -1280,6 +1653,8 @@ def check_training_kernels(dev):
                  "(16384, 512) bf16, w f32")
     rms_bwd_case(PRETRAIN_B * TRAIN_ENC, "pretraining encoder x, dy "
                  "(65536, 512) bf16, w f32")
+    rms_bwd_case(TRAIN_B * TRAIN_ENC, "op form: x, dy (8192, 512) bf16, "
+                 "w f32 unrounded, dW f32", cast_w=False)
 
     # -- attention backward (CUDA) and the forward without a table -------
     def attn_case(m_len, n_len, causal, table, label, main=False):
@@ -2067,6 +2442,9 @@ PAGED_ATTN_BODY = "paged_attn_kernel"
 # backward in each train and pretrain step
 RMS_FWD_BODY = "rms_fwd_warp_kernel"
 RMS_BWD_BODY = "rms_bwd_warp_kernel"
+# the attention forward on the tensor cores (attention.cuh), which the
+# bf16 encoder runs
+RPE_FWD_BODY = "fwd_mma_kernel"
 
 
 def _require_kernels(by_name, bodies, what):
@@ -2637,6 +3015,9 @@ SERVING = ("rms_norm", "flash_attention_rpe", "quant_matmul",
            "decode_attention")
 PAGED = ("rms_norm", "flash_attention_rpe", "quant_matmul",
          "paged_decode_attention")
+# greedy `inference.generate`: the encoder, then single-query decode steps
+GENERATION = ("rms_norm", "flash_attention_rpe", "quant_matmul",
+              "decode_attention")
 TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
             "flash_attention_bwd", "cross_entropy_fwd", "cross_entropy_bwd")
 # the pretraining driver on `pallas`: the bias kernels for self-attention,
@@ -2686,8 +3067,11 @@ def main() -> int:
     check_small_reference(dev)
     check_small_paged(dev)
     check_small_training(dev)
+    check_small_generation(dev)
     served_launches, served = run_engine(dev)
     paged_launches, paged = run_paged_engine(dev)
+    torch.cuda.empty_cache()
+    gen_launches, generated = run_generation(dev)
     torch.cuda.empty_cache()
     trained_launches, fused_launches, trained = run_training(dev)
     torch.cuda.empty_cache()
@@ -2706,6 +3090,8 @@ def main() -> int:
             by_path["serving"] = served_launches[name]
         if name in PAGED:
             by_path["paged"] = paged_launches[name]
+        if name in GENERATION:
+            by_path["generation"] = gen_launches[name]
         if name in TRAINING:
             by_path["training"] = trained_launches[name]
         if name in PRETRAIN:
@@ -2717,7 +3103,8 @@ def main() -> int:
             by_path["fused_training"] = fused_launches[name]
         # launches_by_path: each path's median run (the slot engine's, the
         # paged engine's, the training loops', unfused and fused), the
-        # scoring's one run, or, for the pretraining driver, its two runs,
+        # scoring's one run, greedy generation's one run, or, for the
+        # pretraining driver, its two runs,
         # each counted from 0 just before it;
         # launches: their sum over the paths that run the kernel
         kernels.append(dict(
@@ -2729,6 +3116,7 @@ def main() -> int:
             library_ms=main_case["library_ms"], shape=main_case["shape"]))
     print(json.dumps({"engine": served}))
     print(json.dumps({"paged_engine": paged}))
+    print(json.dumps({"generation": generated}))
     print(json.dumps({"training": trained}))
     print(json.dumps({"scoring": scored}))
     print(json.dumps({"scoring_flan_base": wide_scored}))
@@ -2844,11 +3232,16 @@ def probe(dev) -> int:
             return x, w, rmsnorm.rms_norm_fwd(x, w)[1], dy
         return make
 
+    # the model's form: the weight's cast folded in (a package older than
+    # the `cast_w` keyword always folds it)
+    kw = ({"cast_w": True} if "cast_w" in rmsnorm.rms_norm_fwd.__code__
+          .co_varnames else {})
+
     def rms_fwd(x, w, rstd, dy):
-        return rmsnorm.rms_norm_fwd(x, w)
+        return rmsnorm.rms_norm_fwd(x, w, **kw)
 
     def rms_bwd(x, w, rstd, dy):
-        return rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+        return rmsnorm.rms_norm_bwd(x, w, rstd, dy, **kw)
     for label, fn, rows in (
             ("rms_norm_fwd x (8, 512) bf16, w f32", rms_fwd, 8),
             ("rms_norm_bwd x, dy (8192, 512) bf16, w f32", rms_bwd, 8192)):

@@ -3,7 +3,7 @@
 The same configuration surface as `flasht5_tpu.config.FlashT5Config` (field
 names, defaults, reference-name aliases, YAML layout), kept as a copy so that
 this package never imports the JAX package. Fields that only the JAX side
-acts on (`remat`, `scan_blocks`, `tp_axis`, ...) are kept so that one YAML
+acts on (`scan_blocks`, `tp_axis`, ...) are kept so that one YAML
 file configures both packages; the port raises where it meets one it does
 not implement yet.
 """

@@ -7,10 +7,11 @@
 // as `jax.lax.rsqrt` and `torch.rsqrt` on the card),
 // y = x * rstd * w rounded once to x's type; x^ = x * rstd,
 // dx = (w*dy - x^ * mean(w*dy*x^)) * rstd in dy's type, dW = sum_rows dy*x^.
-// The weight is read as stored (f32, bf16 or f16) and rounded to x's type as
-// it is loaded: the bits `w.to(x.dtype)` gives, so the model's cast of its
-// fp32 parameter costs no launch. The backward can round dW to x's type as
-// it writes it (the cast's gradient, `round_dw`).
+// The weight is read as stored (f32, bf16 or f16) and widened to fp32, as
+// the TPU kernel takes it. One runtime flag, `cast_w`, folds in the model's
+// cast `w.to(x.dtype)`: w is rounded to x's type as it is loaded and dW to
+// x's type as it is written (the cast's gradient), so the cast of an fp32
+// parameter costs no launch.
 //
 // Bound on the H100: bytes. The forward reads x and writes y (and 4 bytes of
 // rstd a row); the backward reads x, dy and rstd and writes dx; both do a
@@ -127,20 +128,25 @@ __device__ __forceinline__ void store_once(void* base, long long i,
     store<T, V>(base, i, v);
 }
 
-// chunk c of w (stored as `code`), rounded to x's type
+// chunk c of w (stored as `code`) in fp32, rounded through x's type first
+// where `cast` (the model's `w.to(x.dtype)`)
 template <typename Tx, typename Tw, int V>
-__device__ __forceinline__ Vec<Tx, V> load_w_as(const void* w, int c) {
+__device__ __forceinline__ Vec<float, V> load_w_as(const void* w, int c,
+                                                   int cast) {
   const Vec<Tw, V> s = load<Tw, V>(w, c);
-  Vec<Tx, V> out;
+  Vec<float, V> out;
 #pragma unroll
-  for (int i = 0; i < V; ++i) out.v[i] = cvt<Tx>(f32(s.v[i]));
+  for (int i = 0; i < V; ++i)
+    out.v[i] = cast ? f32(cvt<Tx>(f32(s.v[i]))) : f32(s.v[i]);
   return out;
 }
 template <typename Tx, int V>
-__device__ __forceinline__ Vec<Tx, V> load_w(const void* w, int code, int c) {
-  if (code == ft5::kFloat32) return load_w_as<Tx, float, V>(w, c);
-  if (code == ft5::kBFloat16) return load_w_as<Tx, __nv_bfloat16, V>(w, c);
-  return load_w_as<Tx, __half, V>(w, c);
+__device__ __forceinline__ Vec<float, V> load_w(const void* w, int code,
+                                                int cast, int c) {
+  if (code == ft5::kFloat32) return load_w_as<Tx, float, V>(w, c, cast);
+  if (code == ft5::kBFloat16)
+    return load_w_as<Tx, __nv_bfloat16, V>(w, c, cast);
+  return load_w_as<Tx, __half, V>(w, c, cast);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -155,7 +161,7 @@ struct Fwd {
   void* y;
   float* rstd;
   long long rows;
-  int d, nchunks, w_code;
+  int d, nchunks, w_code, cast_w;
   float eps;
 };
 
@@ -169,7 +175,7 @@ struct Bwd {
   float* part;      // (grid, d) CTA partials, then (clusters, d)
   int* tickets;     // (kMaxCluster,) arrival counts, zero between launches
   long long rows;
-  int d, nchunks, w_code, round_dw;
+  int d, nchunks, w_code, cast_w;
 };
 
 // ---------------------------------------------------------------------------
@@ -193,11 +199,11 @@ __device__ __forceinline__ float sum_sq(const Vec<Tx, V> (&xv)[CPL],
 
 template <typename Tx, int V>
 __device__ __forceinline__ Vec<Tx, V> norm_chunk(const Vec<Tx, V>& xv,
-                                                 const Vec<Tx, V>& wv,
+                                                 const Vec<float, V>& wv,
                                                  float r) {
   Vec<Tx, V> o;
 #pragma unroll
-  for (int i = 0; i < V; ++i) o.v[i] = cvt<Tx>(f32(xv.v[i]) * r * f32(wv.v[i]));
+  for (int i = 0; i < V; ++i) o.v[i] = cvt<Tx>(f32(xv.v[i]) * r * wv.v[i]);
   return o;
 }
 
@@ -214,14 +220,16 @@ rms_fwd_warp_kernel(const Fwd p) {
   const long long row =
       static_cast<long long>(blockIdx.x) * kFwdWarps + (threadIdx.x >> 5);
   if (row >= p.rows) return;
-  VT xv[CPL], w[CPL];
+  VT xv[CPL];
+  Vec<float, V> w[CPL];
 #pragma unroll
   for (int j = 0; j < CPL; ++j)
     if (j * 32 + lane < n)
       xv[j] = load_once<Tx, V>(p.x, row * n + j * 32 + lane);
 #pragma unroll
   for (int j = 0; j < CPL; ++j)
-    if (j * 32 + lane < n) w[j] = load_w<Tx, V>(p.w, p.w_code, j * 32 + lane);
+    if (j * 32 + lane < n)
+      w[j] = load_w<Tx, V>(p.w, p.w_code, p.cast_w, j * 32 + lane);
   const float ss = warp_sum(sum_sq<Tx, V, CPL>(xv, lane, n));
   const float r = rsqrtf(ss / p.d + p.eps);
 #pragma unroll
@@ -250,10 +258,12 @@ __global__ void __launch_bounds__(kCtaThreads)
 rms_fwd_cta_kernel(const Fwd p) {
   __shared__ float red[2][32];
   const int t = threadIdx.x, nt = blockDim.x, n = p.nchunks;
-  Vec<Tx, V> w[kCtaChunks], xv[kCtaChunks];
+  Vec<float, V> w[kCtaChunks];
+  Vec<Tx, V> xv[kCtaChunks];
 #pragma unroll
   for (int j = 0; j < kCtaChunks; ++j)
-    if (j * nt + t < n) w[j] = load_w<Tx, V>(p.w, p.w_code, j * nt + t);
+    if (j * nt + t < n)
+      w[j] = load_w<Tx, V>(p.w, p.w_code, p.cast_w, j * nt + t);
   int parity = 0;
   for (long long row = blockIdx.x; row < p.rows;
        row += gridDim.x, parity ^= 1) {
@@ -286,7 +296,9 @@ rms_fwd_cta_kernel(const Fwd p) {
     for (int c = kCtaChunks * nt + t; c < n; c += nt)
       store<Tx, V>(p.y, row * n + c,
                    norm_chunk<Tx, V>(load<Tx, V>(p.x, row * n + c),
-                                     load_w<Tx, V>(p.w, p.w_code, c), r));
+                                     load_w<Tx, V>(p.w, p.w_code, p.cast_w,
+                                                   c),
+                                     r));
     if (t == 0) p.rstd[row] = r;
   }
 }
@@ -299,11 +311,11 @@ rms_fwd_cta_kernel(const Fwd p) {
 template <typename Tx, typename Tdy, int V>
 __device__ __forceinline__ float dot_chunk(const Vec<Tx, V>& xv,
                                            const Vec<Tdy, V>& gv,
-                                           const Vec<Tx, V>& wv, float r) {
+                                           const Vec<float, V>& wv, float r) {
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i)
-    s += f32(gv.v[i]) * f32(wv.v[i]) * (f32(xv.v[i]) * r);
+    s += f32(gv.v[i]) * wv.v[i] * (f32(xv.v[i]) * r);
   return s;
 }
 
@@ -311,14 +323,15 @@ __device__ __forceinline__ float dot_chunk(const Vec<Tx, V>& xv,
 template <typename Tx, typename Tdy, int V>
 __device__ __forceinline__ Vec<Tdy, V> dx_chunk(const Vec<Tx, V>& xv,
                                                 const Vec<Tdy, V>& gv,
-                                                const Vec<Tx, V>& wv, float r,
-                                                float c, float (&acc)[V]) {
+                                                const Vec<float, V>& wv,
+                                                float r, float c,
+                                                float (&acc)[V]) {
   Vec<Tdy, V> o;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const float xh = f32(xv.v[i]) * r;
     const float g = f32(gv.v[i]);
-    o.v[i] = cvt<Tdy>((g * f32(wv.v[i]) - xh * c) * r);
+    o.v[i] = cvt<Tdy>((g * wv.v[i] - xh * c) * r);
     acc[i] += g * xh;
   }
   return o;
@@ -422,7 +435,7 @@ template <typename Tx>
 __device__ __forceinline__ void put_column(const Bwd& p, int C, int cid,
                                            int col, float s) {
   if (C == 1)
-    p.dw[col] = p.round_dw ? f32(cvt<Tx>(s)) : s;
+    p.dw[col] = p.cast_w ? f32(cvt<Tx>(s)) : s;
   else
     p.part[static_cast<long long>(gridDim.x + cid) * p.d + col] = s;
 }
@@ -445,7 +458,7 @@ __device__ void merge_clusters(const Bwd& p, int rank, int C, int lo, int hi,
         return __ldcg(cpart + static_cast<long long>(k) * p.d + col);
       },
       [&](int col, float s) {
-        p.dw[lo + col] = p.round_dw ? f32(cvt<Tx>(s)) : s;
+        p.dw[lo + col] = p.cast_w ? f32(cvt<Tx>(s)) : s;
       },
       scratch);
   if (threadIdx.x == 0) p.tickets[rank] = 0;
@@ -478,7 +491,8 @@ rms_bwd_warp_kernel(const Bwd p) {
     ft5::mma::mbar_expect_tx(&inbox_bar, K * nw * (c1 - c0) * V * 4);
   }
   cluster_arrive();  // waited for before the first push into a peer
-  Vec<Tx, V> w[CPL], xc[CPL], xn[CPL];
+  Vec<float, V> w[CPL];
+  Vec<Tx, V> xc[CPL], xn[CPL];
   Vec<Tdy, V> gc[CPL], gn[CPL];
   float acc[CPL][V];
   float rc = 0.f, rn = 0.f;
@@ -495,7 +509,8 @@ rms_bwd_warp_kernel(const Bwd p) {
   for (int j = 0; j < CPL; ++j) {
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[j][i] = 0.f;
-    if (j * 32 + lane < n) w[j] = load_w<Tx, V>(p.w, p.w_code, j * 32 + lane);
+    if (j * 32 + lane < n)
+      w[j] = load_w<Tx, V>(p.w, p.w_code, p.cast_w, j * 32 + lane);
   }
   for (; row < p.rows; row += stride) {
     const long long next = row + stride;
@@ -558,14 +573,16 @@ rms_bwd_cta_kernel(const Bwd p) {
   __shared__ float scratch[kCtaThreads];
   const int t = threadIdx.x, nt = blockDim.x, n = p.nchunks;
   float* part = p.part + static_cast<long long>(blockIdx.x) * p.d;
-  Vec<Tx, V> w[kCtaChunks], xv[kCtaChunks];
+  Vec<float, V> w[kCtaChunks];
+  Vec<Tx, V> xv[kCtaChunks];
   Vec<Tdy, V> gv[kCtaChunks];
   float acc[kCtaChunks][V];
 #pragma unroll
   for (int j = 0; j < kCtaChunks; ++j) {
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[j][i] = 0.f;
-    if (j * nt + t < n) w[j] = load_w<Tx, V>(p.w, p.w_code, j * nt + t);
+    if (j * nt + t < n)
+      w[j] = load_w<Tx, V>(p.w, p.w_code, p.cast_w, j * nt + t);
   }
   // the thread's columns beyond what it holds sum in its CTA's partial row
   for (int c = kCtaChunks * nt + t; c < n; c += nt)
@@ -588,7 +605,8 @@ rms_bwd_cta_kernel(const Bwd p) {
     for (int c = kCtaChunks * nt + t; c < n; c += nt)
       s += dot_chunk<Tx, Tdy, V>(load<Tx, V>(p.x, row * n + c),
                                  load<Tdy, V>(p.dy, row * n + c),
-                                 load_w<Tx, V>(p.w, p.w_code, c), r);
+                                 load_w<Tx, V>(p.w, p.w_code, p.cast_w, c),
+                                 r);
     const float c = cta_sum(s, red, parity) / p.d;
 #pragma unroll
     for (int j = 0; j < kCtaChunks; ++j)
@@ -602,7 +620,9 @@ rms_bwd_cta_kernel(const Bwd p) {
       store<Tdy, V>(p.dx, row * n + k,
                     dx_chunk<Tx, Tdy, V>(load<Tx, V>(p.x, row * n + k),
                                          load<Tdy, V>(p.dy, row * n + k),
-                                         load_w<Tx, V>(p.w, p.w_code, k), r,
+                                         load_w<Tx, V>(p.w, p.w_code,
+                                                       p.cast_w, k),
+                                         r,
                                          c, a));
 #pragma unroll
       for (int i = 0; i < V; ++i) part[k * V + i] = a[i];
@@ -802,15 +822,16 @@ FT5_EXPORT int ft5_rms_norm_plan(int backward, long long rows, int d,
 }
 
 // x (rows, d) and y in `x_dtype` (0 f32, 1 bf16, 2 f16), w (d,) in `w_dtype`,
-// rstd (rows,) f32; contiguous; `grid` from ft5_rms_norm_plan.
+// rstd (rows,) f32; contiguous; `grid` from ft5_rms_norm_plan. `cast_w`
+// rounds w to x's type as it is loaded.
 FT5_EXPORT int ft5_rms_norm_fwd(const void* x, const void* w, void* y,
                                 float* rstd, long long rows, int d, float eps,
-                                int x_dtype, int w_dtype, int vec, int grid,
-                                void* stream) {
+                                int x_dtype, int w_dtype, int cast_w, int vec,
+                                int grid, void* stream) {
   const Cut cut(0, rows, d, x_dtype, x_dtype, vec);
   if (cut.kernel == nullptr || w_dtype < 0 || w_dtype > kFloat16 || grid < 1)
     return cudaErrorInvalidValue;
-  Fwd p{x, w, y, rstd, rows, d, cut.n, w_dtype, eps};
+  Fwd p{x, w, y, rstd, rows, d, cut.n, w_dtype, cast_w, eps};
   void* args[] = {&p};
   return launched(cudaLaunchKernel(cut.kernel, dim3(grid),
                                    dim3(cut.warps * 32), args, 0,
@@ -820,19 +841,20 @@ FT5_EXPORT int ft5_rms_norm_fwd(const void* x, const void* w, void* y,
 // x (rows, d) in `x_dtype`, dy and dx in `dy_dtype`, w (d,) in `w_dtype`,
 // rstd (rows,) and dw (d,) f32; part (grid + grid / cluster, d) f32 scratch;
 // tickets (8,) int32, zero (and left at zero); `grid` and `cluster` from
-// ft5_rms_norm_plan. `round_dw` rounds dW to x's type.
+// ft5_rms_norm_plan. `cast_w` rounds w to x's type as it is loaded and dW
+// to x's type as it is written.
 FT5_EXPORT int ft5_rms_norm_bwd(const void* x, const void* w,
                                 const float* rstd, const void* dy, void* dx,
                                 float* dw, float* part, int* tickets,
                                 long long rows, int d, int x_dtype,
                                 int w_dtype, int dy_dtype, int vec, int grid,
-                                int cluster, int round_dw, void* stream) {
+                                int cluster, int cast_w, void* stream) {
   const Cut cut(1, rows, d, x_dtype, dy_dtype, vec);
   if (cut.kernel == nullptr || w_dtype < 0 || w_dtype > kFloat16 ||
       cluster < 1 || cluster > kMaxCluster || grid < 1 || grid % cluster)
     return cudaErrorInvalidValue;
   Bwd p{x, w, rstd, dy, dx, dw, part, tickets, rows, d, cut.n, w_dtype,
-        round_dw};
+        cast_w};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(cut.warps * 32);

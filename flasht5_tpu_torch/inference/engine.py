@@ -22,8 +22,11 @@ and reused in every layer; decode-attention lengths are pos + 1 for
 self-attention and the bucket for cross-attention; results end in EOS
 (forced at the boundary when the budget runs out).
 
-Greedy decoding only: sampling (`temperature > 0`), speculative windows
-(`spec_window >= 2`) and tensor parallelism are not ported yet.
+Each step picks its tokens by argmax, or with `temperature > 0` draws them
+(`inference.sampling.sample_token`: temperature, top-k, top-p) with Gumbel
+noise from one `torch.Generator` on the engine's device, seeded by
+`sample_seed`. Speculative windows (`spec_window >= 2`) and tensor
+parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 
 from flasht5_tpu_torch import positional, runtime
 from flasht5_tpu_torch.config import FlashT5Config
-from flasht5_tpu_torch.inference import kv_cache
+from flasht5_tpu_torch.inference import kv_cache, sampling
 from flasht5_tpu_torch.models import t5
 from flasht5_tpu_torch.ops.decode_attention import decode_attention
 from flasht5_tpu_torch.ops.quant import dequantize_kv, quantize_kv
@@ -68,7 +71,12 @@ class EngineConfig:
     kv_dtype: str = "native"         # "native" | "int8"
     steps_per_sync: int = 8          # decode steps per host synchronization
     use_decode_kernel: bool = False  # decode-attention kernel vs plain math
-    temperature: float = 0.0         # > 0 (sampling) not ported yet
+    # sampling (inference/sampling.py): temperature <= 0 -> greedy argmax;
+    # > 0 -> a draw with optional top-k / nucleus filtering
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    sample_seed: int = 0
     spec_window: int = 0             # >= 2 (speculation) not ported yet
 
 
@@ -157,7 +165,7 @@ class BatchState:
 
 
 class InferenceEngine:
-    """Greedy continuous-batching engine over a slot pool.
+    """Continuous-batching engine over a slot pool (greedy or sampled).
 
         engine = InferenceEngine(config, params, EngineConfig(...))
         done = engine.run(requests)   # each request's .result is set
@@ -169,8 +177,6 @@ class InferenceEngine:
     def __init__(self, config: FlashT5Config, params, ecfg: EngineConfig,
                  device=None):
         t5.check_supported(config)
-        if ecfg.temperature > 0.0:
-            raise NotImplementedError("sampling is not ported yet")
         if ecfg.spec_window >= 2:
             raise NotImplementedError("speculative windows are not ported yet")
         if ecfg.kv_dtype not in ("native", "int8"):
@@ -194,6 +200,8 @@ class InferenceEngine:
             num_buckets=config.relative_attention_num_buckets,
             max_distance=config.relative_attention_max_distance,
             device=self.device)
+        self._sample_gen = torch.Generator(device=self.device).manual_seed(
+            ecfg.sample_seed)
         self._host_bufs = []
         self._windows = 0
 
@@ -316,7 +324,9 @@ class InferenceEngine:
             logits = torch.matmul(x, emb.T.to(x.dtype))[:, 0]
         else:
             logits = t5._matmul(x, params["lm_head"])[:, 0]
-        nxt = torch.argmax(logits, dim=-1)
+        nxt = sampling.sample_token(
+            logits, generator=self._sample_gen,
+            temperature=ecfg.temperature, top_k=ecfg.top_k, top_p=ecfg.top_p)
 
         active = st.active
         st.budget = torch.where(active, st.budget - 1, st.budget)

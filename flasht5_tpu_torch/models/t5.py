@@ -27,15 +27,18 @@ post-kernel select). Gradients come from autograd, through the kernels'
 backward where the path has one (`rms_norm`, attention, cross-entropy,
 the fused lm_head+CE).
 Dropout draws from a `torch.Generator` the caller passes down; its bits are
-not the JAX package's.
+not the JAX package's. `remat` recomputes each block in the backward pass
+(`torch.utils.checkpoint`), with the same dropout masks.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from flasht5_tpu_torch import positional, runtime
 from flasht5_tpu_torch.config import FlashT5Config
@@ -181,7 +184,7 @@ def _layer_norm(config: FlashT5Config, w: torch.Tensor,
     if config.use_fused_layernorm:
         # the kernel rounds w to x.dtype as it loads it: the JAX model's
         # `w.astype(x.dtype)`, with no launch of its own
-        return rms_norm(x, w, config.layer_norm_epsilon)
+        return rms_norm(x, w, config.layer_norm_epsilon, cast_w=True)
     return rms_norm_ref(x, w.to(x.dtype), config.layer_norm_epsilon)
 
 
@@ -348,6 +351,38 @@ def _block_apply(config: FlashT5Config, block_params: Params,
     return hidden_states, position_bias
 
 
+def _rematerialized(block, generator: Optional[torch.Generator],
+                    x: torch.Tensor, position_bias):
+    """`config.remat` (the JAX model's `jax.checkpoint(...,
+    nothing_saveable)` around each block): `block(x, position_bias=...)`
+    keeps none of its activations and runs again in the backward pass.
+    Dropout draws from the caller's `generator`, which checkpointing does
+    not stash, so the recompute draws from the state the forward pass
+    started from (the same masks) and then puts the generator back where
+    the backward pass found it: after the backward it stands where it
+    would without remat."""
+    start = None if generator is None else generator.get_state()
+    runs = []
+
+    def run(x, position_bias):
+        if runs and generator is not None:        # the recompute
+            now = generator.get_state()
+            generator.set_state(start)
+            try:
+                return block(x, position_bias=position_bias)
+            finally:
+                # also where the recompute stops early, once it has made
+                # every tensor the backward needs
+                generator.set_state(now)
+        runs.append(True)
+        return block(x, position_bias=position_bias)
+
+    # the default generators are not drawn from: nothing of theirs to stash
+    return torch.utils.checkpoint.checkpoint(
+        run, x, position_bias, use_reentrant=False,
+        preserve_rng_state=False)
+
+
 def stack_apply(config: FlashT5Config, stack_params: Params,
                 embedding: torch.Tensor, input_ids: torch.Tensor, *,
                 is_decoder: bool,
@@ -371,14 +406,20 @@ def stack_apply(config: FlashT5Config, stack_params: Params,
         if pe is not None:
             rpe_table = pe["relative_attention_bias"]
     position_bias = None
+    remat = config.remat and torch.is_grad_enabled()
     for i, block_params in enumerate(stack_params["block"]):
-        x, position_bias = _block_apply(
-            config, block_params, x, is_decoder=is_decoder, has_pe=(i == 0),
-            attention_mask=attention_mask, position_bias=position_bias,
+        block = functools.partial(
+            _block_apply, config, block_params, is_decoder=is_decoder,
+            has_pe=(i == 0), attention_mask=attention_mask,
             encoder_hidden_states=encoder_hidden_states,
             encoder_attention_mask=encoder_attention_mask,
-            rpe_table=rpe_table,
-            generator=generator, deterministic=deterministic)
+            rpe_table=rpe_table, generator=generator,
+            deterministic=deterministic)
+        if remat:
+            x, position_bias = _rematerialized(block, generator, x,
+                                               position_bias)
+        else:
+            x, position_bias = block(x, position_bias=position_bias)
     x = _layer_norm(config, stack_params["final_layer_norm"]["weight"], x)
     return _dropout(generator, config.dropout_rate, x, deterministic)
 
@@ -518,3 +559,80 @@ def model_forward(config: FlashT5Config, params: Params,
                       encoder_attention_mask=attention_mask,
                       generator=generator, deterministic=deterministic)
     return {"last_hidden_state": dec, "encoder_last_hidden_state": enc}
+
+
+# ===========================================================================
+# Generation without a cache (the reference's own loop)
+# ===========================================================================
+
+def finish_generation(config: FlashT5Config, tokens: torch.Tensor,
+                      reached_end: bool) -> torch.Tensor:
+    """The reference generate's end (modeling:683-688): EOS forced at the
+    boundary if the loop ran to max_length, then every position after each
+    row's first EOS zeroed and that EOS kept. `tokens` (B, max_length + 1),
+    written in place."""
+    eos = config.eos_token_id
+    out_len = tokens.shape[1]
+    if reached_end:
+        tokens[:, -1] = eos
+    is_eos = tokens == eos
+    first = torch.where(is_eos.any(dim=-1), is_eos.int().argmax(dim=-1),
+                        out_len - 1)
+    pos = torch.arange(out_len, device=tokens.device)[None, :]
+    tokens = torch.where(pos <= first[:, None], tokens, 0)
+    return torch.where(pos == first[:, None], eos, tokens)
+
+
+@torch.no_grad()
+def greedy_generate(config: FlashT5Config, params: Params,
+                    input_ids: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor] = None,
+                    max_length: int = 32) -> torch.Tensor:
+    """Reference-parity greedy decode WITHOUT a KV cache (modeling:648-690):
+    start token 0, stop on EOS, force a final EOS, zero-pad after the first
+    EOS. Re-runs the decoder over the whole prefix each step (the
+    reference's own loop); the KV-cached loop is inference/generate.py."""
+    return _generate(config, params, input_ids, attention_mask, max_length,
+                     lambda logits: torch.argmax(logits, dim=-1))
+
+
+@torch.no_grad()
+def sample_generate(config: FlashT5Config, params: Params,
+                    input_ids: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor] = None,
+                    max_length: int = 32, *,
+                    generator: Optional[torch.Generator],
+                    temperature: float = 1.0, top_k: int = 0,
+                    top_p: float = 1.0) -> torch.Tensor:
+    """Sampling decode with greedy_generate's contract; the draw is
+    `inference.sampling.sample_token`'s, its noise from `generator`."""
+    from flasht5_tpu_torch.inference.sampling import sample_token
+
+    def select(logits):
+        return sample_token(logits, generator=generator,
+                            temperature=temperature, top_k=top_k,
+                            top_p=top_p)
+
+    return _generate(config, params, input_ids, attention_mask, max_length,
+                     select)
+
+
+def _generate(config, params, input_ids, attention_mask, max_length,
+              select_fn) -> torch.Tensor:
+    dev = params["shared"]["embedding"].device
+    ids = torch.as_tensor(input_ids, device=dev)
+    b = ids.shape[0]
+    enc = encode(config, params, ids, attention_mask)
+    # position t generated at step t; position 0 is the start token
+    labels = torch.zeros((b, max_length + 1), dtype=torch.int64, device=dev)
+    seen_eos = torch.zeros((b,), dtype=torch.bool, device=dev)
+    t = 0
+    while t < max_length and not bool(seen_eos.all()):
+        out = forward(config, params, attention_mask=attention_mask,
+                      decoder_input_ids=labels[:, :-1],
+                      encoder_hidden_states=enc)
+        nxt = select_fn(out["logits"][:, t])
+        labels[:, t + 1] = nxt
+        seen_eos |= nxt == config.eos_token_id
+        t += 1
+    return finish_generation(config, labels, t == max_length)

@@ -6,10 +6,12 @@ Replaces the Pallas kernels of `flasht5_tpu/ops/rmsnorm.py`: the forward
 differentiable in x and w through `_RMSNormFn`, whose backward is the second
 kernel.
 
-The weight is taken as stored: the kernels round it to x.dtype as they load
-it (the bits of `w.to(x.dtype)`), so the model passes its fp32 parameter and
-its cast costs no launch; `rms_norm`'s gradient of w is dW rounded to x.dtype
-and then widened to w.dtype, the gradient of that cast.
+The weight is taken as stored and widened to fp32, and w's gradient comes
+back in w's dtype, as in the JAX op. The model's `_layer_norm` casts w to
+x.dtype first (the JAX model's `w.astype(x.dtype)`); it passes `cast_w=True`
+instead, and the kernels round w to x.dtype as they load it and dW to
+x.dtype as they store it (that cast's gradient), so the cast of the fp32
+parameter costs no launch.
 
 Bound on the H100: bytes. The forward reads x once and writes y once (plus
 one fp32 rstd per row); the backward reads x, dy and rstd once and writes
@@ -52,36 +54,42 @@ def rms_norm_ref(x: torch.Tensor, w: torch.Tensor,
     return (w * y).to(x.dtype)
 
 
-def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+def _w32(x: torch.Tensor, w: torch.Tensor, cast_w: bool) -> torch.Tensor:
+    """w in fp32, rounded through x.dtype first where `cast_w`."""
+    return (w.to(x.dtype) if cast_w else w).float()
+
+
+def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+                   cast_w: bool = False):
     """The kernel's arithmetic in plain PyTorch: (y in x.dtype, fp32 rstd
-    of shape x.shape[:-1]). w is rounded to x.dtype first; unlike
-    `rms_norm_ref`, the weight multiplies in fp32 and only y is rounded (as
-    the TPU kernel does)."""
+    of shape x.shape[:-1]). w is widened to fp32 (rounded to x.dtype first
+    where `cast_w`); unlike `rms_norm_ref`, the weight multiplies in fp32 and
+    only y is rounded (as the TPU kernel does)."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1)
     rstd = torch.rsqrt(var + eps)
-    y = x32 * rstd[..., None] * w.to(x.dtype).float()
+    y = x32 * rstd[..., None] * _w32(x, w, cast_w)
     return y.to(x.dtype), rstd
 
 
 def rms_norm_bwd_plain(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
-                       dy: torch.Tensor, *, round_dw: bool = False):
+                       dy: torch.Tensor, *, cast_w: bool = False):
     """The backward kernel's arithmetic: (dx in dy.dtype, fp32 dW).
 
-    w is rounded to x.dtype first; x̂ = x·rstd is recomputed;
-    dx = (w·dy − x̂·mean(w·dy·x̂))·rstd in fp32; dW = Σ_rows dy·x̂ in fp32
-    (the TPU kernel's `_bwd_kernel`), rounded to x.dtype if `round_dw` (as
-    `rms_norm`'s backward does; unrounded for the kernel checks)."""
+    w is widened to fp32 (rounded to x.dtype first where `cast_w`);
+    x̂ = x·rstd is recomputed; dx = (w·dy − x̂·mean(w·dy·x̂))·rstd in fp32;
+    dW = Σ_rows dy·x̂ in fp32 (the TPU kernel's `_bwd_kernel`), rounded to
+    x.dtype where `cast_w` (the cast's gradient)."""
     d = x.shape[-1]
     x32 = x.reshape(-1, d).float()
     dy32 = dy.reshape(-1, d).float()
     r = rstd.reshape(-1, 1)
     xhat = x32 * r
-    wdy = dy32 * w.to(x.dtype).float()
+    wdy = dy32 * _w32(x, w, cast_w)
     c = torch.mean(wdy * xhat, dim=-1, keepdim=True)
     dx = (wdy - xhat * c) * r
     dw = torch.sum(dy32 * xhat, dim=0)
-    if round_dw:
+    if cast_w:
         dw = dw.to(x.dtype).float()
     return dx.to(dy.dtype).reshape(dy.shape), dw
 
@@ -92,7 +100,7 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ft5_rms_norm_plan.argtypes = [i, ll, i, i, i, i, p]
         lib.ft5_rms_norm_fwd.argtypes = ([p] * 4 + [ll, i, ctypes.c_float]
-                                         + [i] * 4 + [p])
+                                         + [i] * 5 + [p])
         lib.ft5_rms_norm_bwd.argtypes = [p] * 8 + [ll] + [i] * 8 + [p]
         for fn in (lib.ft5_rms_norm_plan, lib.ft5_rms_norm_fwd,
                    lib.ft5_rms_norm_bwd):
@@ -151,15 +159,17 @@ def _vectors(d: int, *ts: torch.Tensor) -> bool:
         t.data_ptr() % max(16, v * t.element_size()) == 0 for t in ts)
 
 
-def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+                 cast_w: bool = False):
     """Fused RMS norm over the last axis: (y, rstd). x (..., d), w (d,) in
-    any of f32, bf16, f16 (rounded to x.dtype).
+    any of f32, bf16, f16 (rounded to x.dtype as it is loaded where
+    `cast_w`).
 
     A CUDA tensor goes to the kernel, a CPU tensor to `rms_norm_plain`;
     anything the kernel does not take raises."""
     d = x.shape[-1]
     if x.device.type == "cpu":
-        return rms_norm_plain(x, w, eps)
+        return rms_norm_plain(x, w, eps, cast_w=cast_w)
     _check("rms_norm", x, w)
     x2 = x.reshape(-1, d).contiguous()
     w = w.contiguous()
@@ -171,8 +181,8 @@ def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     lib = _lib()
     rc = lib.ft5_rms_norm_fwd(
         runtime.ptr(x2), runtime.ptr(w), runtime.ptr(y), runtime.ptr(rstd),
-        rows, d, float(eps), _CODES[x.dtype], _CODES[w.dtype], int(vec), grid,
-        runtime.stream_handle(x))
+        rows, d, float(eps), _CODES[x.dtype], _CODES[w.dtype], int(cast_w),
+        int(vec), grid, runtime.stream_handle(x))
     runtime.check_launch(lib, rc, "rms_norm")
     rms_norm_fwd.launches += 1
     return y.reshape(x.shape), rstd.reshape(x.shape[:-1])
@@ -182,17 +192,16 @@ rms_norm_fwd.launches = 0
 
 
 def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
-                 dy: torch.Tensor, *, round_dw: bool = False):
-    """Gradient of the fused RMS norm: (dx in dy.dtype, fp32 dW; dW's values
-    rounded to x.dtype if `round_dw`). `rms_norm`'s backward always rounds;
-    unrounded sums exist for the kernel checks, which hold them to the plain
-    version tighter than one ulp of x.dtype.
+                 dy: torch.Tensor, *, cast_w: bool = False):
+    """Gradient of the fused RMS norm: (dx in dy.dtype, fp32 dW). Where
+    `cast_w`, w is rounded to x.dtype as it is loaded and dW's values to
+    x.dtype as they are stored, the gradient of `rms_norm_fwd`'s cast.
 
     A CUDA tensor goes to the kernel (dx and dW in one launch), a CPU
     tensor to `rms_norm_bwd_plain`; anything the kernel does not take
     raises."""
     if x.device.type == "cpu":
-        return rms_norm_bwd_plain(x, w, rstd, dy, round_dw=round_dw)
+        return rms_norm_bwd_plain(x, w, rstd, dy, cast_w=cast_w)
     _check("rms_norm_bwd", x, w, rstd, dy)
     if dy.shape != x.shape or dy.dtype not in _FLOAT_TYPES:
         raise ValueError(f"rms_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
@@ -220,7 +229,7 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
         runtime.ptr(dx), runtime.ptr(dw), runtime.ptr(part),
         runtime.ptr(_tickets(x.device, stream)), rows, d, _CODES[x.dtype],
         _CODES[w.dtype], _CODES[dy.dtype], int(vec), grid, cluster,
-        int(round_dw), ctypes.c_void_p(stream))
+        int(cast_w), ctypes.c_void_p(stream))
     runtime.check_launch(lib, rc, "rms_norm_bwd")
     rms_norm_bwd.launches += 1
     return dx.reshape(dy.shape), dw
@@ -231,21 +240,24 @@ rms_norm_bwd.launches = 0
 
 class _RMSNormFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, eps):
-        y, rstd = rms_norm_fwd(x, w, eps)
+    def forward(ctx, x, w, eps, cast_w):
+        y, rstd = rms_norm_fwd(x, w, eps, cast_w=cast_w)
         ctx.save_for_backward(x, w, rstd)
+        ctx.cast_w = cast_w
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, w, rstd = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(x, w, rstd, dy, round_dw=True)
-        return dx, dw.to(w.dtype), None
+        dx, dw = rms_norm_bwd(x, w, rstd, dy, cast_w=ctx.cast_w)
+        return dx, dw.to(w.dtype), None, None
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """Fused RMS norm over the last axis, differentiable in x and w. w may
-    be stored in a wider type than x: the result is that of
-    `rms_norm(x, w.to(x.dtype))`, and w's gradient that cast's."""
-    return _RMSNormFn.apply(x, w, eps)
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+             cast_w: bool = False) -> torch.Tensor:
+    """Fused RMS norm over the last axis, differentiable in x and w: the JAX
+    op `flasht5_tpu.ops.rmsnorm.rms_norm`, w taken as stored and its
+    gradient in w's dtype. With `cast_w` the result is that of
+    `rms_norm(x, w.to(x.dtype))` and w's gradient that cast's, with no
+    launch for the cast (the model's `_layer_norm`)."""
+    return _RMSNormFn.apply(x, w, eps, cast_w)

@@ -486,14 +486,14 @@ def _rms_inputs(rows, d, x_dtype, w_dtype=torch.float32, dy_dtype=None):
     return x, w, dy
 
 
-def _rms_check(x, w, dy):
-    y, rstd = rmsnorm.rms_norm_fwd(x, w)
-    y0, rstd0 = rmsnorm.rms_norm_plain(x, w)
+def _rms_check(x, w, dy, cast_w=False):
+    y, rstd = rmsnorm.rms_norm_fwd(x, w, cast_w=cast_w)
+    y0, rstd0 = rmsnorm.rms_norm_plain(x, w, cast_w=cast_w)
     torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
     tol = 1e-5 if x.dtype == torch.float32 else 1e-2
     torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
-    dx, dw = rmsnorm.rms_norm_bwd(x, w, rstd, dy)
-    dx0, dw0 = rmsnorm.rms_norm_bwd_plain(x, w, rstd, dy)
+    dx, dw = rmsnorm.rms_norm_bwd(x, w, rstd, dy, cast_w=cast_w)
+    dx0, dw0 = rmsnorm.rms_norm_bwd_plain(x, w, rstd, dy, cast_w=cast_w)
     assert dx.dtype == dy.dtype and dw.dtype == torch.float32
     tol = 1e-5 if dy.dtype == torch.float32 else 1e-2
     torch.testing.assert_close(dx.float(), dx0.float(), rtol=tol, atol=tol)
@@ -502,8 +502,30 @@ def _rms_check(x, w, dy):
 
 @pytest.mark.parametrize("shape", _RMS_SHAPES)
 def test_rms_norm_kernels_at_every_form(dev, shape):
-    """bf16 x and dy with the fp32 weight, as the model passes them."""
+    """bf16 x and dy with the fp32 weight, as the model passes them (the
+    weight's cast folded in)."""
+    _rms_check(*_rms_inputs(*shape, torch.bfloat16), cast_w=True)
+
+
+@pytest.mark.parametrize("shape", _RMS_SHAPES)
+def test_rms_norm_op_form_at_every_form(dev, shape):
+    """The op's own semantics: the fp32 weight taken unrounded, dW in fp32
+    (the JAX op `rms_norm(x, w)`)."""
     _rms_check(*_rms_inputs(*shape, torch.bfloat16))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float16])
+def test_rms_norm_op_form_differs_from_the_cast(dev, x_dtype):
+    """Without `cast_w` the kernels take the fp32 weight unrounded: y and
+    dW differ from the folded cast's somewhere at (8192, 512)."""
+    x, w, dy = _rms_inputs(8192, 512, x_dtype)
+    w = w + 1e-3 * torch.randn_like(w)
+    ya, rstd = rmsnorm.rms_norm_fwd(x, w)
+    yb, _ = rmsnorm.rms_norm_fwd(x, w, cast_w=True)
+    _, dwa = rmsnorm.rms_norm_bwd(x, w, rstd, dy)
+    _, dwb = rmsnorm.rms_norm_bwd(x, w, rstd, dy, cast_w=True)
+    assert not torch.equal(ya, yb) and not torch.equal(dwa, dwb)
+    assert torch.equal(dwb, dwb.to(x_dtype).float())
 
 
 @pytest.mark.parametrize("shape", [(33, 100), (300, 512), (5, 2048)])
@@ -543,7 +565,7 @@ def test_rms_norm_folded_cast_bit_equal(dev, x_dtype, shape):
     x, w, dy = _rms_inputs(*shape, x_dtype)
     xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
     xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
-    ya = rmsnorm.rms_norm(xa, wa)
+    ya = rmsnorm.rms_norm(xa, wa, cast_w=True)
     yb = rmsnorm.rms_norm(xb, wb.to(x_dtype))
     ya.backward(dy)
     yb.backward(dy)
@@ -1062,3 +1084,123 @@ def test_fused_linear_ce_refuses_what_it_does_not_take(dev):
         fused_linear_ce.fused_linear_ce_fwd(x.half(), w.half())
     with pytest.raises(ValueError, match="one CUDA device"):
         fused_linear_ce.fused_linear_ce_fwd(x, w.cpu())
+
+
+# ---------------------------------------------------------------------------
+# generation: decode_attention on the caches `inference.generate` allocates
+# (the activations' dtype: bf16 at FAT5-small, f32 on an f32 model), the
+# decode state's steps against the CPU, and remat's memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["cross", "self"])
+def test_decode_attention_at_generation_shapes(dev, kv, form):
+    """Cross (8, 8, 512, 64) at every length 512, no bias; self (8, 8, 64,
+    64), a bias row, lengths 1..57 (max_length 64)."""
+    if form == "cross":
+        q, args, lens, bias = _decode_case(dev, kv, 8, 8, 512, 64, [512],
+                                           with_bias=False)
+    else:
+        q, args, lens, bias = _decode_case(dev, kv, 8, 8, 64, 64,
+                                           [1, 9, 17, 25, 33, 41, 49, 57])
+    got = decode_attention.decode_attention(q, *args, lengths=lens,
+                                            bias=bias, sm_scale=0.125)
+    want = decode_attention.decode_attention_plain(
+        q, *args, lengths=lens, bias=bias, sm_scale=0.125)
+    tol = 1e-4 if kv == "f32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _tiny_generation_model(dtype="float32"):
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.models import t5
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=64, num_heads=4,
+                        d_ff=256, num_layers=2, num_decoder_layers=2,
+                        dropout_rate=0.0, dtype=dtype,
+                        attention_type="pallas_rpe",
+                        use_fused_layernorm=True)
+    return cfg, t5.init_params(cfg, seed=5, device="cpu")
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_generation_on_the_card_matches_the_cpu(dev):
+    """A tiny f32 model: the decode steps' logits within 1e-4 of the CPU's
+    (sums in another order), and greedy, beam and speculative tokens equal
+    to the CPU's; sampled streams bit-equal from one seed."""
+    from flasht5_tpu_torch.inference import (beam_generate, decode_step,
+                                             generate, init_decode_state,
+                                             speculative_generate)
+    from flasht5_tpu_torch.models import t5
+    cfg, cpu = _tiny_generation_model()
+    gpu = _on(cpu, dev)
+    ids = torch.randint(2, 512, (3, 20), generator=torch.Generator()
+                        .manual_seed(1))
+    for fn, kw in ((generate, {}), (beam_generate, dict(num_beams=4)),
+                   (speculative_generate, dict(window=4))):
+        a = fn(cfg, cpu, ids, max_length=12, **kw)
+        b = fn(cfg, gpu, ids.to(dev), max_length=12, **kw)
+        a, b = (a[0], b[0]) if isinstance(a, tuple) else (a, b)
+        assert torch.equal(a, b.cpu())
+    logits = []
+    for params, device in ((cpu, "cpu"), (gpu, dev)):
+        state = init_decode_state(cfg, params,
+                                  t5.encode(cfg, params, ids.to(device)), 8)
+        tok = torch.zeros((3,), dtype=torch.int64, device=device)
+        steps = []
+        for _ in range(8):
+            out, state = decode_step(cfg, params, state, tok)
+            steps.append(out.cpu())
+            tok = (tok + 7) % 512
+        logits.append(torch.stack(steps))
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)
+    runs = [generate(cfg, gpu, ids.to(dev), max_length=12, temperature=1.0,
+                     top_k=20, top_p=0.9,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_remat_lowers_the_train_steps_peak_memory(dev):
+    """`remat` keeps no block activations for the backward: the peak memory
+    of one forward and backward is lower, and the gradients are the same
+    to 1e-3 of each one's largest entry (the recompute launches the same
+    kernels; a shared leaf's contributions may be added in another
+    order)."""
+    import dataclasses
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.models import t5
+    cfg = FlashT5Config(vocab_size=4096, d_model=512, d_kv=64, num_heads=8,
+                        d_ff=2048, num_layers=4, num_decoder_layers=4,
+                        dropout_rate=0.0, dtype="bfloat16",
+                        attention_type="pallas_rpe",
+                        use_fused_layernorm=True,
+                        use_fused_crossentropy=True)
+    params = t5.init_params(cfg, seed=0, device=dev)
+    leaves = [leaf.requires_grad_(True)
+              for _, leaf in t5.tree_leaves_with_path(params)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(2, 4096, (8, 1024), device=dev, generator=g)
+    labels = torch.randint(2, 4096, (8, 256), device=dev, generator=g)
+    peaks, grads = [], []
+    for remat in (False, True):
+        for leaf in leaves:
+            leaf.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = t5.forward(dataclasses.replace(cfg, remat=remat), params,
+                          input_ids=ids, labels=labels)["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        grads.append([leaf.grad.float().clone() for leaf in leaves])
+    assert peaks[1] < 0.8 * peaks[0]
+    for a, b in zip(*grads):
+        _close_to_max(b, a, 1e-3)

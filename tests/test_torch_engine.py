@@ -127,7 +127,8 @@ def test_warmup_leaves_the_pool_idle(models):
     assert all(r.result is not None for r in done)
 
 
-@pytest.mark.parametrize("change", [dict(temperature=0.7),
+# sampling (temperature > 0) runs now: tests/test_torch_generate.py
+@pytest.mark.parametrize("change", [dict(spec_window=2),
                                     dict(spec_window=4)])
 def test_engine_refuses_what_is_not_ported(models, change):
     *_, cfg, params = models

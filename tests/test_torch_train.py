@@ -12,6 +12,7 @@ on the CPU, i.e. the plain version of every kernel.
 Tolerances, each with its reason, stand beside the assertions.
 """
 
+import dataclasses
 import glob
 import json
 import os
@@ -185,6 +186,69 @@ def test_dropout_draws_from_the_given_generator():
                for _ in range(2)]
     assert dropped[0] == dropped[1]
     assert dropped[0] != loss()
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("attention", ["ref", "pallas", "pallas_rpe"])
+def test_remat_matches_plain(attention, dropout):
+    """`remat` recomputes each block in the backward pass (the JAX
+    package's `test_remat_matches_plain`): over two steps drawn from one
+    generator seed, the loss and every gradient are those of the model
+    without remat, and so is the generator's state after each backward
+    pass. With dropout, a recompute that drew new masks, or left the
+    generator elsewhere (the second step's masks would move), changes
+    them. Both sides run the same f32 arithmetic on the CPU: equal to
+    1e-6 (the gradient sums may be added in another order)."""
+    _, cfg = _configs(attention_type=attention, dropout_rate=dropout,
+                      use_fused_layernorm=True, use_fused_crossentropy=True)
+    params = t5.init_params(cfg, seed=0, device="cpu")
+    leaves = [leaf for _, leaf in t5.tree_leaves_with_path(params)]
+    batches = [_torch_batch(_batch(30 + i)) for i in range(2)]
+
+    def run(remat):
+        c = dataclasses.replace(cfg, remat=remat)
+        gen = torch.Generator().manual_seed(7)
+        steps = []
+        for tb in batches:
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+                leaf.grad = None
+            loss = t5.forward(c, params, input_ids=tb["input_ids"],
+                              labels=tb["labels"], generator=gen,
+                              deterministic=dropout == 0.0)["loss"]
+            loss.backward()
+            steps.append((loss.detach(), [leaf.grad.clone()
+                                          for leaf in leaves],
+                          gen.get_state()))
+        return steps
+
+    for (la, ga, sa), (lb, gb, sb) in zip(run(False), run(True)):
+        torch.testing.assert_close(lb, la, rtol=1e-6, atol=1e-6)
+        for a, b in zip(ga, gb):
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+        assert torch.equal(sa, sb)
+
+
+def test_remat_keeps_no_activations():
+    """With `remat` a block's activations are not kept for the backward
+    pass: the autograd graph of the loss saves fewer bytes."""
+    _, cfg = _configs(**FLAGSHIP_PATH)
+    params = t5.init_params(cfg, seed=0, device="cpu")
+    for _, leaf in t5.tree_leaves_with_path(params):
+        leaf.requires_grad_(True)
+    tb = _torch_batch(_batch(40))
+    saved = []
+    for remat in (False, True):
+        total = [0]
+
+        def pack(t):
+            total[0] += t.numel() * t.element_size()
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            t5.forward(dataclasses.replace(cfg, remat=remat), params,
+                       input_ids=tb["input_ids"], labels=tb["labels"])
+        saved.append(total[0])
+    assert saved[1] < saved[0] / 2
 
 
 # ---------------------------------------------------------------------------

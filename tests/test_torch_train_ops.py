@@ -91,7 +91,7 @@ def test_rms_norm_folded_cast_matches_jax(dtype):
                        jnp.asarray(x, jdt), jnp.asarray(w))
     dx_j, dw_j = vjp(jnp.asarray(dy, jdt))
     xt, wt = _t(x, tdt, True), _t(w, torch.float32, True)
-    y = rmsnorm.rms_norm(xt, wt, 1e-6)
+    y = rmsnorm.rms_norm(xt, wt, 1e-6, cast_w=True)
     y.backward(_t(dy, tdt))
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     assert y.dtype == tdt and wt.grad.dtype == torch.float32
@@ -99,6 +99,65 @@ def test_rms_norm_folded_cast_matches_jax(dtype):
     _close(y, y_j, tol)
     _close(xt.grad, dx_j, tol)
     _close(wt.grad, dw_j, tol)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [("bfloat16", "float32"),
+                                             ("float32", "bfloat16")])
+def test_rms_norm_mixed_dtypes_match_jax_op(x_dtype, w_dtype):
+    """The op `rms_norm(x, w)` with w in another dtype than x, against the
+    JAX op of the same name on the same arrays: w multiplies as stored
+    (widened to f32, not rounded to x.dtype) and dW comes back in w's
+    dtype, summed in f32. y and dx are rounded to x.dtype once on both
+    sides from the same f32 arithmetic: within one ulp of x.dtype; dW to
+    1e-5 of its largest entry before its own rounding to w.dtype."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((37, 512)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(512)).astype(np.float32)
+    dy = rng.standard_normal((37, 512)).astype(np.float32)
+    jx, jw = jnp.asarray(x, jnp.dtype(x_dtype)), jnp.asarray(w, jnp.dtype(
+        w_dtype))
+    y_j, vjp = jax.vjp(lambda a, b: jrms.rms_norm(a, b, 1e-6), jx, jw)
+    dx_j, dw_j = vjp(jnp.asarray(dy, jx.dtype))
+    xdt, wdt = getattr(torch, x_dtype), getattr(torch, w_dtype)
+    xt, wt = _t(x, xdt, True), _t(w, wdt, True)
+    y = rmsnorm.rms_norm(xt, wt, 1e-6)
+    y.backward(_t(dy, xdt))
+    assert y.dtype == xdt and xt.grad.dtype == xdt and wt.grad.dtype == wdt
+    assert dw_j.dtype == jw.dtype
+    ulp = dict(rtol=2.0 ** -7 if x_dtype == "bfloat16" else 1e-5, atol=1e-6)
+    _close(y, y_j, ulp)
+    _close(xt.grad, dx_j, ulp)
+    wtol = 2.0 ** -7 if w_dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(wt.grad.float().numpy(), _np(dw_j),
+                               rtol=wtol, atol=1e-5 * np.abs(_np(dw_j)).max())
+    # the departure the op used to have: w rounded to x.dtype first moves y
+    if x_dtype == "bfloat16":
+        y_cast = rmsnorm.rms_norm(xt.detach(), wt.detach(), 1e-6, cast_w=True)
+        assert not torch.equal(y_cast, y.detach())
+
+
+def test_layer_norm_keeps_the_folded_cast_bits():
+    """The model's `_layer_norm` passes `cast_w`: on bf16 activations and
+    the fp32 parameter it gives the bits of the cast made first
+    (`rms_norm(x, w.to(bf16))`), its dx, and the cast's gradient of w."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.models import t5
+    cfg = FlashT5Config(d_model=128, dtype="bfloat16",
+                        use_fused_layernorm=True)
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((37, 128)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    dy = _t(rng.standard_normal((37, 128)), torch.bfloat16)
+    xa, wa = _t(x, torch.bfloat16, True), _t(w, torch.float32, True)
+    xb, wb = _t(x, torch.bfloat16, True), _t(w, torch.float32, True)
+    ya = t5._layer_norm(cfg, wa, xa)
+    yb = rmsnorm.rms_norm(xb, wb.to(torch.bfloat16), cfg.layer_norm_epsilon)
+    ya.backward(dy)
+    yb.backward(dy)
+    assert wa.grad.dtype == torch.float32
+    assert torch.equal(ya, yb)
+    assert torch.equal(xa.grad, xb.grad)
+    assert torch.equal(wa.grad, wb.grad)
 
 
 # ---------------------------------------------------------------------------
