@@ -26,7 +26,9 @@ of JAX. In order:
    cross-entropy backward (its small entries flushed or doubled), the
    paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
-   as well as the batch) and the fused lm_head+CE kernels (the last vocab
+   as well as the batch; also on ALiBi's asymmetric and FIRE's biases),
+   `decode_attention` on ALiBi's and FIRE's bias rows (the rows shifted by
+   one position) and the fused lm_head+CE kernels (the last vocab
    split dropped from the merge; the z-loss term left out of dlogits; the
    dW columns shifted by one) must fall beyond it; each fused lm_head+CE
    forward row must profile the form its shape dispatches to, and the
@@ -49,6 +51,13 @@ of JAX. In order:
    at top_k=1, and that two planted faults (the self cache written one
    position late; the decode kernel reading one position too few) move
    the logits beyond the limit;
+6b. checks on tiny f32 models (d_kv 64, `pallas`) with ALiBi (symmetric;
+   asymmetric with 6 heads), RoPE (plain; fraction 0.5, interleaved and
+   xPos) and FIRE that the card gives the CPU's logits, loss, every
+   gradient and greedy tokens, and that a planted fault in the bias rows
+   (RoPE: the rotation) moves the logits beyond the limit; and runs the ten
+   original FAT5 goldens (d_kv 16, zero-padded by the attention wrappers)
+   through `pallas` on the card against the reference's logits and loss;
 7. times a full-width FAT5-small decode step (seeded random weights, int8
    weights and KV cache, the decode kernel) by wall clock and by device
    time, counts its `quant_matmul` launches by shape, and lists the kernels
@@ -71,6 +80,14 @@ of JAX. In order:
    time and kernels, then sampled `generate`, `beam_generate` (2 inputs,
    4 beams) and `speculative_generate` (window 4); each with its wall,
    tokens/s and launches a decode step;
+10b. trains and generates at FAT5-small widths on `pallas` with ALiBi,
+   RoPE (randomized positions up to 2048, gradient accumulation over 2
+   micro-batches) and FIRE: each a counted `Trainer.train` run whose
+   losses must be finite and falling, a profiled update (the attention
+   bodies on the bias source, or on none for RoPE, must be among its
+   kernels) and its peak memory; then a counted greedy `generate` of 8 x
+   64 tokens from 512-token inputs with int8 weights and a profiled decode
+   step (`decode_attn_kernel` among its kernels);
 11. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
    256) tokens a step, one seeded batch repeated), beside a second trainer
    with `use_fused_lm_head_ce`: 3 warm-up steps each, then three loops of
@@ -103,9 +120,9 @@ of JAX. In order:
    kernels' sum), its kernels (the attention backward's tensor-core bodies
    and the `rms_norm` kernels must be among them), peak memory;
 14. prints JSON lines of the serving, paged serving, generation, training,
-   scoring and pretraining results and of the kernels (each with its
-   launches in each path that runs it, and their sum), the
-   `nvidia-smi` name and power limit line, and, last,
+   scoring, pretraining and encodings results, the smoke's wall, and the
+   kernels (each with its launches in each path that runs it, and their
+   sum), the `nvidia-smi` name and power limit line, and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -201,14 +218,30 @@ def copies_for(make, n_bytes: int):
 # kernel checks
 # ---------------------------------------------------------------------------
 
-def _keys_rolled():
-    """A planted fault of an attention forward: the kernel on its keys
-    rolled by one position (q, k, v first in its arguments)."""
+def _keys_rolled(kernel=None, **kw):
+    """A planted fault of an attention kernel (the forward unless `kernel`
+    is given): the kernel on its keys rolled by one position (q, k, v
+    first in its arguments, `kw` its keywords)."""
     def fault(q, k, v, *rest):
         from flasht5_tpu_torch.ops import flash_attention_rpe
-        return flash_attention_rpe.flash_attention_rpe_fwd(
-            q, torch.roll(k, 1, dims=2), v, *rest)
+        return (kernel or flash_attention_rpe.flash_attention_rpe_fwd)(
+            q, torch.roll(k, 1, dims=2), v, *rest, **kw)
     return ("the keys rolled by one position", fault)
+
+
+def _decode_rows(lens, length, pe, fire=None):
+    """(B, 8, length) f32 bias rows of each slot's position lens - 1
+    against every cache position, made by the decode state's own
+    `kv_cache._self_bias`: ALiBi's asymmetric rows (clamped at -1e29) or
+    FIRE's rows of the parameters `fire`."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.inference import kv_cache
+    cfg = FlashT5Config(num_heads=8, d_kv=64, position_encoding_type=pe,
+                        alibi_mode="asymetric")
+    sa = {"Wq": torch.empty((512, 512)), "pe_encoding": fire}
+    return torch.stack([kv_cache._self_bias(cfg, sa, n - 1, 1, length,
+                                            lens.device)[0, :, 0]
+                        for n in lens.tolist()])
 
 
 def check_kernels(dev):
@@ -354,7 +387,10 @@ def check_kernels(dev):
     # -- D. decode_attention (CUDA): decoder self- and cross-attention, on
     # the slot engine's int8 caches and on generation's caches in the
     # activations' dtype (bf16 at FAT5-small; f32 on the tiny f32 model)
-    def dec_case(L, lengths, with_bias, label, main=False, kv="int8"):
+    def dec_case(L, lengths, with_bias, label, main=False, kv="int8",
+                 rows=None):
+        """`rows(lens)`: the decode state's bias rows of each slot's
+        position (lens - 1), (8, 8, L) f32, in place of random ones."""
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         valid = (torch.arange(L, device=dev)[None, :]
                  < lens[:, None])[:, None, None, :]
@@ -376,6 +412,8 @@ def check_kernels(dev):
                 k_lib, v_lib = kq, vq
             bias = (randn(8, 8, L, dtype=torch.float32) if with_bias
                     else None)
+            if rows is not None:
+                bias = rows(lens)
             q = randn(8, 8, 64, dtype=q_dtype)
             # the library call: SDPA over the same cache in the cache's
             # float type, with the lengths and the bias folded into one
@@ -400,10 +438,19 @@ def check_kernels(dev):
             v[:, :, first:] = 0
             return decode_attention.decode_attention(
                 q, kq, v, ks, vs, lengths=lens, bias=bias)
+
+        def rows_shifted(q, kq, vq, ks, vs, lens, bias):
+            return decode_attention.decode_attention(
+                q, kq, vq, ks, vs, lengths=lens,
+                bias=torch.roll(bias, 1, dims=2))
+        faults = [(f"the V rows of the last split's positions "
+                   f"({first}..{L - 1}) zeroed", last_split_zeroed)]
+        if rows is not None:
+            faults.append(("the bias rows shifted by one position",
+                           rows_shifted))
         cases.append(dict(
             name="decode_attention", label=label, make=make,
-            faults=[(f"the V rows of the last split's positions "
-                     f"({first}..{L - 1}) zeroed", last_split_zeroed)],
+            faults=faults,
             extra=dict(plan=decode_attention.decode_plan(8, 8, L)),
             in_bytes=nbytes(kq, vq, ks, vs, bias, *lib),
             kernel=lambda q, kq, vq, ks, vs, lens, bias:
@@ -441,6 +488,27 @@ def check_kernels(dev):
              f"generation self-attention on an f32 model: q (8, 8, 64) f32, "
              f"f32 K/V (8, 8, {GEN_MAX_LENGTH}, 64), bias, lengths 1..57",
              kv=torch.float32)
+
+    # generation with ALiBi and FIRE: the decode state's bias rows of each
+    # slot's position. ALiBi's asymmetric rows leave half the heads one
+    # finite position (the query's own; -1e29 elsewhere, the clamp of
+    # `kv_cache._self_bias`), so whole warp and cluster shares hold only
+    # masked positions; FIRE's rows are its MLP's output.
+    fire = positional.init_fire_params(gen, 8, init_L=128.0, device=dev)
+    for len_cap, lengths in ((GEN_MAX_LENGTH, [1, 9, 17, 25, 33, 41, 49, 57]),
+                             (512, [512, 449, 385, 300, 200, 129, 64, 2])):
+        dec_case(len_cap, lengths, True,
+                 f"generation self-attention with ALiBi's asymmetric rows: "
+                 f"q (8, 8, 64) bf16, bf16 K/V (8, 8, {len_cap}, 64), "
+                 f"lengths {lengths[0]}..{lengths[-1]}", kv=torch.bfloat16,
+                 rows=lambda lens, cap=len_cap: _decode_rows(
+                     lens, cap, "ALiBi"))
+    dec_case(GEN_MAX_LENGTH, [1, 9, 17, 25, 33, 41, 49, 57], True,
+             f"generation self-attention with FIRE's rows: q (8, 8, 64) "
+             f"bf16, bf16 K/V (8, 8, {GEN_MAX_LENGTH}, 64), lengths 1..57",
+             kv=torch.bfloat16,
+             rows=lambda lens: _decode_rows(lens, GEN_MAX_LENGTH, "FIRE",
+                                            fire))
 
     return run_checks(cases)
 
@@ -1017,17 +1085,8 @@ def run_engine(dev):
 
     # which kernels a decode step launches, and the device time of each by
     # name (the trace slows the host, so no wall time is read here)
-    from torch.profiler import ProfilerActivity
-    fill_slots()
-    with torch.profiler.profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, event = eng._window()
-        event.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    by_name = _kernels_by_name(lambda: eng._window()[1].synchronize(),
+                               setup=fill_slots)
     _require_kernels(by_name, (QMM_DECODE_BODY, DECODE_ATTN_BODY,
                                RMS_FWD_BODY), "one decode window")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
@@ -1169,6 +1228,13 @@ def run_paged_engine(dev):
                     t, n = kernels.get(e.name, (0.0, 0))
                     kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3,
                                        n + 1)
+            if not kernels:
+                # the profiler lost this window's records (see
+                # _kernels_by_name): the next committed window is profiled
+                EMPTY_PROFILES.append(dict(attempt=len(windows),
+                                           launched=ops.launch_counts()))
+                print("profile-empty " + json.dumps(EMPTY_PROFILES[-1]),
+                      flush=True)
         else:
             out = real_window(released, committed)
         windows.append(dict(wall_ms=(time.perf_counter() - t1) * 1e3,
@@ -1565,6 +1631,344 @@ def run_generation(dev):
 
 
 # ---------------------------------------------------------------------------
+# the positional encodings: ALiBi, RoPE and FIRE
+# ---------------------------------------------------------------------------
+
+# the tiny models' encodings (the five of the PE goldens)
+SMALL_ENCODINGS = {
+    "ALiBi": dict(position_encoding_type="ALiBi"),
+    "ALiBi asymmetric, 6 heads": dict(position_encoding_type="ALiBi",
+                                      alibi_mode="asymetric", num_heads=6),
+    "RoPE": dict(position_encoding_type="RoPE"),
+    "RoPE fraction 0.5, interleaved, xPos": dict(
+        position_encoding_type="RoPE", rotary_emb_fraction=0.5,
+        rotary_interleaved=True, rotary_scale_base=512.0),
+    "FIRE": dict(position_encoding_type="FIRE"),
+}
+# f32 on both sides, sums in other orders and another exp: the logits to
+# 1e-4 (absolute; they are O(1)), the loss to 1e-4 relative, each gradient
+# leaf to SMALL_GRAD_TOL of its largest entry, or of 1e-2 of the model's
+# largest gradient entry where that is more (a leaf whose gradient sums
+# terms that cancel exactly, FIRE's b2: each row of dS sums to 0, is
+# rounding noise on both sides: 1.6e-7 of the model's largest entry on an
+# H100); each planted fault is read in the same run and must land beyond
+SMALL_PE_LOGIT_TOL = 1e-4
+# the reference's logits through `pallas`: tests/test_golden_reference.py's
+# tolerance on the kernels' path (|gap| <= 5e-4 + 5e-4 |want|), the loss 1e-4
+GOLDEN_TOL = 5e-4
+
+
+def _encoding_faults(pet):
+    """A planted fault in the bias rows (ALiBi, FIRE: each row takes its
+    neighbour's) or in the rotation (RoPE: each position takes its
+    neighbour's angles): (name, context manager)."""
+    from flasht5_tpu_torch.models import t5
+    if pet == "RoPE":
+        real = t5.rope_tables
+
+        def rolled(*args):
+            return tuple(None if t is None else torch.roll(t, 1, 0)
+                         for t in real(*args))
+        return ("the rotation tables shifted by one position",
+                _patched(t5, "rope_tables", rolled))
+    real = t5._position_bias
+
+    def shifted(*args, **kw):
+        return torch.roll(real(*args, **kw), 1, dims=2)
+    return ("the bias rows shifted by one", _patched(t5, "_position_bias",
+                                                     shifted))
+
+
+def check_small_encodings(dev):
+    """Tiny f32 models (d_kv 64, 2+2 layers) for ALiBi symmetric, ALiBi
+    asymmetric with 6 heads, RoPE, RoPE with fraction 0.5, interleaved and
+    xPos, and FIRE, on `pallas`: the card (the bias kernels; RoPE the
+    kernels without a bias) against the CPU (their plain versions): the
+    forward's logits and loss, every gradient leaf (FIRE's MLP and scalars
+    included) and greedy `generate`'s tokens (`decode_attention` with the
+    bias rows, or the rotations, at every step). A planted fault in the
+    bias rows (RoPE: in the rotation) must move the logits beyond the
+    tolerance."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.inference import generate
+    from flasht5_tpu_torch.models import t5
+
+    base = dict(vocab_size=512, d_model=128, d_kv=64, num_heads=4, d_ff=256,
+                num_layers=2, num_decoder_layers=2, dropout_rate=0.0,
+                dtype="float32", attention_type="pallas",
+                use_fused_layernorm=True, use_fused_crossentropy=True,
+                z_loss=1e-4, pad_token_id=0)
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(2, 512, (2, 96)))
+    labels = torch.from_numpy(rng.integers(2, 512, (2, 40)))
+    labels[:, -5:] = -100
+    results = {}
+    for tag, kw in SMALL_ENCODINGS.items():
+        cfg = FlashT5Config(**dict(base, **kw))
+        cpu_params = t5.init_params(cfg, seed=5, device="cpu")
+
+        def step(device, cfg=cfg, cpu_params=cpu_params):
+            params = _to(copy.deepcopy(cpu_params), device)
+            leaves = t5.tree_leaves_with_path(params)
+            for _, p in leaves:
+                p.requires_grad_(True)
+            out = t5.forward(cfg, params, input_ids=ids.to(device),
+                             labels=labels.to(device))
+            out["loss"].backward()
+            return (out["logits"].detach().cpu(),
+                    float(out["loss"].detach()),
+                    [(path, p.grad.cpu()) for path, p in leaves])
+
+        want_logits, want_loss, want_grads = step("cpu")
+        logits, loss, grads = step(dev)
+        logit_gap = float((logits - want_logits).abs().max())
+        grad_gap, where = 0.0, None
+        floor = 1e-2 * max(float(w.abs().max()) for _, w in want_grads)
+        for (path, g), (_, w) in zip(grads, want_grads):
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   floor)
+            if rel > grad_gap:
+                grad_gap, where = rel, path
+        tokens = [generate(cfg, _to(cpu_params, device),
+                           ids[:, :48].to(device), max_length=16).cpu()
+                  for device in ("cpu", dev)]
+        name, fault = _encoding_faults(cfg.position_encoding_type)
+        with fault, torch.no_grad():
+            faulted = t5.forward(cfg, _to(cpu_params, dev),
+                                 input_ids=ids.to(dev),
+                                 labels=labels.to(dev))["logits"].cpu()
+        fault_gap = float((faulted - want_logits).abs().max())
+        results[tag] = dict(
+            logit_gap=logit_gap, loss_card=loss, loss_cpu=want_loss,
+            grad_gap=grad_gap, grad_gap_at=where,
+            greedy_equal=bool(torch.equal(tokens[0], tokens[1])),
+            fault=name, fault_logit_gap=fault_gap)
+        print(f"small-encoding ({tag}, pallas): {json.dumps(results[tag])} "
+              f"(tol: logits {SMALL_PE_LOGIT_TOL}, loss 1e-4 relative, "
+              f"gradients {SMALL_GRAD_TOL} of each leaf's largest entry, "
+              f"at least 1e-2 of the model's)", flush=True)
+        if not (logit_gap <= SMALL_PE_LOGIT_TOL
+                and abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+                and grad_gap <= SMALL_GRAD_TOL):
+            raise AssertionError(f"tiny {tag} model: card and cpu differ: "
+                                 f"{results[tag]}")
+        if not torch.equal(tokens[0], tokens[1]):
+            raise AssertionError(f"tiny {tag} model: greedy tokens card "
+                                 f"{tokens[1].tolist()} != cpu "
+                                 f"{tokens[0].tolist()}")
+        if not fault_gap > SMALL_PE_LOGIT_TOL:
+            raise AssertionError(f"tiny {tag} model: planted fault ({name}) "
+                                 f"moves the logits by {fault_gap}")
+    return results
+
+
+def check_goldens(dev):
+    """The ten original PyTorch FAT5 goldens (`tests/golden/ref_*.npz`: the
+    reference's weights, inputs, logits and loss; d_kv 16, which the
+    attention wrappers zero-pad to the kernels' 32) imported by the port
+    and run through `pallas` on the card, f32: the logits within GOLDEN_TOL
+    (absolute and relative) of the reference's, the loss within 1e-4."""
+    import glob
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.convert.hf_import import state_dict_to_params
+    from flasht5_tpu_torch.models import t5
+
+    paths = sorted(glob.glob(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+        "ref_*.npz")))
+    if len(paths) != 10:
+        raise AssertionError(f"expected the ten goldens, found {paths}")
+    results = {}
+    for path in paths:
+        z = np.load(path)
+        cfg_json = json.loads(bytes(z["config_json"]).decode())
+        sd = {k[4:]: z[k] for k in z.files if k.startswith("sd::")
+              and not k.endswith("embed_tokens.weight")}
+        cfg = FlashT5Config.from_dict(dict(
+            cfg_json, dtype="float32", param_dtype="float32",
+            attention_type="pallas",
+            use_full_bias_size=bool(cfg_json.get("use_full_bias_size")
+                                    or cfg_json.get("use_masking"))))
+        params = state_dict_to_params(sd, device=dev)
+        with torch.no_grad():
+            out = t5.forward(cfg, params, **{
+                k: torch.from_numpy(z[k]).to(dev)
+                for k in ("input_ids", "attention_mask", "labels")})
+        want = torch.from_numpy(z["logits"])
+        got = out["logits"].cpu()
+        share = float(((got - want).abs()
+                       / (GOLDEN_TOL + GOLDEN_TOL * want.abs())).max())
+        loss_gap = abs(float(out["loss"]) - float(z["loss"]))
+        tag = os.path.basename(path)[4:-4]
+        results[tag] = dict(
+            position_encoding_type=cfg.position_encoding_type, d_kv=cfg.d_kv,
+            max_abs_err=float((got - want).abs().max()), worst_share=share,
+            loss_gap=loss_gap)
+        if not (share <= 1.0 and loss_gap < 1e-4):
+            raise AssertionError(f"golden {tag} on the card: {results[tag]}")
+    print(f"goldens through pallas on the card (logits within {GOLDEN_TOL} "
+          f"+ {GOLDEN_TOL} |want| of the reference's, loss within 1e-4): "
+          + json.dumps(results), flush=True)
+    return results
+
+
+# the bias kernels' and the RPE kernels' bias sources (csrc/attention.cuh):
+# the materialized bias (ALiBi, FIRE) and the table, null without one (RoPE)
+BIAS_SOURCE = "TensorBiasT"
+NO_BIAS_SOURCE = "TableBiasT"
+ATTN_BODIES = ("fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel")
+# the kernels each encoding's full-width path runs: on `pallas` the
+# encoder's and the decoder's self-attention take the bias kernels (RoPE:
+# the kernels without a bias), the cross-attention the RPE kernels without
+# a table
+BIAS_TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
+                 "flash_attention_bwd", "flash_attention_bias",
+                 "flash_attention_bias_dkv", "flash_attention_bias_dq",
+                 "cross_entropy_fwd", "cross_entropy_bwd")
+BIAS_GENERATION = ("rms_norm", "flash_attention_bias", "quant_matmul",
+                   "decode_attention")
+FULL_ENCODINGS = {
+    "ALiBi": dict(position_encoding_type="ALiBi"),
+    # at max_sequence_length 2048 the draw is not the identity (the
+    # training length is 1024)
+    "RoPE": dict(position_encoding_type="RoPE",
+                 use_randomized_position_encoding=True,
+                 max_sequence_length=2048),
+    "FIRE": dict(position_encoding_type="FIRE"),
+}
+
+
+def run_encodings(dev):
+    """FAT5-small widths (`flagship_config()` with `attention_type="pallas"`)
+    with ALiBi (symmetric), RoPE (randomized positions up to 2048, gradient
+    accumulation over 2 micro-batches) and FIRE. Each: `Trainer.train` for
+    a warm-up step, then a counted run (every launch count set to 0 just
+    before it, read just after; each kernel of the path must launch) of 4
+    steps at 8 x (1024 + 256) tokens (RoPE: 6 micro-batches, 3 updates)
+    whose losses must be finite and falling; a profiled step's device ms
+    and kernels (the attention's tensor-core bodies on the bias source, or
+    on none for RoPE) and the peak memory. Then greedy `generate` of 8 x 64
+    tokens from 512-token inputs with int8 weights, counted; a decode
+    step's wall, device ms and kernels (`decode_attn_kernel` among them)."""
+    from flasht5_tpu_torch import flagship_config, ops
+    from flasht5_tpu_torch.inference import decode_step, generate
+    from flasht5_tpu_torch.inference import init_decode_state
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.quantize import quantize_params
+    from flasht5_tpu_torch.train import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(0)
+    results, launches_by_path = {}, {}
+    for pe, extra in FULL_ENCODINGS.items():
+        cfg = flagship_config().replace(attention_type="pallas", **extra)
+        k = 2 if cfg.use_randomized_position_encoding else 1
+        tcfg = TrainerConfig(learning_rate=1e-3, weight_decay=0.0,
+                             lr_scheduler="constant", max_steps=10 ** 6,
+                             logging_steps=1, seed=0,
+                             gradient_accumulation_steps=k)
+        trainer = Trainer(cfg, tcfg, device=dev)
+        batch = {"input_ids": rng.integers(0, cfg.vocab_size, (
+                     TRAIN_B, TRAIN_ENC)).astype(np.int32),
+                 "labels": rng.integers(0, cfg.vocab_size, (
+                     TRAIN_B, TRAIN_DEC)).astype(np.int32)}
+        warm = [e["loss"] for e in trainer.train([batch] * k)["logs"]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n = 3 * k if k > 1 else 4
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [e["loss"] for e in trainer.train([batch] * n)["logs"]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = warm + losses
+        path = TRAINING if pe == "RoPE" else BIAS_TRAINING
+        missing = [name for name in path if launches[name] <= 0]
+        if missing:
+            raise AssertionError(f"{pe} training launched no {missing}")
+        if not (all(np.isfinite(losses))
+                and np.mean(losses[-k:]) < np.mean(losses[:k])):
+            raise AssertionError(f"{pe} training losses {losses}")
+        db = trainer._device_batch(batch)
+        # one update: k micro-batches
+        by_name = _kernels_by_name(lambda: [trainer._step(db)
+                                            for _ in range(k)])
+        source = NO_BIAS_SOURCE if pe == "RoPE" else BIAS_SOURCE
+        _require_kernels({name: v for name, v in by_name.items()
+                          if source in name}, ATTN_BODIES,
+                         f"one {pe} train step, on {source}")
+        tokens = n * TRAIN_B * (TRAIN_ENC + TRAIN_DEC)
+        train = dict(
+            micro_batches=n, gradient_accumulation_steps=k,
+            randomized_positions=cfg.use_randomized_position_encoding,
+            max_sequence_length=cfg.max_sequence_length, losses=losses,
+            wall_s=wall, tokens_per_s=tokens / wall,
+            launches_per_micro_batch={name: c / n for name, c in
+                                      launches.items() if c},
+            update_device_ms=sum(t for t, _ in by_name.values()),
+            update_kernels=sum(c for _, c in by_name.values()),
+            peak_memory_bytes=peak)
+        print(f"{pe} training (FAT5-small widths, pallas, batch {TRAIN_B} x "
+              f"({TRAIN_ENC} + {TRAIN_DEC})): {json.dumps(train)} (device: "
+              f"one profiled update, {k} micro-batch(es))", flush=True)
+        launches_by_path[f"{pe}_training"] = launches
+        del trainer, db
+        torch.cuda.empty_cache()
+
+        params = quantize_params(t5.init_params(cfg, seed=0, device=dev),
+                                 "int8")
+        ids = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                            size=(8, 512))).to(dev)
+        generate(cfg, params, ids, max_length=2)        # plans, warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate(cfg, params, ids, max_length=GEN_MAX_LENGTH)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        path = GENERATION if pe == "RoPE" else BIAS_GENERATION
+        missing = [name for name in path if launches[name] <= 0]
+        if missing:
+            raise AssertionError(f"{pe} generation launched no {missing}")
+        _check_generated(cfg, out, 8, GEN_MAX_LENGTH)
+        n_tok = _returned_tokens(cfg, out)
+        state = init_decode_state(cfg, params, t5.encode(cfg, params, ids),
+                                  GEN_MAX_LENGTH)
+        tok = out[:, 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):
+            decode_step(cfg, params, state._replace(t=8 + i), tok)
+        torch.cuda.synchronize()
+        step_wall = (time.perf_counter() - t0) * 1e3 / 8
+        by_name = _kernels_by_name(lambda: decode_step(
+            cfg, params, state._replace(t=16), tok))
+        _require_kernels(by_name, (DECODE_ATTN_BODY, QMM_DECODE_BODY),
+                         f"one {pe} decode step")
+        steps = launches["decode_attention"] // (2 * cfg.num_decoder_layers)
+        gen = dict(wall_s=gen_wall, tokens=n_tok,
+                   tokens_per_s=n_tok / gen_wall, decode_steps=steps,
+                   launches={name: c for name, c in launches.items() if c},
+                   step_wall_ms=step_wall,
+                   step_device_ms=sum(t for t, _ in by_name.values()),
+                   step_kernels=sum(c for _, c in by_name.values()))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"{pe} generation (FAT5-small widths, int8 weights, bf16 "
+              f"caches, 8 inputs x 512 tokens, max_length "
+              f"{GEN_MAX_LENGTH}): {json.dumps(gen)}; decode step's top "
+              f"kernels " + json.dumps([{"name": name[:80], "ms": t,
+                                        "launches": c}
+                                       for name, (t, c) in top]), flush=True)
+        launches_by_path[f"{pe}_generation"] = launches
+        results[pe] = dict(training=train, generation=gen)
+        del params, state
+        torch.cuda.empty_cache()
+    return launches_by_path, results
+
+
+# ---------------------------------------------------------------------------
 # training: kernel checks at the train step's shapes
 # ---------------------------------------------------------------------------
 
@@ -1584,8 +1988,12 @@ def check_training_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev)
+    # the RoPE rows draw from a generator of their own, so that the other
+    # rows' inputs do not depend on which rows follow them
+    rope_gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0, generator=None):
+        return (torch.randn(shape, generator=generator or gen, device=dev)
                 * scale).to(dtype)
 
     cases = []
@@ -1657,31 +2065,34 @@ def check_training_kernels(dev):
                  "w f32 unrounded, dW f32", cast_w=False)
 
     # -- attention backward (CUDA) and the forward without a table -------
-    def attn_case(m_len, n_len, causal, table, label, main=False):
+    def attn_case(m_len, n_len, causal, table, label, main=False, g=None):
         b, h, d = TRAIN_B, 8, 64
         kw = dict(causal=causal, bidirectional=not causal, sm_scale=1.0)
+        # without a table the library call takes its own causal mask
+        lib_causal = causal and not table
 
         def make():
-            q, do = randn(b, h, m_len, d), randn(b, h, m_len, d)
-            k, v = randn(b, h, n_len, d), randn(b, h, n_len, d)
+            q, do = (randn(b, h, m_len, d, generator=g),
+                     randn(b, h, m_len, d, generator=g))
+            k, v = (randn(b, h, n_len, d, generator=g),
+                    randn(b, h, n_len, d, generator=g))
             w = (randn(32, h, dtype=torch.float32, scale=0.5)
                  if table else None)
             o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w,
                                                                  **kw)
             delta = (do.float() * o.float()).sum(-1)
             mask = None
-            if table or causal:
-                mask = torch.zeros((m_len, n_len), device=dev)
-                if table:
-                    mask = positional.t5_relative_bias(
-                        {"relative_attention_bias": w}, m_len, n_len,
-                        bidirectional=not causal)
+            if table:
+                mask = positional.t5_relative_bias(
+                    {"relative_attention_bias": w}, m_len, n_len,
+                    bidirectional=not causal)
                 if causal:
                     mask = torch.where(flash_attention_rpe._visible(
                         m_len, n_len, True, dev), mask, -1e30)
                 mask = mask.to(torch.bfloat16)
             ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
             out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                 is_causal=lib_causal,
                                                  scale=1.0)
             return ((q, k, v, w, lse, delta, do),
                     (out, ql, kl, vl, do))
@@ -1706,6 +2117,12 @@ def check_training_kernels(dev):
                             .flash_attention_dw_abs_plain(
                                 q, k, v, w, lse, delta, do, **kw))
             return lims
+        if main:
+            faults = [("the bucket one above", _bucket_one_above(kernel))]
+        elif not table:
+            faults = [_keys_rolled(kernel)]
+        else:
+            faults = []
         cases.append(dict(
             name="flash_attention_bwd", label=label, make=make, outputs=4,
             in_bytes=8 * nbytes(q) + 2 * nbytes(lse),
@@ -1713,13 +2130,13 @@ def check_training_kernels(dev):
             plain=lambda q, k, v, w, lse, delta, do:
                 flash_attention_rpe.flash_attention_bwd_plain(
                     q, k, v, w, lse, delta, do, **kw),
-            faults=([("the bucket one above", _bucket_one_above(kernel))]
-                    if main else []),
+            faults=faults,
             library=lambda out, q, k, v, do: torch.autograd.grad(
                 out, (q, k, v), do, retain_graph=True),
             library_note="autograd backward of F.scaled_dot_product_attention"
                          + (" with the bias as a float mask; no dW"
-                            if table else ""),
+                            if table else
+                            ", is_causal" if lib_causal else ""),
             limits=limits,
             bytes=nbytes(q, k, v, do) + nbytes(q) + nbytes(q, k, v)
             + nbytes(lse) + (nbytes(w) if table else 0),
@@ -1737,41 +2154,63 @@ def check_training_kernels(dev):
               "cross q (8,8,256,64), k,v (8,8,1024,64) bf16, no table")
     attn_case(TRAIN_DEC, TRAIN_DEC, True, True,
               "decoder self q,k,v (8,8,256,64) bf16, causal, table")
+    # RoPE's self-attention: the same shapes without a table
+    attn_case(TRAIN_ENC, TRAIN_ENC, False, False,
+              "RoPE encoder q,k,v (8,8,1024,64) bf16, bidirectional, "
+              "no table", g=rope_gen)
+    attn_case(TRAIN_DEC, TRAIN_DEC, True, False,
+              "RoPE decoder self q,k,v (8,8,256,64) bf16, causal, no table",
+              g=rope_gen)
 
     # the forward at the train step's shapes: the encoder's (with the
-    # table) and the cross-attention's (without)
-    def fwd_case(m_len, table, label):
+    # table), the cross-attention's, and RoPE's encoder and causal decoder
+    # self-attention (without)
+    def fwd_case(m_len, n_len, causal, table, label, g=None):
+        kw = dict(causal=causal, bidirectional=not causal)
+        pairs = m_len * n_len
+        if causal:
+            pairs = int(flash_attention_rpe._visible(m_len, n_len, True,
+                                                     "cpu").sum())
+
         def make():
-            q = randn(TRAIN_B, 8, m_len, 64)
-            k, v = (randn(TRAIN_B, 8, TRAIN_ENC, 64),
-                    randn(TRAIN_B, 8, TRAIN_ENC, 64))
+            q = randn(TRAIN_B, 8, m_len, 64, generator=g)
+            k, v = (randn(TRAIN_B, 8, n_len, 64, generator=g),
+                    randn(TRAIN_B, 8, n_len, 64, generator=g))
             w = (randn(32, 8, dtype=torch.float32, scale=0.5)
                  if table else None)
             bias = None if w is None else positional.t5_relative_bias(
-                {"relative_attention_bias": w}, m_len, TRAIN_ENC
-            ).to(torch.bfloat16)
+                {"relative_attention_bias": w}, m_len, n_len,
+                bidirectional=not causal).to(torch.bfloat16)
             return (q, k, v, w), (q, k, v, bias)
         (q, k, v, w), _ = make()
+        assert not (causal and table)
         cases.append(dict(
             name="flash_attention_rpe", label=label, make=make,
-            in_bytes=nbytes(q, k, v) + (8 * m_len * TRAIN_ENC * 2
+            in_bytes=nbytes(q, k, v) + (8 * m_len * n_len * 2
                                         if table else 0),
-            kernel=flash_attention_rpe.flash_attention_rpe_fwd,
-            plain=flash_attention_rpe.flash_attention_rpe_plain,
+            kernel=lambda q, k, v, w: flash_attention_rpe
+            .flash_attention_rpe_fwd(q, k, v, w, **kw),
+            plain=lambda q, k, v, w: flash_attention_rpe
+            .flash_attention_rpe_plain(q, k, v, w, **kw),
             library=lambda q, k, v, bias: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias, scale=1.0),
+                q, k, v, attn_mask=bias, is_causal=causal, scale=1.0),
             library_note="F.scaled_dot_product_attention"
-                         + (", the bias as a float mask" if table else ""),
+                         + (", the bias as a float mask" if table else
+                            ", is_causal" if causal else ""),
             atol=2e-2, rtol=BF16_ULP, bytes=nbytes(q, k, v) + nbytes(q)
             + TRAIN_B * 8 * m_len * 4 + (nbytes(w) if table else 0),
-            ops=4 * TRAIN_B * 8 * m_len * TRAIN_ENC * 64, ops_type="bf16",
-            main=False, faults=[_keys_rolled()],
+            ops=4 * TRAIN_B * 8 * pairs * 64, ops_type="bf16",
+            main=False, faults=[_keys_rolled(**kw)],
             why="bf16 output and P rounded to bf16 against per-tile maxima"))
 
-    fwd_case(TRAIN_ENC, True, "encoder forward q,k,v (8,8,1024,64) bf16, "
-             "bidirectional, table")
-    fwd_case(TRAIN_DEC, False, "cross forward q (8,8,256,64), k,v "
-             "(8,8,1024,64) bf16, no table")
+    fwd_case(TRAIN_ENC, TRAIN_ENC, False, True, "encoder forward q,k,v "
+             "(8,8,1024,64) bf16, bidirectional, table")
+    fwd_case(TRAIN_DEC, TRAIN_ENC, False, False, "cross forward q "
+             "(8,8,256,64), k,v (8,8,1024,64) bf16, no table")
+    fwd_case(TRAIN_ENC, TRAIN_ENC, False, False, "RoPE encoder forward "
+             "q,k,v (8,8,1024,64) bf16, bidirectional, no table", g=rope_gen)
+    fwd_case(TRAIN_DEC, TRAIN_DEC, True, False, "RoPE decoder self forward "
+             "q,k,v (8,8,256,64) bf16, causal, no table", g=rope_gen)
 
     # -- cross-entropy forward and backward (Triton) ----------------------
     rows, vocab = TRAIN_B * TRAIN_DEC, 32768
@@ -1848,9 +2287,14 @@ def check_bias_kernels(dev):
     clamp). The library yardstick: F.scaled_dot_product_attention with the
     bias as a float attn_mask, and for the backward its autograd with the
     mask requiring grad (dq, dk, dv and dbias in one call); the kernels it
-    runs are printed. Planted faults at the driver's encoder shape: the bias
-    rows shifted by one (each kernel), and dbias summed over the heads as
-    well as the batch."""
+    runs are printed. The biases of the other encodings at the train step's
+    shapes (batch 8): ALiBi's asymmetric one (half the heads with the future
+    at -inf, half with the past, clamped at -1e29 as the wrapper clamps
+    them) at the encoder and the causal decoder, and FIRE's (its MLP's
+    output, whose dbias trains the MLP) at the encoder. Planted faults at
+    the pretraining encoder shape and at each of those: the bias rows shifted
+    by one (each kernel), and dbias summed over the heads as well as the
+    batch."""
     from flasht5_tpu_torch import positional
     from flasht5_tpu_torch.ops import flash_attention as fa
     from flasht5_tpu_torch.ops import flash_attention_rpe as rpe
@@ -1872,10 +2316,10 @@ def check_bias_kernels(dev):
             return fn(q, k, v, torch.roll(bias, 1, dims=2), *rest)
         return fault
 
-    def wrong_axis(*args):
+    def wrong_axis(*args, **kw):
         with _patched(fa, "_reduce", lambda full, shape: full.sum(
                 (0, 1), keepdim=True).expand(shape)):
-            return fa.flash_attention_bias_dkv(*args)
+            return fa.flash_attention_bias_dkv(*args, **kw)
 
     def fwd_lib(q, k, v, mask, *rest):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -1902,6 +2346,7 @@ def check_bias_kernels(dev):
                 + BF16_ULP * dq.float().abs()]
 
     cases, yardsticks = [], {}
+    fire = positional.init_fire_params(gen, 8, init_L=128.0, device=dev)
     shapes = [
         ("encoder", 64, 1024, 1024, False, "t5", True),
         ("decoder self", 64, 256, 256, True, "t5", False),
@@ -1909,9 +2354,13 @@ def check_bias_kernels(dev):
         ("decoder self", 8, 256, 256, True, "t5", False),
         ("ragged", 8, 300, 700, True, "11", False),
         ("masked rows", 8, 512, 512, False, "bh", False),
+        ("ALiBi encoder", 8, 1024, 1024, False, "alibi_asym", False),
+        ("ALiBi decoder self", 8, 256, 256, True, "alibi_asym", False),
+        ("FIRE encoder", 8, 1024, 1024, False, "fire", False),
     ]
     for tag, b, m_len, n_len, causal, form, main in shapes:
         kw = dict(causal=causal, sm_scale=1.0)
+        faulted = main or form in ("alibi_asym", "fire")
 
         def make(b=b, m_len=m_len, n_len=n_len, causal=causal, form=form,
                  kw=kw):
@@ -1919,6 +2368,12 @@ def check_bias_kernels(dev):
             k, v = randn(b, 8, n_len, 64), randn(b, 8, n_len, 64)
             if form == "t5":
                 bias = t5_bias(m_len, n_len, causal)
+            elif form == "alibi_asym":
+                bias = positional.alibi_bias(
+                    8, m_len, n_len, mode="asymetric",
+                    device=dev).clamp_min(-1e29)
+            elif form == "fire":
+                bias = positional.fire_bias(fire, m_len)
             elif form == "11":
                 bias = randn(1, 1, m_len, n_len, dtype=torch.float32)
             else:     # use_masking's fold of padded query rows, clamped
@@ -1963,9 +2418,9 @@ def check_bias_kernels(dev):
             plain=lambda q, k, v, bias, *rest, kw=kw:
                 fa.flash_attention_bias_plain(q, k, v, bias, **kw),
             faults=([("bias rows shifted by one", shifted(
-                lambda q, k, v, bias, *rest:
-                    fa.flash_attention_bias_fwd(q, k, v, bias)))]
-                    if main else []),
+                lambda q, k, v, bias, *rest, kw=kw:
+                    fa.flash_attention_bias_fwd(q, k, v, bias, **kw)))]
+                    if faulted else []),
             library=fwd_lib,
             library_note="F.scaled_dot_product_attention, the bias as a "
                          "bf16 float mask",
@@ -1980,9 +2435,11 @@ def check_bias_kernels(dev):
             plain=lambda *a, kw=kw: fa.flash_attention_bias_dkv_plain(*a,
                                                                      **kw),
             faults=([("bias rows shifted by one",
-                      shifted(fa.flash_attention_bias_dkv)),
+                      shifted(lambda *a, kw=kw:
+                              fa.flash_attention_bias_dkv(*a, **kw))),
                      ("dbias summed over the heads as well as the batch",
-                      wrong_axis)] if main else []),
+                      lambda *a, kw=kw: wrong_axis(*a, **kw))]
+                    if faulted else []),
             library=bwd_lib, library_note=bwd_note, limits=grad_limits,
             bytes=nbytes(q, k, v, do, lse, delta, bias) + nbytes(k, v)
             + bias.numel() * 4, ops=8 * bh_ops,
@@ -1997,7 +2454,9 @@ def check_bias_kernels(dev):
             plain=lambda *a, kw=kw: fa.flash_attention_bias_dq_plain(*a,
                                                                     **kw),
             faults=([("bias rows shifted by one",
-                      shifted(fa.flash_attention_bias_dq))] if main else []),
+                      shifted(lambda *a, kw=kw:
+                              fa.flash_attention_bias_dq(*a, **kw)))]
+                    if faulted else []),
             library=bwd_lib, library_note=bwd_note, limits=dq_limits,
             bytes=nbytes(q, k, v, do, lse, delta, bias) + nbytes(q),
             ops=6 * bh_ops,
@@ -2406,21 +2865,51 @@ def _small_training_step(dev, tag, cfg, batch, faults):
 # training: the full-width FAT5-small train step through Trainer.train
 # ---------------------------------------------------------------------------
 
-def _kernels_by_name(fn):
-    """{kernel name: (device ms, launches)} of one profiled call of fn."""
+# profiles that recorded no device event at all, each retaken (see
+# _kernels_by_name)
+EMPTY_PROFILES = []
+
+
+def _kernels_by_name(fn, setup=None, tries: int = 3):
+    """{kernel name: (device ms, launches)} of one profiled call of fn
+    (`setup()` runs first, outside the profile).
+
+    A profile that holds no device event at all says nothing of which
+    kernels fn ran (fn always launches some): the profiler lost the
+    session's activity records, as it did about once in twenty smoke
+    runs under torch 2.11. Such a profile is retaken, up to `tries` in
+    all, each printed with the launches the port's wrappers counted
+    meanwhile. A profile that holds kernels is never retaken, so a
+    dispatch to the wrong form always fails its gate."""
     from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        # kernels only: a record_function range (the optimizer's step)
-        # also shows on the device's timeline, spanning its kernels
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+
+    from flasht5_tpu_torch import ops
+    for attempt in range(tries):
+        if setup is not None:
+            setup()
+        counted = ops.launch_counts()
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            # kernels only: a record_function range (the optimizer's
+            # step) also shows on the device's timeline, spanning its
+            # kernels
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                t, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3,
+                                   n + 1)
+        if by_name:
+            return by_name
+        launched = {name: n - counted[name]
+                    for name, n in ops.launch_counts().items()
+                    if n != counted[name]}
+        EMPTY_PROFILES.append(dict(attempt=attempt, launched=launched))
+        print("profile-empty " + json.dumps(EMPTY_PROFILES[-1]),
+              flush=True)
     return by_name
 
 
@@ -2454,7 +2943,8 @@ def _require_kernels(by_name, bodies, what):
                  if b in name] for b in bodies}
     missing = [b for b, ks in found.items() if not ks]
     if missing:
-        raise AssertionError(f"{what} ran no {missing}")
+        raise AssertionError(f"{what} ran no {missing}; the profile holds "
+                             f"{[name[:70] for name in by_name][:12]}")
     print(f"{what} runs " + json.dumps(
         {b: [{"name": name[:100], "ms": t, "launches": n}
              for name, t, n in ks] for b, ks in found.items()}), flush=True)
@@ -3042,6 +3532,7 @@ def main() -> int:
     from flasht5_tpu_torch import runtime
 
     import triton
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3068,10 +3559,14 @@ def main() -> int:
     check_small_paged(dev)
     check_small_training(dev)
     check_small_generation(dev)
+    small_encodings = check_small_encodings(dev)
+    goldens = check_goldens(dev)
     served_launches, served = run_engine(dev)
     paged_launches, paged = run_paged_engine(dev)
     torch.cuda.empty_cache()
     gen_launches, generated = run_generation(dev)
+    torch.cuda.empty_cache()
+    encoding_launches, encodings = run_encodings(dev)
     torch.cuda.empty_cache()
     trained_launches, fused_launches, trained = run_training(dev)
     torch.cuda.empty_cache()
@@ -3101,9 +3596,18 @@ def main() -> int:
             by_path["scoring_flan_base"] = wide_launches[name]
         if name in FUSED_TRAINING:
             by_path["fused_training"] = fused_launches[name]
+        for pe in FULL_ENCODINGS:
+            bias = pe != "RoPE"
+            if name in (BIAS_TRAINING if bias else TRAINING):
+                by_path[f"{pe}_training"] = encoding_launches[
+                    f"{pe}_training"][name]
+            if name in (BIAS_GENERATION if bias else GENERATION):
+                by_path[f"{pe}_generation"] = encoding_launches[
+                    f"{pe}_generation"][name]
         # launches_by_path: each path's median run (the slot engine's, the
         # paged engine's, the training loops', unfused and fused), the
-        # scoring's one run, greedy generation's one run, or, for the
+        # scoring's one run, greedy generation's one run, each encoding's
+        # counted training run and greedy generation, or, for the
         # pretraining driver, its two runs,
         # each counted from 0 just before it;
         # launches: their sum over the paths that run the kernel
@@ -3121,6 +3625,11 @@ def main() -> int:
     print(json.dumps({"scoring": scored}))
     print(json.dumps({"scoring_flan_base": wide_scored}))
     print(json.dumps({"pretraining": pretrained}))
+    print(json.dumps({"encodings": dict(small=small_encodings,
+                                        goldens=goldens,
+                                        full_width=encodings)}))
+    print("empty profiles retaken " + json.dumps(EMPTY_PROFILES), flush=True)
+    print(f"smoke wall {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3280,6 +3789,42 @@ def probe(dev) -> int:
     return 0
 
 
+def profile_probe(dev, tries: int) -> int:
+    """`python3 chip_smoke.py --profile-probe N`: N rounds of the smoke's
+    order around its first kernel gate (a profile of SDPA's forward on a
+    bf16 mask at the train encoder's shape, one of its backward, then one
+    of the fused lm_head+CE forward at (2048, 512) x (512, 32768) f32), and
+    a "profile-probe" line: the rounds whose last profile held no
+    `flce_fwd_wgmma_kernel` after its retakes, with the kernels such a
+    profile held, and every profile that held no device event at all."""
+    from flasht5_tpu_torch.ops import fused_linear_ce as flce
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2048, 512), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((512, 32768), generator=gen, device=dev)
+    q, k, v = (torch.randn((8, 8, 1024, 64), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = torch.randn((1, 8, 1024, 1024), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    flce.fused_linear_ce_fwd(x, w)
+    torch.cuda.synchronize()
+    misses = []
+    for i in range(tries):
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        _kernels_by_name(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0))
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                             scale=1.0)
+        _kernels_by_name(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), out, retain_graph=True))
+        by_name = _kernels_by_name(lambda: flce.fused_linear_ce_fwd(x, w))
+        if not any(FLCE_FWD_BODY in name for name in by_name):
+            misses.append(dict(round=i, held=[n[:60] for n in by_name]))
+    print("profile-probe " + json.dumps(dict(tries=tries, misses=misses,
+                                             empty=EMPTY_PROFILES)),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--probe"]:
         if len(sys.argv) > 2:
@@ -3289,4 +3834,8 @@ if __name__ == "__main__":
         print(sh("nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader").splitlines()[0], flush=True)
         sys.exit(probe(torch.device("cuda", 0)))
+    if sys.argv[1:2] == ["--profile-probe"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        sys.exit(profile_probe(torch.device("cuda", 0), int(sys.argv[2])))
     sys.exit(main())

@@ -177,6 +177,13 @@ class InferenceEngine:
     def __init__(self, config: FlashT5Config, params, ecfg: EngineConfig,
                  device=None):
         t5.check_supported(config)
+        if config.position_encoding_type != "t5":
+            # the JAX package's engine builds only the T5 bias
+            # (flasht5_tpu/inference/engine.py:335 and :575) and serves
+            # the other encodings with no position signal at all
+            raise NotImplementedError(
+                f"InferenceEngine serves the T5 relative bias only, not "
+                f"{config.position_encoding_type}")
         if ecfg.spec_window >= 2:
             raise NotImplementedError("speculative windows are not ported yet")
         if ecfg.kv_dtype not in ("native", "int8"):

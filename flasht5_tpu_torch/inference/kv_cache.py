@@ -10,13 +10,23 @@ counter `t` is a host integer, so a step reads nothing back from the card.
 Attention inside a step is routed by the window's width Q:
 - Q = 1 (`decode_step`, generation's every step): the single-query kernel
   `ops.decode_attention.decode_attention` for the self-attention (lengths
-  t + 1, the T5 bias row of position t) and the cross-attention (every
+  t + 1, the bias row of position t) and the cross-attention (every
   encoder position, no bias);
 - Q > 1 (speculative verify windows): plain PyTorch, f32 scores and a
   softmax, causal within the window, as the JAX package computes it
   (`_single_query_attention`, outside any Pallas kernel); the single-query
   kernel takes one query a row.
-Only the T5 relative bias is ported (`t5.check_supported`).
+
+Positional encodings as in the JAX package: the T5, ALiBi and FIRE bias
+rows of positions t..t+Q-1 against every cache position are built at layer
+0 and reused in every layer (FIRE computes only those rows; JAX slices them
+from the full square, the same values). ALiBi's asymmetric -inf entries
+are clamped at -1e29, as the bias kernels' wrapper clamps them: a warp's
+share of the single-query kernel whose positions all lie in the masked
+half would otherwise take exp(-inf - (-inf)); the query's own position is
+always finite, so the softmax is unchanged. RoPE rotates the cross K (and
+V) by encoder position once, and q and the new K/V rows at positions
+t..t+Q-1 and the cross q at t..t+Q-1 each step.
 """
 
 from __future__ import annotations
@@ -53,31 +63,46 @@ def _proj_heads(x: torch.Tensor, w, num_heads: int, d_kv: int
     return t5._matmul(x, w).reshape(b, n, num_heads, d_kv).transpose(1, 2)
 
 
+def _rotated(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+             config: FlashT5Config) -> torch.Tensor:
+    """x (B, H, L, D) rotated by the tables' L rows."""
+    return positional.apply_rotary(
+        x.transpose(1, 2), cos, sin,
+        interleaved=config.rotary_interleaved).transpose(1, 2)
+
+
 def init_decode_state(config: FlashT5Config, params,
                       encoder_hidden_states: torch.Tensor,
                       max_decode_len: int,
                       encoder_mask: Optional[torch.Tensor] = None
                       ) -> DecodeState:
     """Allocate self caches and precompute cross K/V from the encoder
-    output."""
+    output (rotated by encoder position under RoPE)."""
     t5.check_supported(config)
-    b = encoder_hidden_states.shape[0]
+    b, n_enc = encoder_hidden_states.shape[:2]
     dkv = config.d_kv
     dt = encoder_hidden_states.dtype
     dev = encoder_hidden_states.device
+    rope = config.position_encoding_type == "RoPE"
+    if rope:
+        _, _, ck, sk = (t[:n_enc] for t in t5.rope_tables_for(
+            config, n_enc, dev))
     layers = []
     for blk in params["decoder"]["block"]:
         ca = blk["cross_attention_layer"]["cross_attention"]
         h = ca["Wk"].shape[1] // dkv
+        cross_k = _proj_heads(encoder_hidden_states, ca["Wk"], h, dkv)
+        cross_v = _proj_heads(encoder_hidden_states, ca["Wv"], h, dkv)
+        if rope:
+            cross_k = _rotated(cross_k, ck, sk, config)
+            if config.rope_rotate_v:
+                cross_v = _rotated(cross_v, ck, sk, config)
         layers.append(LayerCache(
             self_k=torch.zeros((b, h, max_decode_len, dkv), dtype=dt,
                                device=dev),
             self_v=torch.zeros((b, h, max_decode_len, dkv), dtype=dt,
                                device=dev),
-            cross_k=_proj_heads(encoder_hidden_states, ca["Wk"], h,
-                                dkv).contiguous(),
-            cross_v=_proj_heads(encoder_hidden_states, ca["Wv"], h,
-                                dkv).contiguous()))
+            cross_k=cross_k.contiguous(), cross_v=cross_v.contiguous()))
     return DecodeState(tuple(layers), encoder_mask, 0)
 
 
@@ -99,19 +124,19 @@ def _window_attention(q, k, v, bias, scale, valid):
     return torch.einsum("bhqn,bhnd->bhqd", p, v.float()).to(q.dtype)
 
 
-def _self_bias(config: FlashT5Config, table: torch.Tensor, t: int,
-               q_len: int, max_len: int) -> torch.Tensor:
-    """The T5 bias rows of positions t..t+q_len-1 against every cache
-    position, (1, H, q_len, max_len) f32 (decoder: unidirectional)."""
-    dev = table.device
-    lut = positional.bucket_lut(
-        -(max_len - 1), max_len - 1, bidirectional=False,
-        num_buckets=config.relative_attention_num_buckets,
-        max_distance=config.relative_attention_max_distance, device=dev)
-    rel = (torch.arange(max_len, device=dev)[None, :]
-           - torch.arange(t, t + q_len, device=dev)[:, None])
-    values = table.float()[lut[rel + (max_len - 1)].long()]   # (Q, N, H)
-    return values.permute(2, 0, 1)[None]
+_BIAS_MIN = -1e29      # ops/flash_attention.py's clamp of a bias
+
+
+def _self_bias(config: FlashT5Config, sa, t: int, q_len: int, max_len: int,
+               dev) -> torch.Tensor:
+    """The decoder's bias rows of positions t..t+q_len-1 against every
+    cache position, (1, H, q_len, max_len) f32 on `dev`, clamped at -1e29
+    (ALiBi's -inf): the model's own T5 (unidirectional), ALiBi or FIRE bias
+    (`sa` is layer 0's self-attention)."""
+    return t5._position_bias(
+        config, sa.get("pe_encoding"), q_len, max_len, bidirectional=False,
+        device=dev, q_positions=torch.arange(t, t + q_len, device=dev)
+    ).clamp_min(_BIAS_MIN)
 
 
 def decode_step(config: FlashT5Config, params, state: DecodeState,
@@ -130,9 +155,10 @@ def decode_window_step(config: FlashT5Config, params, state: DecodeState,
     tokens: (B, Q) decoder inputs. Returns (logits (B, Q, V), the state with
     t advanced by Q); the self caches are written in place. Queries attend
     the committed cache plus the window's own earlier tokens (causal within
-    the window); the T5 self-bias rows are built at layer 0 and reused in
-    every layer; the cross-attention has no mask (the training path's
-    encoder mask acts only through `use_masking`, which needs a bias)."""
+    the window); the self-bias rows are built at layer 0 and reused in
+    every layer (none under RoPE, which rotates instead); the
+    cross-attention has no mask (the training path's encoder mask acts
+    only through `use_masking`, which needs a bias)."""
     b, q_len = tokens.shape
     dkv = config.d_kv
     t = state.t
@@ -154,6 +180,11 @@ def decode_window_step(config: FlashT5Config, params, state: DecodeState,
         valid = (torch.arange(max_len, device=dev)[None, :]
                  <= torch.arange(t, t + q_len, device=dev)[:, None])
     self_bias = None
+    rope = config.position_encoding_type == "RoPE"
+    if rope:
+        cos_t, sin_t, ck_t, sk_t = (
+            tab[t:t + q_len] for tab in t5.rope_tables_for(config, max_len,
+                                                           dev))
     for li, blk in enumerate(params["decoder"]["block"]):
         cache = state.layers[li]
 
@@ -163,12 +194,17 @@ def decode_window_step(config: FlashT5Config, params, state: DecodeState,
         normed = t5._layer_norm(
             config, blk["self_attention_layer"]["layer_norm"]["weight"], x)
         q = _proj_heads(normed, sa["Wq"], h, dkv)
-        _write(cache.self_k, _proj_heads(normed, sa["Wk"], h, dkv), t)
-        _write(cache.self_v, _proj_heads(normed, sa["Wv"], h, dkv), t)
-        if li == 0:
-            self_bias = _self_bias(
-                config, sa["pe_encoding"]["relative_attention_bias"], t,
-                q_len, max_len)
+        k_new = _proj_heads(normed, sa["Wk"], h, dkv)
+        v_new = _proj_heads(normed, sa["Wv"], h, dkv)
+        if rope:
+            q = _rotated(q, cos_t, sin_t, config)
+            k_new = _rotated(k_new, ck_t, sk_t, config)
+            if config.rope_rotate_v:
+                v_new = _rotated(v_new, ck_t, sk_t, config)
+        _write(cache.self_k, k_new, t)
+        _write(cache.self_v, v_new, t)
+        if li == 0 and not rope:
+            self_bias = _self_bias(config, sa, t, q_len, max_len, dev)
             if single:
                 # the kernel's (B, H, L) rows, made once for every layer
                 self_bias = self_bias[:, :, 0].expand(b, h,
@@ -188,6 +224,8 @@ def decode_window_step(config: FlashT5Config, params, state: DecodeState,
         normed = t5._layer_norm(
             config, blk["cross_attention_layer"]["layer_norm"]["weight"], x)
         qc = _proj_heads(normed, ca["Wq"], h, dkv)
+        if rope:
+            qc = _rotated(qc, cos_t, sin_t, config)
         if single:
             attn = decode_attention(qc[:, :, 0], cache.cross_k,
                                     cache.cross_v, lengths=cross_len,

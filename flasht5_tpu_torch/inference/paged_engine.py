@@ -153,6 +153,13 @@ class PagedInferenceEngine:
     def __init__(self, config: FlashT5Config, params, ecfg: PagedEngineConfig,
                  device=None):
         t5.check_supported(config)
+        if config.position_encoding_type != "t5":
+            # the JAX package's engine builds only the T5 bias
+            # (flasht5_tpu/inference/paged_engine.py:367 and :553) and
+            # serves the other encodings with no position signal at all
+            raise NotImplementedError(
+                f"PagedInferenceEngine serves the T5 relative bias only, not "
+                f"{config.position_encoding_type}")
         if ecfg.dense_read_max > 0 or ecfg.window_stage_max_bytes > 0:
             raise NotImplementedError(
                 "dense_read_max and window_stage_max_bytes are not ported")

@@ -12,23 +12,33 @@ carries across one-to-one (convert/from_jax.py):
     {encoder,decoder}.block.<i>.ff_layer.act.{wi | wi_0,wi_1}
     {encoder,decoder}.block.<i>.ff_layer.{wo, layer_norm.weight}
     {encoder,decoder}.block.0...self_attention.pe_encoding.relative_attention_bias
+        (T5; FIRE's block 0 holds pe_encoding.{mlp.{w1,b1,w2,b2}, c,
+        L_multiplier, init_L} instead; ALiBi and RoPE have no pe_encoding)
     {encoder,decoder}.final_layer_norm.weight
     lm_head
 
-Linear weights are stored (in, out), applied as `x @ W`. Only the T5
-relative bias is ported, on the three attention types: `ref` (plain
-attention on the materialized bias), `pallas` (the materialized bias through
-the bias kernels of `ops/flash_attention.py`) and `pallas_rpe` (the bucket
-table inside the RPE kernels). Block 0 builds the bias, or owns the table,
-and every later block reuses it, so the table's gradient sums every layer's.
-`use_full_bias_size` and `use_masking` behave as in the JAX package (the
-padding mask folded into the bias as query rows; on `pallas_rpe` the
-post-kernel select). Gradients come from autograd, through the kernels'
-backward where the path has one (`rms_norm`, attention, cross-entropy,
-the fused lm_head+CE).
-Dropout draws from a `torch.Generator` the caller passes down; its bits are
+Linear weights are stored (in, out), applied as `x @ W`. The four positional
+encodings run as in the JAX package. The T5 bias, ALiBi and FIRE are
+additive biases that block 0 builds and every later block reuses, on `ref`
+(plain attention on the materialized bias) and `pallas` (the bias kernels
+of `ops/flash_attention.py`; FIRE's MLP trains through their dbias); the T5
+bias also runs on `pallas_rpe` (the bucket table inside the RPE kernels).
+RoPE rotates q and k (and v, `rope_rotate_v`) in every attention layer,
+cross-attention included, and runs the kernels without a bias.
+`use_randomized_position_encoding` draws sorted random positions below
+`max_sequence_length` from the caller's generator: the bias's once, at
+block 0 (FIRE ignores them, as the JAX package does), RoPE's once a layer
+and only in training; `pallas_rpe` keeps the plain positions, as in the
+JAX package. `use_full_bias_size` and `use_masking` behave as in the JAX
+package (the padding mask folded into the bias as query rows; on
+`pallas_rpe` the post-kernel select). Gradients come from autograd, through
+the kernels' backward where the path has one (`rms_norm`, attention,
+cross-entropy, the fused lm_head+CE).
+Dropout, attention dropout (`ref` only: the JAX package's `pallas` branch
+ignores `attention_dropout_rate`, and so does the port's) and randomized
+positions draw from a `torch.Generator` the caller passes down; its bits are
 not the JAX package's. `remat` recomputes each block in the backward pass
-(`torch.utils.checkpoint`), with the same dropout masks.
+(`torch.utils.checkpoint`), with the same draws.
 """
 
 from __future__ import annotations
@@ -56,17 +66,6 @@ Params = Dict[str, Any]
 
 def check_supported(config: FlashT5Config) -> None:
     """Raise for the parts of the configuration the port does not run yet."""
-    if config.position_encoding_type != "t5":
-        raise NotImplementedError(
-            f"{config.position_encoding_type} position encoding is not "
-            f"ported yet")
-    if (config.use_randomized_position_encoding
-            and config.attention_type != "pallas_rpe"):
-        # the JAX package randomizes the materialized bias's positions
-        # whenever a training rng is passed (its t5.py:274-283)
-        raise NotImplementedError(
-            "use_randomized_position_encoding on the materialized-bias "
-            "paths ('ref', 'pallas') is not ported yet")
     if config.tp_axis is not None:
         raise NotImplementedError("tensor parallelism is not ported yet")
 
@@ -115,11 +114,17 @@ class _Init:
             "Wv": self.normal((d, inner), f * d ** -0.5),
             "o": self.normal((inner, d), f * inner ** -0.5),
         }
-        if has_pe:
+        # ALiBi and RoPE carry no learnable parameters
+        if has_pe and c.position_encoding_type == "t5":
             p["pe_encoding"] = positional.init_relative_bias_params(
                 self.gen, c.relative_attention_num_buckets, c.num_heads,
                 initializer_factor=f, d_model=d, dtype=self.dtype,
                 device=self.device)
+        elif has_pe and c.position_encoding_type == "FIRE":
+            p["pe_encoding"] = positional.init_fire_params(
+                self.gen, c.num_heads, c.fire_mlp_width, init_c=0.1,
+                init_L=float(c.relative_attention_max_distance),
+                dtype=self.dtype, device=self.device)
         return p
 
     def ff(self) -> Params:
@@ -227,12 +232,6 @@ def _ff(config: FlashT5Config, params: Params, x: torch.Tensor, *,
     return x + _dropout(generator, config.dropout_rate, h, deterministic)
 
 
-def _heads(y: torch.Tensor, n_heads: int, d_kv: int) -> torch.Tensor:
-    """(B, L, H*D) -> (B, H, L, D)."""
-    b, n = y.shape[:2]
-    return y.reshape(b, n, n_heads, d_kv).transpose(1, 2)
-
-
 def _fold_mask(bias: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """The reference's fold of a padding mask into the bias
     (modeling:266-270, JAX t5.py:394-403): a (B, N) mask becomes
@@ -259,6 +258,91 @@ def _uniform_masked_rows(out: torch.Tensor, v: torch.Tensor,
     return torch.where(mask.bool()[:, None, :, None], out, uni)
 
 
+def _position_bias(config: FlashT5Config, pe_params: Optional[Params],
+                   q_len: int, k_len: int, *, bidirectional: bool, device,
+                   generator: Optional[torch.Generator] = None,
+                   q_positions: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """The (1, H, M, N) f32 additive bias of the bias-style encodings (JAX
+    t5.py:268-296). With `use_randomized_position_encoding` and a generator,
+    the T5 and ALiBi biases take sorted random positions, drawn once here
+    (FIRE keeps the plain ones, as the JAX package's does). `q_positions`
+    (decoding) keeps those rows of the bias against keys 0..k_len-1."""
+    pet = config.position_encoding_type
+    q_pos, k_pos = q_positions, None
+    if (config.use_randomized_position_encoding and generator is not None
+            and pet != "FIRE"):
+        q_pos = positional._randomized_positions(
+            generator, q_len, config.max_sequence_length).to(device)
+        k_pos = positional._randomized_positions(
+            generator, k_len, config.max_sequence_length).to(device)
+    if pet == "t5":
+        return positional.t5_relative_bias(
+            pe_params, q_len, k_len, bidirectional=bidirectional,
+            num_buckets=config.relative_attention_num_buckets,
+            max_distance=config.relative_attention_max_distance,
+            q_positions=q_pos, k_positions=k_pos,
+            max_len=max(config.max_sequence_length, k_len))
+    if pet == "ALiBi":
+        return positional.alibi_bias(
+            config.num_heads, q_len, k_len, mode=config.alibi_mode,
+            q_positions=q_pos, k_positions=k_pos, device=device)
+    return positional.fire_bias(pe_params, k_len, q_positions=q_positions)
+
+
+@functools.lru_cache(maxsize=64)
+def rope_tables(table_len: int, rotary_dim: int, base: float,
+                scale_base: Optional[float], device
+                ) -> Tuple[torch.Tensor, ...]:
+    """`positional.rope_cos_sin`'s f32 (cos, sin, cos_k, sin_k), made once
+    a length and kept on `device` (constants: nothing writes to them); the
+    k tables are the q tables without xPos."""
+    cos, sin, cos_k, sin_k = positional.rope_cos_sin(
+        table_len, rotary_dim, base=base, scale_base=scale_base,
+        device=device)
+    return (cos, sin, cos if cos_k is None else cos_k,
+            sin if sin_k is None else sin_k)
+
+
+def rope_tables_for(config: FlashT5Config, length: int, device,
+                    randomized: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The RoPE tables of a path over `length` positions, as JAX
+    t5.py:354-360 and kv_cache.py:72-79 size them: max_sequence_length
+    long when randomized, at least that under xPos (whose scale is centred
+    on the table), else `length`."""
+    if randomized:
+        length = config.max_sequence_length
+    elif config.rotary_scale_base is not None:
+        length = max(config.max_sequence_length, length)
+    return rope_tables(length, int(config.d_kv * config.rotary_emb_fraction),
+                       config.rotary_base, config.rotary_scale_base, device)
+
+
+def _rotate(config: FlashT5Config, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, generator: Optional[torch.Generator],
+            deterministic: bool):
+    """RoPE on q (B, M, H, D) and k, v (B, N, H, D), as JAX t5.py:346-383,
+    on `rope_tables_for` max(m, n) positions; randomized training gathers
+    the rows of one sorted random draw of max(m, n) positions, the same
+    for q and k."""
+    m, n = q.shape[1], k.shape[1]
+    randomize = (config.use_randomized_position_encoding
+                 and not deterministic and generator is not None)
+    tables = rope_tables_for(config, max(m, n), q.device, randomize)
+    if randomize:
+        pos = positional._randomized_positions(
+            generator, max(m, n), config.max_sequence_length)
+        tables = positional.gather_rope_tables(tables, pos)
+    cos, sin, ck, sk = tables
+    inter = config.rotary_interleaved
+    q = positional.apply_rotary(q, cos[:m], sin[:m], interleaved=inter)
+    k = positional.apply_rotary(k, ck[:n], sk[:n], interleaved=inter)
+    if config.rope_rotate_v:
+        # reference quirk: v is rotated too (positional_encoding.py:330)
+        v = positional.apply_rotary(v, ck[:n], sk[:n], interleaved=inter)
+    return q, k, v
+
+
 def _attention(config: FlashT5Config, params: Params,
                hidden_states: torch.Tensor, *,
                mask: Optional[torch.Tensor] = None,
@@ -266,6 +350,7 @@ def _attention(config: FlashT5Config, params: Params,
                position_bias: Optional[torch.Tensor] = None,
                has_pe: bool, is_causal: bool, bidirectional: bool,
                rpe_table: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
                deterministic: bool = True):
     """Multi-head attention (reference: modeling_flash_t5.py:232-294);
     returns (output, position_bias) so the stack threads block 0's bias.
@@ -273,20 +358,25 @@ def _attention(config: FlashT5Config, params: Params,
     `use_masking`; cross-attention has no bias to fold it into."""
     b, m = hidden_states.shape[:2]
     kv_src = hidden_states if key_value_states is None else key_value_states
+    n = kv_src.shape[1]
     dkv = config.d_kv
     h = params["Wq"].shape[1] // dkv
-    q = _heads(_matmul(hidden_states, params["Wq"]), h, dkv)
-    k = _heads(_matmul(kv_src, params["Wk"]), h, dkv)
-    v = _heads(_matmul(kv_src, params["Wv"]), h, dkv)
-    n = k.shape[2]
+    q = _matmul(hidden_states, params["Wq"]).reshape(b, m, h, dkv)
+    k = _matmul(kv_src, params["Wk"]).reshape(b, n, h, dkv)
+    v = _matmul(kv_src, params["Wv"]).reshape(b, n, h, dkv)
     pe_params = params.get("pe_encoding")
+    if config.position_encoding_type == "RoPE":
+        # in every layer (reference quirk: the rotary encoder is built
+        # whether or not the layer has a positional encoding, modeling:214)
+        q, k, v = _rotate(config, q, k, v, generator, deterministic)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     scale = config.softmax_scale
     if config.attention_type != "pallas_rpe":
-        if position_bias is None and has_pe and pe_params is not None:
-            position_bias = positional.t5_relative_bias(
-                pe_params, m, n, bidirectional=bidirectional,
-                num_buckets=config.relative_attention_num_buckets,
-                max_distance=config.relative_attention_max_distance)
+        if (position_bias is None and has_pe
+                and config.position_encoding_type != "RoPE"):
+            position_bias = _position_bias(
+                config, pe_params, m, n, bidirectional=bidirectional,
+                device=q.device, generator=generator)
         if position_bias is not None and config.use_full_bias_size:
             position_bias = position_bias.expand(b, h, m, n)
         if position_bias is not None and mask is not None and \
@@ -312,11 +402,11 @@ def _attention(config: FlashT5Config, params: Params,
         out = flash_attention(q, k, v, position_bias, causal=is_causal,
                               sm_scale=scale)
     else:
-        if not deterministic and config.attention_dropout_rate > 0.0:
-            raise NotImplementedError(
-                "attention dropout on the ref path is not ported yet")
         out = attn_ref(q, k, v, position_bias, sm_scale=scale,
-                       causal=is_causal)
+                       causal=is_causal,
+                       dropout_p=(0.0 if deterministic
+                                  else config.attention_dropout_rate),
+                       generator=generator)
     out = out.transpose(1, 2).reshape(b, m, h * dkv)
     return _matmul(out, params["o"]), position_bias
 
@@ -335,7 +425,7 @@ def _block_apply(config: FlashT5Config, block_params: Params,
         config, sa["self_attention"], normed, mask=attention_mask,
         position_bias=position_bias, has_pe=has_pe, is_causal=is_decoder,
         bidirectional=not is_decoder, rpe_table=rpe_table,
-        deterministic=deterministic)
+        generator=generator, deterministic=deterministic)
     hidden_states = hidden_states + drop(attn_out)
     if is_decoder and encoder_hidden_states is not None:
         ca = block_params["cross_attention_layer"]
@@ -344,7 +434,8 @@ def _block_apply(config: FlashT5Config, block_params: Params,
             config, ca["cross_attention"], normed,
             mask=encoder_attention_mask,
             key_value_states=encoder_hidden_states, has_pe=False,
-            is_causal=False, bidirectional=True, deterministic=deterministic)
+            is_causal=False, bidirectional=True, generator=generator,
+            deterministic=deterministic)
         hidden_states = hidden_states + drop(attn_out)
     hidden_states = _ff(config, block_params["ff_layer"], hidden_states,
                         generator=generator, deterministic=deterministic)

@@ -30,6 +30,7 @@ from flasht5_tpu_torch import runtime
 from flasht5_tpu_torch.ops.flash_attention_rpe import (_DTYPE_CODES, _check,
                                                        _fn, attention,
                                                        attention_plain,
+                                                       padded,
                                                        scores_grad_plain)
 
 _BIAS_MIN = -1e29       # the clamp of the JAX package (:908-914)
@@ -97,10 +98,12 @@ def _bias_args(name, q, k, bias):
     return bias, strides + [bias.stride(2)]
 
 
-def _common(q, k, v):
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+def _common(q, k, v, *more):
+    """q, k, v (and `more`) zero-padded to the kernels' head dim, with
+    (B, H, M, N, padded D)."""
+    q, k, v, *more = padded(q, k, v, *more)
     b, h, m_len, d = q.shape
-    return q, k, v, (b, h, m_len, k.shape[2], d)
+    return q, k, v, more, (b, h, m_len, k.shape[2], d)
 
 
 def _check_grad_inputs(name, q, lse, delta, do):
@@ -124,7 +127,8 @@ def flash_attention_bias_fwd(q, k, v, bias, *, causal=False, sm_scale=1.0):
     _check(name, q, k, v, None, 0)
     bias, (sb, sh, sm) = _bias_args(name, q, k, bias)
     lib, fn = _fn(_LIB, "ft5_flash_attention_bias_fwd", _FWD_ARGS)
-    q, k, v, (b, h, m_len, n_len, d) = _common(q, k, v)
+    d_in = q.shape[-1]
+    q, k, v, _, (b, h, m_len, n_len, d) = _common(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, m_len), dtype=torch.float32, device=q.device)
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(bias),
@@ -133,7 +137,7 @@ def flash_attention_bias_fwd(q, k, v, bias, *, causal=False, sm_scale=1.0):
             runtime.stream_handle(q))
     runtime.check_launch(lib, rc, name)
     flash_attention_bias_fwd.launches += 1
-    return o, lse
+    return o[..., :d_in], lse
 
 
 flash_attention_bias_fwd.launches = 0
@@ -155,7 +159,8 @@ def flash_attention_bias_dkv(q, k, v, bias, lse, delta, do, *, causal=False,
     shape = bias.shape
     bias, (sb, sh, sm) = _bias_args(name, q, k, bias)
     lib, fn = _fn(_LIB, "ft5_flash_attention_bias_dkv", _DKV_ARGS)
-    q, k, v, (b, h, m_len, n_len, d) = _common(q, k, v)
+    d_in = q.shape[-1]
+    q, k, v, (do,), (b, h, m_len, n_len, d) = _common(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((b, h, m_len, n_len), dtype=torch.float32,
                         device=q.device)
@@ -166,7 +171,7 @@ def flash_attention_bias_dkv(q, k, v, bias, lse, delta, do, *, causal=False,
             _DTYPE_CODES[q.dtype], runtime.stream_handle(q))
     runtime.check_launch(lib, rc, name)
     flash_attention_bias_dkv.launches += 1
-    return dk, dv, _reduce(dbias, shape)
+    return dk[..., :d_in], dv[..., :d_in], _reduce(dbias, shape)
 
 
 flash_attention_bias_dkv.launches = 0
@@ -184,7 +189,8 @@ def flash_attention_bias_dq(q, k, v, bias, lse, delta, do, *, causal=False,
     do, lse, delta = _check_grad_inputs(name, q, lse, delta, do)
     bias, (sb, sh, sm) = _bias_args(name, q, k, bias)
     lib, fn = _fn(_LIB, "ft5_flash_attention_bias_dq", _DQ_ARGS)
-    q, k, v, (b, h, m_len, n_len, d) = _common(q, k, v)
+    d_in = q.shape[-1]
+    q, k, v, (do,), (b, h, m_len, n_len, d) = _common(q, k, v, do)
     dq = torch.empty_like(q)
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(do),
             runtime.ptr(lse), runtime.ptr(delta), runtime.ptr(bias), sb, sh,
@@ -192,7 +198,7 @@ def flash_attention_bias_dq(q, k, v, bias, lse, delta, do, *, causal=False,
             int(causal), _DTYPE_CODES[q.dtype], runtime.stream_handle(q))
     runtime.check_launch(lib, rc, name)
     flash_attention_bias_dq.launches += 1
-    return dq
+    return dq[..., :d_in]
 
 
 flash_attention_bias_dq.launches = 0

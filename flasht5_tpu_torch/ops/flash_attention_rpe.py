@@ -12,6 +12,12 @@ evaluated on the GPU.
 Both kernels also run without a table, adding no bias: that is plain flash
 attention (`ops/flash_attention.py`), which `flash_attention_rpe(...,
 rpe_weights=None)` falls through to, as in the JAX package.
+
+The kernels are built for head dims 32, 64 and 128. The wrappers (these and
+the bias kernels') take any d up to 128 and zero-pad q, k, v (and dO) to the
+next of those widths: the padded features add 0 to every score and give 0
+in every output column, and `sm_scale` is passed, not derived from d, so
+the sliced results are exact.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from flasht5_tpu_torch import positional, runtime
 
@@ -174,13 +181,23 @@ def _check(name, q, k, v, rpe_weights, num_buckets, *more):
     if not q.is_cuda or any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: all inputs on one CUDA device")
     if (k.shape != (b, h, n_len, d) or v.shape != k.shape
-            or d not in _HEAD_DIMS
+            or not 1 <= d <= _HEAD_DIMS[-1]
             or (rpe_weights is not None
                 and rpe_weights.shape != (num_buckets, h))):
         raise ValueError(
             f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, table "
             f"{None if rpe_weights is None else tuple(rpe_weights.shape)}")
+
+
+def padded(*ts):
+    """The tensors, contiguous, their last dim zero-padded to the kernels'
+    next head dim (32, 64 or 128)."""
+    d = ts[0].shape[-1]
+    width = next(w for w in _HEAD_DIMS if d <= w)
+    if width == d:
+        return [t.contiguous() for t in ts]
+    return [F.pad(t, (0, width - d)) for t in ts]
 
 
 def _table_args(q, rpe_weights, m_len, n_len, bidirectional, num_buckets,
@@ -227,18 +244,19 @@ def flash_attention_rpe_fwd(q, k, v, rpe_weights, *, causal=False,
     n_len = k.shape[2]
     lib, fn = _fn("flash_attention_rpe", "ft5_flash_attention_rpe_fwd",
                   _FWD_ARGS)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = padded(q, k, v)
+    dp = q.shape[-1]
     table, bucket, nb = _table_args(q, rpe_weights, m_len, n_len,
                                     bidirectional, num_buckets, max_distance)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, m_len), dtype=torch.float32, device=q.device)
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(table),
             runtime.ptr(bucket), runtime.ptr(o), runtime.ptr(lse), b, h, m_len,
-            n_len, d, nb, float(sm_scale), int(causal),
+            n_len, dp, nb, float(sm_scale), int(causal),
             _DTYPE_CODES[q.dtype], runtime.stream_handle(q))
     runtime.check_launch(lib, rc, "flash_attention_rpe")
     flash_attention_rpe_fwd.launches += 1
-    return o, lse
+    return o[..., :d], lse
 
 
 flash_attention_rpe_fwd.launches = 0
@@ -269,8 +287,8 @@ def flash_attention_bwd(q, k, v, rpe_weights, lse, delta, do, *,
         raise ValueError(f"flash_attention_bwd: {num_buckets} buckets")
     lib, fn = _fn("flash_attention_bwd", "ft5_flash_attention_bwd",
                   _BWD_ARGS)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do = do.to(q.dtype).contiguous()
+    q, k, v, do = padded(q, k, v, do.to(q.dtype))
+    dp = q.shape[-1]
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
     table, bucket, nb = _table_args(q, rpe_weights, m_len, n_len,
@@ -283,14 +301,14 @@ def flash_attention_bwd(q, k, v, rpe_weights, lse, delta, do, *,
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(do),
             runtime.ptr(lse), runtime.ptr(delta), runtime.ptr(table),
             runtime.ptr(bucket), runtime.ptr(dq), runtime.ptr(dk),
-            runtime.ptr(dv), runtime.ptr(dw_part), b, h, m_len, n_len, d, nb,
+            runtime.ptr(dv), runtime.ptr(dw_part), b, h, m_len, n_len, dp, nb,
             float(sm_scale), int(causal), _DTYPE_CODES[q.dtype],
             runtime.stream_handle(q))
     runtime.check_launch(lib, rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     # the partial rows, one per (batch, head, key tile), summed in order
     dw = None if dw_part is None else dw_part.sum(dim=(0, 2)).t()
-    return dq, dk, dv, dw
+    return dq[..., :d], dk[..., :d], dv[..., :d], dw
 
 
 flash_attention_bwd.launches = 0

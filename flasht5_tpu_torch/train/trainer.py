@@ -10,8 +10,17 @@ format, where the JAX package writes Orbax, with `config.json` and a
 `train_log.jsonl` beside them. The step runs eagerly on the card through the
 port's kernels; autograd replaces `jax.value_and_grad`.
 
+`gradient_accumulation_steps` = k > 1 is `optax.MultiSteps` around the
+clip + AdamWScale chain, as in the JAX package: each batch is a micro-batch
+whose gradient joins a running mean (`acc + (g - acc) / (n + 1)`), and
+every k-th one clips that mean and updates the parameters, so the schedule
+counts updates. The step count, the token count, the logs (each
+micro-batch's loss and the norm of its own gradient), `max_steps`, the
+evaluations and the checkpoints count micro-batches, as the JAX `Trainer`
+does; a checkpoint keeps the running mean and its count.
+
 Not ported yet, and refused with NotImplementedError: data, tensor and
-pipeline parallelism (`parallel/`) and gradient accumulation.
+pipeline parallelism (`parallel/`).
 """
 
 from __future__ import annotations
@@ -74,8 +83,6 @@ def _refuse_unported(tcfg: TrainerConfig) -> None:
         if getattr(tcfg, name) > 1:
             raise NotImplementedError(f"{name} > 1 comes with parallel/, "
                                       f"not ported yet")
-    if tcfg.gradient_accumulation_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
 
 
 CHECKPOINT_FILE = "checkpoint.pt"
@@ -134,14 +141,18 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             tcfg.seed + 1)
         self.step_num = 0
+        # gradient accumulation: the running mean and the micro-batches in it
+        self._acc = None
+        self._mini_step = 0
 
     def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)
                 for k, v in batch.items()}
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One training step; returns the loss and the gradient norm as
-        device tensors (read only when logged)."""
+        """One training step (one micro-batch under accumulation); returns
+        the loss and its gradient's norm as device tensors (read only when
+        logged)."""
         loss = t5.forward(self.config, self.params,
                           input_ids=batch["input_ids"],
                           attention_mask=batch.get("attention_mask"),
@@ -155,14 +166,33 @@ class Trainer:
         grads = [p.grad for p in self._leaves]
         grad_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
+        k = self.tcfg.gradient_accumulation_steps
+        if k > 1:
+            if self._acc is None:
+                self._acc = [torch.zeros_like(p) for p in self._leaves]
+            # optax.MultiSteps's running mean (its Welford form)
+            torch._foreach_add_(self._acc, torch._foreach_div(
+                torch._foreach_sub(grads, self._acc), self._mini_step + 1))
+            self._mini_step += 1
+            if self._mini_step < k:
+                return metrics
+            self._mini_step = 0
+            grads = self._acc
+            for p, g in zip(self._leaves, grads):
+                p.grad = g
         clip = self.tcfg.gradient_clip_norm
         if clip:
             # optax.clip_by_global_norm: unchanged below the limit, else
             # scaled to it
-            factor = torch.where(grad_norm < clip, 1.0, clip / grad_norm)
+            norm = grad_norm if k == 1 else torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            factor = torch.where(norm < clip, 1.0, clip / norm)
             torch._foreach_mul_(grads, factor)
         self.optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        if k > 1:
+            torch._foreach_zero_(self._acc)
+        return metrics
 
     # -- checkpoints -------------------------------------------------------
 
@@ -176,6 +206,8 @@ class Trainer:
         tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
         torch.save({"params": _tree_map(torch.Tensor.detach, self.params),
                     "opt_state": self.optimizer.state_dict(),
+                    "accumulation": {"mini_step": self._mini_step,
+                                     "mean": self._acc},
                     "step": step}, tmp)
         os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
         with open(os.path.join(self.tcfg.output_dir, "config.json"), "w") as f:
@@ -196,6 +228,10 @@ class Trainer:
             for (_, dst), (_, src) in zip(mine, saved):
                 dst.copy_(src)
         self.optimizer.load_state_dict(ckpt["opt_state"])
+        acc = ckpt.get("accumulation")
+        if acc is not None:
+            self._mini_step = int(acc["mini_step"])
+            self._acc = acc["mean"]
         self.step_num = int(ckpt["step"])
         return self.step_num
 

@@ -1204,3 +1204,269 @@ def test_remat_lowers_the_train_steps_peak_memory(dev):
     assert peaks[1] < 0.8 * peaks[0]
     for a, b in zip(*grads):
         _close_to_max(b, a, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the positional encodings: head dims the wrappers pad, ALiBi's and FIRE's
+# biases on the bias kernels and the decode kernel, and tiny models
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [16, 48, 96])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table", [True, False])
+def test_attention_kernels_at_padded_head_dims(dev, d, causal, dtype, table):
+    """d 16, 48 and 96 run zero-padded to 32, 64 and 128: the forward and
+    the backward against the plain versions at d itself, with the
+    tolerances above; outputs of width d."""
+    q, do = (torch.randn((2, 4, 100, d), device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((2, 4, 300, d), device=dev).to(dtype)
+            for _ in range(2))
+    w = torch.randn((32, 4), device=dev) if table else None
+    kw = dict(causal=causal, bidirectional=not causal, sm_scale=d ** -0.5)
+    o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w, **kw)
+    o0, lse0 = flash_attention_rpe.flash_attention_rpe_plain(q, k, v, w,
+                                                              **kw)
+    assert o.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_attention_rpe.flash_attention_bwd(q, k, v, w, lse, delta, do,
+                                                  **kw)
+    want = flash_attention_rpe.flash_attention_bwd_plain(q, k, v, w, lse,
+                                                         delta, do, **kw)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for g, g0 in zip(got[:3], want[:3]):
+        assert g.shape == g0.shape
+        _close_to_max(g, g0, tol)
+    if table:
+        bound = _dw_error_bound(q, k, w, lse, delta, do, v, kw)
+        assert torch.all((got[3] - want[3]).abs() <= bound)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_kernels_at_padded_head_dims(dev, d, causal, dtype):
+    q, k, v, bias, do = _bias_inputs(dev, 100, 300, d, dtype, "1h")
+    kw = dict(causal=causal, sm_scale=d ** -0.5)
+    o, lse = flash_attention.flash_attention_bias_fwd(q, k, v, bias, **kw)
+    o0, lse0 = flash_attention.flash_attention_bias_plain(q, k, v, bias, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, lse, delta, do)
+    got = flash_attention.flash_attention_bias_dkv(*args, **kw) + (
+        flash_attention.flash_attention_bias_dq(*args, **kw),)
+    want = flash_attention.flash_attention_bias_dkv_plain(*args, **kw) + (
+        flash_attention.flash_attention_bias_dq_plain(*args, **kw),)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for g, g0, t in zip(got, want, (tol, tol, 1e-3, tol)):
+        assert g.shape == g0.shape
+        _close_to_max(g, g0, t)
+
+
+@pytest.mark.parametrize("length,causal", [(1024, False), (256, True)])
+def test_attention_without_a_table_on_rope_inputs(dev, length, causal):
+    """RoPE's self-attention at its training shapes (the encoder's 1024
+    positions bidirectional, the decoder's 256 causal), bf16, no table:
+    q and k rotated by the model's tables, the forward and the backward
+    (tensor-core bodies) against the plain versions with the bf16
+    tolerances above; the keys rolled by one position (a planted fault)
+    take the output and dq beyond them."""
+    from flasht5_tpu_torch import positional
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.models import t5
+    cfg = FlashT5Config(d_kv=64, position_encoding_type="RoPE")
+    cos, sin, ck, sk = t5.rope_tables_for(cfg, length, dev)
+
+    def rotated(x, c, s):   # (B, H, L, D) by the tables' first L rows
+        return positional.apply_rotary(x.transpose(1, 2), c[:length],
+                                       s[:length]).transpose(1, 2)
+    q, k, v, do = (torch.randn((2, 8, length, 64), device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    q, k = rotated(q, cos, sin), rotated(k, ck, sk)
+    kw = dict(causal=causal, bidirectional=not causal, sm_scale=0.125)
+    o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, None, **kw)
+    o0, lse0 = flash_attention_rpe.flash_attention_rpe_plain(q, k, v, None,
+                                                              **kw)
+    torch.testing.assert_close(o.float(), o0.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_attention_rpe.flash_attention_bwd(q, k, v, None, lse, delta,
+                                                  do, **kw)
+    want = flash_attention_rpe.flash_attention_bwd_plain(q, k, v, None, lse,
+                                                         delta, do, **kw)
+    for g, g0 in zip(got[:3], want[:3]):
+        _close_to_max(g, g0, 3e-2)
+    rolled = torch.roll(k, 1, dims=2)
+    o_bad, _ = flash_attention_rpe.flash_attention_rpe_fwd(q, rolled, v,
+                                                           None, **kw)
+    assert bool(((o_bad.float() - o0.float()).abs()
+                 > 2e-2 + 2e-2 * o0.float().abs()).any())
+    dq_bad = flash_attention_rpe.flash_attention_bwd(
+        q, rolled, v, None, lse, delta, do, **kw)[0]
+    scale = float(want[0].float().abs().max())
+    assert float((dq_bad.float() - want[0].float()).abs().max()) \
+        > 3e-2 * scale
+
+
+def test_attention_refuses_head_dims_over_128(dev):
+    q = torch.randn((1, 2, 8, 160), device=dev)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention_rpe.flash_attention_rpe_fwd(q, q, q, None)
+
+
+@pytest.mark.parametrize("encoding", ["alibi_asym", "fire"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoding_biases_through_the_bias_kernels(dev, encoding, causal,
+                                                  dtype):
+    """The model's `flash_attention` on ALiBi's asymmetric bias (-inf
+    clamped at -1e29 by the wrapper; no gradient wanted) and on FIRE's
+    (its gradient reaches the MLP and the scalars through dbias), card
+    against CPU: o and every gradient to 1e-3 of each one's largest entry
+    in f32, 3e-2 in bf16. The bias rows shifted by one must move o beyond
+    that, except FIRE's in bf16: its rows vary slowly, and one row's shift
+    moved o by 1.7e-2 on an H100, under 3e-2 of o's largest entry (its f32
+    cases hold it)."""
+    from flasht5_tpu_torch import positional
+    m = n = 200
+    cpu_fire = positional.init_fire_params(torch.Generator().manual_seed(0),
+                                           4, init_L=64.0)
+    g = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn((2, 4, m, 64), generator=g).to(dtype)
+                   for _ in range(4))
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    runs = []
+    for device, shift in ((dev, 0), ("cpu", 0), (dev, 1)):
+        ts = [_fresh(t, device) for t in (q, k, v)]
+        fire = _fresh(cpu_fire, device)
+        leaves = [fire["mlp"]["w1"], fire["mlp"]["w2"], fire["c"],
+                  fire["init_L"]]
+        if encoding == "fire":
+            bias = positional.fire_bias(fire, m)
+        else:
+            bias = positional.alibi_bias(4, m, n, mode="asymetric",
+                                         device=device)
+        bias = torch.roll(bias, shift, dims=2)
+        o = flash_attention.flash_attention(*ts, bias, causal=causal,
+                                            sm_scale=0.125)
+        o.backward(do.to(device))
+        grads = [t.grad for t in ts]
+        if encoding == "fire":
+            grads += [leaf.grad for leaf in leaves]
+        runs.append([o.detach().cpu()] + [t.cpu() for t in grads])
+    (card, cpu, faulted) = runs
+    for a, b in zip(card, cpu):
+        _close_to_max(a, b, tol)
+    if dtype == torch.float32 or encoding == "alibi_asym":
+        scale = float(cpu[0].float().abs().max())
+        assert float((faulted[0].float() - cpu[0].float()).abs().max()) \
+            > tol * scale
+
+
+@pytest.mark.parametrize("shape,lengths", [
+    ((8, 8, 64), [1, 9, 17, 25, 33, 41, 49, 57]),
+    ((8, 8, 512), [512, 449, 385, 300, 200, 129, 64, 2]),
+    ((2, 8, 1000), [1000, 700])])
+@pytest.mark.parametrize("kv", ["f32", "bf16"])
+def test_decode_attention_on_asymmetric_alibi_rows(dev, shape, lengths, kv):
+    """ALiBi's asymmetric rows as the decode state builds them: half the
+    heads see the past, half only the query's own position, -1e29
+    elsewhere, so whole warp and cluster shares hold only masked positions
+    (where exp(-inf - (-inf)) would give NaN). The kernel at every split
+    its plan takes against the plain version (the tolerances of
+    test_decode_attention_kernel); the rows shifted by one position move
+    the output beyond them."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.inference import kv_cache
+    b, h, L = shape
+    q, args, lens, _ = _decode_case(dev, kv, b, h, L, 64, lengths)
+    cfg = FlashT5Config(num_heads=h, d_kv=64, position_encoding_type="ALiBi",
+                        alibi_mode="asymetric")
+    sa = {"Wq": torch.empty((64 * h, 64 * h))}
+    bias = torch.stack([kv_cache._self_bias(cfg, sa, n - 1, 1, L, dev)
+                        [0, :, 0] for n in lengths])
+    kw = dict(lengths=lens, sm_scale=0.125)
+    got = decode_attention.decode_attention(q, *args, bias=bias, **kw)
+    want = decode_attention.decode_attention_plain(q, *args, bias=bias, **kw)
+    assert torch.isfinite(got.float()).all()
+    tol = 1e-4 if kv == "f32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    moved = decode_attention.decode_attention(
+        q, *args, bias=torch.roll(bias, 1, dims=2), **kw)
+    assert float((moved.float() - want.float()).abs().max()) > 10 * tol
+
+
+def _fresh(tree, device):
+    """A copy of the tree's tensors on `device`, leaves that take grads."""
+    if isinstance(tree, dict):
+        return {k: _fresh(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fresh(v, device) for v in tree]
+    return tree.detach().to(device, copy=True).requires_grad_(True)
+
+
+_ENCODINGS = {
+    "alibi": dict(position_encoding_type="ALiBi"),
+    "alibi_asym_h6": dict(position_encoding_type="ALiBi",
+                          alibi_mode="asymetric", num_heads=6),
+    "rope": dict(position_encoding_type="RoPE"),
+    "rope_frac_inter_xpos": dict(position_encoding_type="RoPE",
+                                 rotary_emb_fraction=0.5,
+                                 rotary_interleaved=True,
+                                 rotary_scale_base=512.0),
+    "fire": dict(position_encoding_type="FIRE"),
+}
+
+
+@pytest.mark.parametrize("encoding", sorted(_ENCODINGS))
+def test_encodings_on_the_card_match_the_cpu(dev, encoding):
+    """A tiny f32 model (d_kv 64, 2+2 layers, `pallas`) per encoding: the
+    loss and logits within 1e-4, every gradient leaf within 1e-4 of its
+    largest entry (f32 sums in another order), and greedy and speculative
+    (window 4) tokens equal to the CPU's. A leaf whose gradient sums terms
+    that cancel exactly (FIRE's b2: each row of dS sums to 0) is rounding
+    noise on both sides, so each leaf's scale is at least 1e-2 of the
+    largest gradient entry of the model (b2's gap measured 1.6e-7 of it on
+    an H100)."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.inference import generate, speculative_generate
+    from flasht5_tpu_torch.models import t5
+    cfg = FlashT5Config(**dict(
+        dict(vocab_size=512, d_model=128, d_kv=64, num_heads=4, d_ff=256,
+             num_layers=2, num_decoder_layers=2, dropout_rate=0.0,
+             dtype="float32", attention_type="pallas",
+             use_fused_layernorm=True), **_ENCODINGS[encoding]))
+    cpu = t5.init_params(cfg, seed=5, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(2, 512, (2, 80), generator=g)
+    labels = torch.randint(2, 512, (2, 30), generator=g)
+    runs = []
+    for device in ("cpu", dev):
+        params = _fresh(cpu, device)
+        leaves = [p for _, p in t5.tree_leaves_with_path(params)]
+        out = t5.forward(cfg, params, input_ids=ids.to(device),
+                         labels=labels.to(device))
+        out["loss"].backward()
+        with torch.no_grad():
+            tokens = [fn(cfg, params, ids.to(device), max_length=12,
+                         **kw).cpu()
+                      for fn, kw in ((generate, {}),
+                                     (speculative_generate,
+                                      dict(window=4)))]
+        runs.append((out["loss"].detach().cpu(), out["logits"].detach().cpu(),
+                     [p.grad.cpu() for p in leaves], tokens))
+    (loss0, logits0, grads0, tok0), (loss1, logits1, grads1, tok1) = runs
+    torch.testing.assert_close(loss1, loss0, rtol=1e-4, atol=0)
+    torch.testing.assert_close(logits1, logits0, rtol=0, atol=1e-4)
+    floor = 1e-2 * max(float(g.abs().max()) for g in grads0)
+    for a, b in zip(grads1, grads0):
+        scale = max(float(b.abs().max()), floor)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
+    for a, b in zip(tok1, tok0):
+        assert torch.equal(a, b)

@@ -1,5 +1,5 @@
 """The pretraining driver's path through the port against the JAX package:
-the refusal of randomized positions, the UL2 collator and its native core,
+randomized positions on the bias paths, the UL2 collator and its native core,
 the run configurations, and three trainer steps on `pallas` with
 `use_masking`. The model's loss and gradients on the same path are in
 tests/test_torch_pallas_model.py; checkpoints, resume and the driver
@@ -71,40 +71,61 @@ def _numpy_tree(tree):
 
 
 # ---------------------------------------------------------------------------
-# the repair: randomized positions on the materialized-bias paths
+# randomized positions on the materialized-bias paths
 # ---------------------------------------------------------------------------
 
-def test_randomized_positions_are_refused_on_the_bias_paths():
-    """The JAX package randomizes the T5 bias positions whenever a training
-    rng is passed on `ref` and `pallas` (its t5.py:274-283), so its training
-    loss differs from the plain forward's; the port refuses that config
-    rather than train on the plain positions. On `pallas_rpe` the JAX
-    package leaves the positions alone, and the port gives its training
-    loss."""
+def test_randomized_positions_are_refused_on_the_bias_paths(monkeypatch):
+    """Randomized positions were refused on `ref` and `pallas`; they run
+    now. The JAX package randomizes the T5 bias positions whenever a
+    training rng is passed on `ref` and `pallas` (its t5.py:274-283), so its
+    training loss differs from the plain forward's. With both packages'
+    draw patched to one that is not the identity (0, 3, 6, ...), the port's
+    training loss on `ref` and on `pallas` is JAX's on `ref` (f32: 1e-5).
+    On `pallas_rpe` both packages leave the positions alone (unpatched)."""
     batch = _batch(0)
     args = {k: jnp.asarray(v) for k, v in batch.items()}
-    for attention in ("ref", "pallas", "pallas_rpe"):
-        jcfg, cfg = _configs(attention_type=attention,
-                             use_randomized_position_encoding=True,
-                             **ONE_LAYER)
-        if attention != "pallas":   # `pallas` builds its bias as `ref` does
-            jparams = jt5.init_params(jax.random.PRNGKey(0), jcfg)
-            loss = jax.jit(lambda p, r, c=jcfg: jt5.forward(
-                c, p, rng=r, deterministic=r is None, **args)["loss"])
-            trained = float(loss(jparams, jax.random.PRNGKey(1)))
-        if attention == "pallas_rpe":
-            params = params_from_numpy(_numpy_tree(jparams), device="cpu")
-            got = t5.forward(cfg, params, deterministic=False,
-                             generator=torch.Generator().manual_seed(0),
-                             **{k: torch.from_numpy(v)
-                                for k, v in batch.items()})["loss"]
-            np.testing.assert_allclose(float(got), trained, rtol=1e-5)
-            continue
-        assert abs(trained - float(loss(jparams, None))) > 1e-4, attention
-        with pytest.raises(NotImplementedError, match="randomized"):
-            t5.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="randomized"):
-            Trainer(cfg, TrainerConfig(), device="cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def every_third(length, max_length):
+        assert 3 * (length - 1) < max_length
+        return np.arange(length) * 3
+
+    def jax_loss(jcfg, jparams, rng):
+        return float(jax.jit(lambda p, r: jt5.forward(
+            jcfg, p, rng=r, deterministic=r is None, **args)["loss"])(
+                jparams, rng))
+
+    jcfg, cfg = _configs(attention_type="pallas_rpe",
+                         use_randomized_position_encoding=True, **ONE_LAYER)
+    jparams = jt5.init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(_numpy_tree(jparams), device="cpu")
+    got = t5.forward(cfg, params, deterministic=False,
+                     generator=torch.Generator().manual_seed(0), **tb)["loss"]
+    np.testing.assert_allclose(
+        float(got), jax_loss(jcfg, jparams, jax.random.PRNGKey(1)),
+        rtol=1e-5)
+
+    from flasht5_tpu import positional as jpositional
+    from flasht5_tpu_torch import positional
+    monkeypatch.setattr(jpositional, "_randomized_positions",
+                        lambda r, n, m: jnp.asarray(every_third(n, m)))
+    monkeypatch.setattr(positional, "_randomized_positions",
+                        lambda g, n, m: torch.from_numpy(every_third(n, m)))
+    jcfg, cfg = _configs(attention_type="ref",
+                         use_randomized_position_encoding=True,
+                         max_sequence_length=128, **ONE_LAYER)
+    jparams = jt5.init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(_numpy_tree(jparams), device="cpu")
+    trained = jax_loss(jcfg, jparams, jax.random.PRNGKey(1))
+    assert abs(trained - jax_loss(jcfg, jparams, None)) > 1e-4
+    t5.check_supported(cfg)
+    for attention in ("ref", "pallas"):
+        got = t5.forward(cfg.replace(attention_type=attention), params,
+                         deterministic=False, generator=torch.Generator(),
+                         **tb)["loss"]
+        np.testing.assert_allclose(float(got), trained, rtol=1e-5,
+                                   err_msg=attention)
+    Trainer(cfg, TrainerConfig(), device="cpu")
 
 
 # ---------------------------------------------------------------------------

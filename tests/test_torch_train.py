@@ -391,10 +391,11 @@ def test_trainer_refuses_what_is_not_ported():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(cfg, TrainerConfig())
     for kw in (dict(data_parallel=2), dict(tensor_parallel=2),
-               dict(pipeline_parallel=2),
-               dict(gradient_accumulation_steps=2)):
+               dict(pipeline_parallel=2)):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, TrainerConfig(**kw), device="cpu")
+    # gradient accumulation runs now (tests/test_torch_pe_train.py)
+    Trainer(cfg, TrainerConfig(gradient_accumulation_steps=2), device="cpu")
     with pytest.raises(NotImplementedError):
         Trainer(cfg.replace(tp_axis="model"), TrainerConfig(), device="cpu")
     with pytest.raises(ValueError):
@@ -406,7 +407,7 @@ def test_trainer_refuses_what_is_not_ported():
 # ---------------------------------------------------------------------------
 
 # The T5 goldens, ref_t5_masking among them, run here on all three attention
-# paths (the RoPE, ALiBi and FIRE ones wait for their positional encodings).
+# paths (the RoPE, ALiBi and FIRE ones: tests/test_torch_positional.py).
 # Tolerances are those of tests/test_golden_reference.py (ref: 1e-4 on hidden
 # states and logits, 2e-5 on the loss; the kernel paths: 5e-4 and 1e-4).
 T5_GOLDENS = sorted(glob.glob(os.path.join(os.path.dirname(__file__),
