@@ -8,7 +8,9 @@ of JAX. In order:
 
 1. prints the environment and the card's name and power limit;
 2. builds the CUDA kernels from `flasht5_tpu_torch/csrc/` (one `nvcc` per
-   source, all started together);
+   source, all started together), and holds wgmma's MN-major operand (the
+   descriptor the bf16 attention kernels read V, K, Q and dO through)
+   alone against torch.matmul, b's rows rolled by one beyond its limit;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the full-width serving engine, generation, train step,
    pretraining driver and scoring path give it, and times
@@ -22,7 +24,9 @@ of JAX. In order:
    backward's last CTA), the attention forward (the keys rolled by one
    position), `quant_matmul` (each column's scales taken from its
    neighbour; at decode also the last K split left out of the
-   reduction), the attention backward (the bucket one above), the
+   reduction), the attention backward (the bucket one above; the keys
+   rolled by one without a table; dq, dk and dv held to limits derived
+   from the rounding points, `grad_limits`), the
    cross-entropy backward (its small entries flushed or doubled), the
    paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
@@ -34,7 +38,8 @@ of JAX. In order:
    forward row must profile the form its shape dispatches to, and the
    backward's rows also give the scratch it allocates and its measured
    peak memory above its inputs and outputs;
-4. checks on a tiny model that the slot engine on the card serves the
+4. checks on tiny models (d_kv 32, and 16, which the card's attention
+   wrappers zero-pad) that the slot engine on the card serves the
    tokens the engine on the CPU (the plain versions) serves, and that two
    planted faults move its logits beyond the tolerance; and that the paged
    engine on the card serves exactly the CPU's tokens through each of its
@@ -83,9 +88,10 @@ of JAX. In order:
 10b. trains and generates at FAT5-small widths on `pallas` with ALiBi,
    RoPE (randomized positions up to 2048, gradient accumulation over 2
    micro-batches) and FIRE: each a counted `Trainer.train` run whose
-   losses must be finite and falling, a profiled update (the attention
-   bodies on the bias source, or on none for RoPE, must be among its
-   kernels) and its peak memory; then a counted greedy `generate` of 8 x
+   losses must be finite and falling, a profiled update (the wgmma
+   attention bodies, and for ALiBi and FIRE the bias tensor's mma.sync
+   ones, must be among its kernels) and its peak memory; then a counted
+   greedy `generate` of 8 x
    64 tokens from 512-token inputs with int8 weights and a profiled decode
    step (`decode_attn_kernel` among its kernels);
 11. trains FAT5-small at full width through `Trainer.train` (8 x (1024 +
@@ -96,9 +102,9 @@ of JAX. In order:
    launched in each of its loops, every loss must be finite and the loss
    must fall; then each step's device time (the sum of one profiled
    step's kernel times), its peak memory, its kernels by name (the
-   attention backward's tensor-core bodies and the `rms_norm` kernels
-   must be among them, and the fused step's GEMMs and TMA + wgmma
-   forward) and the optimizer's launches;
+   attention's TMA + wgmma bodies and the `rms_norm` kernels must be
+   among them, and the fused step's GEMMs and TMA + wgmma forward) and
+   the optimizer's launches;
 12. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
    12 heads, vocabulary 32128: the fused lm_head+CE kernels in chunks of
    d), seeded weights written as FAT5-named safetensors by the port's
@@ -117,9 +123,14 @@ of JAX. In order:
    be finite and the restored state bit-equal to the saved one; then
    tokens/s as the trainer logs it and between synchronized clock readings,
    the collator's time, a step's wall and device time (its profiled
-   kernels' sum), its kernels (the attention backward's tensor-core bodies
-   and the `rms_norm` kernels must be among them), peak memory;
-14. prints JSON lines of the serving, paged serving, generation, training,
+   kernels' sum), its kernels (the attention's wgmma bodies, the bias
+   tensor's mma.sync ones and the `rms_norm` kernels must be among them),
+   peak memory;
+14. names the kernels SDPA runs for each attention row's `library_ms`
+   ("library-kernels" lines, one profile each, in a process of its own
+   after every other phase: in one process SDPA's profiles have left later
+   profiles short of kernels, and empty after the phases);
+15. prints JSON lines of the serving, paged serving, generation, training,
    scoring, pretraining and encodings results, the smoke's wall, and the
    kernels (each with its launches in each path that runs it, and their
    sum), the `nvidia-smi` name and power limit line, and, last,
@@ -130,6 +141,14 @@ line. Times are device times from CUDA events over back-to-back launches
 (queued behind a `torch.cuda._sleep` so the host's launch cost is not
 timed), with the inputs rotated over enough copies to exceed the 50 MB L2,
 as the engine finds its weights and caches cold.
+
+Probes, each on its own: `--probe [ROOT]` (host costs and kernel rows the
+smoke does not take), `--profile-probe N` (profiles that miss a kernel),
+`--library-kernels` (step 14 alone), `--attn-probe [ROOT]` (the
+attention backward's limit on the inputs that
+once went beyond the old one, against f64; the attention kernels' device
+ms at the train step's shapes), ROOT a checkout whose package is imported
+instead of this one's, so that two commits run in turns in one call.
 """
 
 from __future__ import annotations
@@ -150,9 +169,9 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 BF16_ULP = 2.0 ** -7           # one bf16 ulp, relative to the value
-# the attention backward's limits: of each of dq, dk, dv's largest entry,
-# and of each bucket's sum of |dS| for dW (`check_training_kernels`)
-ATTN_BWD_TOL = 2e-3
+# the attention backward's dW limit: of each bucket's sum of |dS|
+# (`check_training_kernels`); dq, dk and dv take the plain module's
+# `grad_limits` (ops/flash_attention_rpe.py)
 DW_TOL = 1e-5
 L2_BYTES = 50 * 2 ** 20
 
@@ -244,11 +263,11 @@ def _decode_rows(lens, length, pe, fire=None):
                         for n in lens.tolist()])
 
 
-def check_kernels(dev):
+def check_kernels(dev, run=True):
     """Each case's `make()` gives one input set: (kernel args, library
     args); the kernel and its plain version take the first, the library
     call the second (its inputs in the form it wants them, made outside
-    the timing)."""
+    the timing). With `run=False` the cases are returned, not run."""
     from flasht5_tpu_torch import positional
     from flasht5_tpu_torch.ops import (decode_attention, flash_attention_rpe,
                                        quant, rmsnorm)
@@ -510,7 +529,7 @@ def check_kernels(dev):
              rows=lambda lens: _decode_rows(lens, GEN_MAX_LENGTH, "FIRE",
                                             fire))
 
-    return run_checks(cases)
+    return run_checks(cases) if run else cases
 
 
 PAGED_TOL = 1e-5
@@ -697,6 +716,34 @@ def _compare(c, args, got, want):
     return readings
 
 
+def library_kernels(dev) -> int:
+    """`python3 chip_smoke.py --library-kernels`: the kernels SDPA runs for
+    each attention row's library_ms, from one profile of the library call
+    on one input set of the row ("library-kernels" lines). The smoke runs
+    it as a process of its own after its last phase: in one process a
+    profile of SDPA's calls has left later profiles without some of their
+    kernels (the fused CE forward's gate missed its kernel), and after the
+    smoke's phases every profile of SDPA came back empty."""
+    cases = (check_kernels(dev, run=False)
+             + check_training_kernels(dev, run=False)
+             + check_bias_kernels(dev, run=False))
+    for c in cases:
+        if not (c["name"].startswith("flash_attention")
+                and c["library"] is not None):
+            continue
+        lib_args = c["make"]()[1]
+        by_name = _kernels_by_name(lambda: c["library"](*lib_args))
+        print("library-kernels " + json.dumps(dict(
+            name=c["name"], shape=c["label"], library=c.get("library_note"),
+            kernels=[{"name": name[:90], "ms": t, "launches": n}
+                     for name, (t, n) in sorted(
+                         by_name.items(), key=lambda kv: -kv[1][0])[:4]])),
+            flush=True)
+        del lib_args
+        torch.cuda.empty_cache()
+    return 0
+
+
 def run_checks(cases):
     """Each case: the kernel against its plain version on one input set,
     then device times of the kernel, the plain version and the library
@@ -732,6 +779,7 @@ def run_checks(cases):
         plain_ms = device_ms(c["plain"], arg_sets, max(10, iters // 4))
         lib_ms = (device_ms(c["library"], [lb for _, lb in sets], iters)
                   if c["library"] is not None else None)
+
         unfused = ({} if "unfused" not in c else dict(
             unfused_port_ms=device_ms(c["unfused"], [lb for _, lb in sets],
                                       iters),
@@ -825,7 +873,7 @@ def _forced_logits(eng, reqs, tokens, slots):
     return out
 
 
-def check_small_reference(dev):
+def check_small_reference(dev, d_kv=32):
     """A tiny f32 model with int8 weights and KV, served by the engine on the
     card (the kernels) and on the CPU (their plain versions).
 
@@ -843,17 +891,19 @@ def check_small_reference(dev):
     it; (2) `run` on the card serves each request the CPU's tokens up to the
     first step, if any, where that margin is within twice the tolerance;
     (3) under each planted fault, the card's logits move by more than the
-    tolerance."""
+    tolerance. At d_kv 16 the card's attention wrappers zero-pad the head
+    dim (the prefill kernels' and `decode_attention`'s)."""
     from flasht5_tpu_torch.config import FlashT5Config
     from flasht5_tpu_torch.inference import engine
     from flasht5_tpu_torch.models import t5
     from flasht5_tpu_torch.quantize import quantize_params
 
-    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=d_kv, num_heads=4,
                         d_ff=256, num_layers=2, num_decoder_layers=2,
                         dropout_rate=0.0, attention_scale=1.0,
                         dtype="float32", attention_type="pallas_rpe",
                         use_fused_layernorm=True)
+    tag = f"small-reference (d_kv {d_kv})"
     cpu_params = quantize_params(t5.init_params(cfg, seed=3, device="cpu"))
     gpu_params = _to(cpu_params, dev)
     slots = 3
@@ -907,7 +957,7 @@ def check_small_reference(dev):
         elif parted is None or margins[i, parted] > 2 * SMALL_LOGIT_TOL:
             raise AssertionError(f"request {i}: card {b.tolist()} != cpu "
                                  f"{a.tolist()}")
-    print(f"small-reference: teacher-forced logits card vs cpu max abs diff "
+    print(f"{tag}: teacher-forced logits card vs cpu max abs diff "
           f"{worst} (tol {SMALL_LOGIT_TOL}); {equal} of {len(ids)} requests "
           f"served token-equal, the rest parted at a top-two margin within "
           f"{2 * SMALL_LOGIT_TOL}", flush=True)
@@ -916,14 +966,14 @@ def check_small_reference(dev):
     for name, fault in _planted_faults():
         with fault:
             fault_gap = gap(_forced_logits(got, reqs(), cpu_out, slots))
-        print(f"small-reference: planted fault, {name}: logits card vs cpu "
+        print(f"{tag}: planted fault, {name}: logits card vs cpu "
               f"max abs diff {fault_gap} (tol {SMALL_LOGIT_TOL})", flush=True)
         if not fault_gap > SMALL_LOGIT_TOL:
             raise AssertionError(f"planted fault ({name}) moves the logits "
                                  f"by {fault_gap}, within the tolerance")
 
 
-def check_small_paged(dev):
+def check_small_paged(dev, d_kv=32):
     """A tiny f32 model (f32 weights, int8 KV) served by the paged engine on
     the card (the kernels) and on the CPU (their plain versions), through
     each route: `kernel="chunked"` (window appends), `"ragged"` and
@@ -931,12 +981,14 @@ def check_small_paged(dev):
     and exp, and the served tokens must be identical; the smallest top-two
     logit margin of the CPU's steps (over every slot, live or not) says how
     far that is from a tie. Then the first two pages of every slot swapped
-    in what the paged kernel is given must change the served tokens."""
+    in what the paged kernel is given must change the served tokens. At
+    d_kv 16 the card's wrappers zero-pad the head dim (q and the pools of
+    the paged kernel, the prefill kernels' q, k, v)."""
     from flasht5_tpu_torch.config import FlashT5Config
     from flasht5_tpu_torch.inference import engine, paged_engine, paged_kv
     from flasht5_tpu_torch.models import t5
 
-    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=d_kv, num_heads=4,
                         d_ff=256, num_layers=2, num_decoder_layers=2,
                         dropout_rate=0.0, attention_scale=1.0,
                         dtype="float32", attention_type="pallas_rpe",
@@ -986,7 +1038,8 @@ def check_small_paged(dev):
         with _patched(paged_kv, "paged_attention", swapped_pages):
             faulty = serve(gpu_params, dev, kernel)
         moved = sum(a != b for a, b in zip(faulty, want))
-        print(f"small-paged ({kernel}): card tokens == cpu tokens for "
+        print(f"small-paged ({kernel}, d_kv {d_kv}): card tokens == cpu "
+              f"tokens for "
               f"{len(ids)} requests ({sum(map(len, want))} tokens, "
               f"{launched} paged kernel launches); smallest top-two margin "
               f"{min(margins)}; planted fault, pages 0 and 1 swapped: "
@@ -1085,10 +1138,10 @@ def run_engine(dev):
 
     # which kernels a decode step launches, and the device time of each by
     # name (the trace slows the host, so no wall time is read here)
+    bodies = (QMM_DECODE_BODY, DECODE_ATTN_BODY, RMS_FWD_BODY)
     by_name = _kernels_by_name(lambda: eng._window()[1].synchronize(),
                                setup=fill_slots)
-    _require_kernels(by_name, (QMM_DECODE_BODY, DECODE_ATTN_BODY,
-                               RMS_FWD_BODY), "one decode window")
+    _require_kernels(by_name, bodies, "one decode window")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print("profile of one decode window: " + json.dumps({
         "kernels_per_step": sum(n for _, n in by_name.values()) / k,
@@ -1583,9 +1636,10 @@ def run_generation(dev):
               [{"name": name[:80], "ms": t, "launches": n}
                for name, (t, n) in top]), flush=True)
     result["verify_window"] = window
+    bodies = (DECODE_ATTN_BODY, WGMMA_FWD_BODY, RMS_FWD_BODY,
+              QMM_DECODE_BODY)
     _require_kernels(_kernels_by_name(lambda: generate(
-        cfg, params, ids, max_length=4)), (DECODE_ATTN_BODY, RPE_FWD_BODY,
-                                           RMS_FWD_BODY, QMM_DECODE_BODY),
+        cfg, params, ids, max_length=4)), bodies,
         "one generate (max_length 4)")
     result["decode_step"] = step
 
@@ -1812,11 +1866,6 @@ def check_goldens(dev):
     return results
 
 
-# the bias kernels' and the RPE kernels' bias sources (csrc/attention.cuh):
-# the materialized bias (ALiBi, FIRE) and the table, null without one (RoPE)
-BIAS_SOURCE = "TensorBiasT"
-NO_BIAS_SOURCE = "TableBiasT"
-ATTN_BODIES = ("fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel")
 # the kernels each encoding's full-width path runs: on `pallas` the
 # encoder's and the decoder's self-attention take the bias kernels (RoPE:
 # the kernels without a bias), the cross-attention the RPE kernels without
@@ -1892,12 +1941,11 @@ def run_encodings(dev):
             raise AssertionError(f"{pe} training losses {losses}")
         db = trainer._device_batch(batch)
         # one update: k micro-batches
+        bodies = wgmma_bodies(NO_BIAS) + (() if pe == "RoPE"
+                                          else TENSOR_BODIES)
         by_name = _kernels_by_name(lambda: [trainer._step(db)
                                             for _ in range(k)])
-        source = NO_BIAS_SOURCE if pe == "RoPE" else BIAS_SOURCE
-        _require_kernels({name: v for name, v in by_name.items()
-                          if source in name}, ATTN_BODIES,
-                         f"one {pe} train step, on {source}")
+        _require_kernels(by_name, bodies, f"one {pe} train step")
         tokens = n * TRAIN_B * (TRAIN_ENC + TRAIN_DEC)
         train = dict(
             micro_batches=n, gradient_accumulation_steps=k,
@@ -1943,10 +1991,10 @@ def run_encodings(dev):
             decode_step(cfg, params, state._replace(t=8 + i), tok)
         torch.cuda.synchronize()
         step_wall = (time.perf_counter() - t0) * 1e3 / 8
+        bodies = (DECODE_ATTN_BODY, QMM_DECODE_BODY)
         by_name = _kernels_by_name(lambda: decode_step(
             cfg, params, state._replace(t=16), tok))
-        _require_kernels(by_name, (DECODE_ATTN_BODY, QMM_DECODE_BODY),
-                         f"one {pe} decode step")
+        _require_kernels(by_name, bodies, f"one {pe} decode step")
         steps = launches["decode_attention"] // (2 * cfg.num_decoder_layers)
         gen = dict(wall_s=gen_wall, tokens=n_tok,
                    tokens_per_s=n_tok / gen_wall, decode_steps=steps,
@@ -1976,12 +2024,15 @@ TRAIN_B, TRAIN_ENC, TRAIN_DEC = 8, 1024, 256     # bench.py:45
 PRETRAIN_B = 64     # configs/fr/fat5-fr-small.yaml's per-device batch
 
 
-def check_training_kernels(dev):
+def check_training_kernels(dev, rope_generator=True, run=True):
     """The training path's new kernels (and the forward without a table) at
     the FAT5-small train step's shapes. The library yardsticks: autograd's
     backward of F.rms_norm, of F.scaled_dot_product_attention (the RPE bias
     as a float mask, which gives no gradient of the bucket table) and of
-    F.cross_entropy (no z-loss)."""
+    F.cross_entropy (no z-loss). With `rope_generator=False` the RoPE rows
+    draw from the other rows' generator, as they did when the encoder row's
+    dq first went beyond its old limit (`attn_probe` reads those inputs);
+    with `run=False` the cases are returned, not run."""
     from flasht5_tpu_torch import positional
     from flasht5_tpu_torch.ops import (cross_entropy, flash_attention_rpe,
                                        rmsnorm)
@@ -2107,11 +2158,13 @@ def check_training_kernels(dev):
                 q, k, v, w, lse, delta, do, **kw)
 
         def limits(q, k, v, w, lse, delta, do, want):
-            """dq, dk, dv: one bf16 ulp of each entry plus ATTN_BWD_TOL of
-            the output's largest entry; dW: DW_TOL of the sum of |dS| over
-            each bucket's scores, the scale of its rounding error."""
-            lims = [ATTN_BWD_TOL * t.float().abs().max()
-                    + BF16_ULP * t.float().abs() for t in want[:3]]
+            """dq, dk, dv: the plain module's `grad_limits`, from the
+            rounding points; dW: DW_TOL of the sum of |dS| over each
+            bucket's scores, the scale of its rounding error."""
+            lims = flash_attention_rpe.grad_limits(
+                flash_attention_rpe.flash_attention_grad_abs_plain(
+                    q, k, v, w, lse, delta, do, **kw),
+                want[:3], k.shape[2], q.shape[2])
             if w is not None:
                 lims.append(DW_TOL * flash_attention_rpe
                             .flash_attention_dw_abs_plain(
@@ -2141,10 +2194,14 @@ def check_training_kernels(dev):
             bytes=nbytes(q, k, v, do) + nbytes(q) + nbytes(q, k, v)
             + nbytes(lse) + (nbytes(w) if table else 0),
             ops=10 * b * h * pairs * d, ops_type="bf16", main=main,
-            why=f"dq, dk, dv in bf16: one bf16 ulp of each entry, plus "
-                f"{ATTN_BWD_TOL} of the output's largest entry for bf16 P "
-                f"and dS rounded at values an f32 ulp apart; dW, an fp32 "
-                f"sum that nearly cancels: {DW_TOL} of each bucket's sum of "
+            why=f"dq, dk, dv in bf16, from the rounding points: one bf16 "
+                f"ulp of each entry (its own rounding) plus one bf16 ulp, "
+                f"and n f32 ulps, of the sum of the magnitudes its bf16 P "
+                f"or dS terms carry (|dS| |k|, |dS|^T |q|, P^T |dO|, each "
+                f"with D 2^-16 of the f32 scores' and dP's sums of |products| "
+                f"on P and dS), since P and dS rounded from f32 values an "
+                f"f32 ulp apart may land one bf16 ulp apart; dW, an fp32 sum "
+                f"that nearly cancels: {DW_TOL} of each bucket's sum of "
                 f"|dS|"))
 
     attn_case(TRAIN_ENC, TRAIN_ENC, False, True,
@@ -2155,6 +2212,8 @@ def check_training_kernels(dev):
     attn_case(TRAIN_DEC, TRAIN_DEC, True, True,
               "decoder self q,k,v (8,8,256,64) bf16, causal, table")
     # RoPE's self-attention: the same shapes without a table
+    if not rope_generator:
+        rope_gen = None
     attn_case(TRAIN_ENC, TRAIN_ENC, False, False,
               "RoPE encoder q,k,v (8,8,1024,64) bf16, bidirectional, "
               "no table", g=rope_gen)
@@ -2266,7 +2325,33 @@ def check_training_kernels(dev):
         why="bf16 dlogits from the same lse, exp by another implementation "
             "in fp32: one bf16 ulp of each entry (a flip of its rounding) "
             "and no absolute floor, so every entry is held"))
-    return run_checks(cases)
+    return run_checks(cases) if run else cases
+
+
+def check_wgmma_descriptor(dev):
+    """wgmma's MN-major B operand alone, before any kernel that reads V, K,
+    Q or dO through it runs: a (64, 64) @ (64, N) product of seeded bf16
+    values for N 64 and 128, A from shared memory and from registers,
+    against torch.matmul in f32 (exact products, f32 sums in another
+    order: 1e-5 of the largest entry), and b's rows rolled by one (a
+    descriptor that read the wrong rows) beyond it."""
+    from flasht5_tpu_torch.ops import flash_attention_rpe as rpe
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for n in (64, 128):
+        a, b = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((64, 64), (64, n)))
+        want = a.float() @ b.float()
+        lim = 1e-5 * float(want.abs().max())
+        errs = [float((c - want).abs().max())
+                for c in rpe.wgmma_mn_check(a, b)]
+        fault = float((rpe.wgmma_mn_check(a, torch.roll(b, 1, 0))[0]
+                       - want).abs().max())
+        print(f"wgmma MN-major descriptor, (64, 64) @ (64, {n}) bf16: max abs "
+              f"err A in shared memory {errs[0]}, A in registers {errs[1]} "
+              f"(limit {lim}); b's rows rolled by one: {fault}", flush=True)
+        if not (max(errs) <= lim and fault > lim):
+            raise AssertionError(f"wgmma MN-major descriptor at N {n}: "
+                                 f"{errs}, fault {fault}, limit {lim}")
 
 
 # ---------------------------------------------------------------------------
@@ -2276,7 +2361,7 @@ def check_training_kernels(dev):
 DBIAS_TOL = 1e-4          # of each dbias entry, plus as much of the largest
 
 
-def check_bias_kernels(dev):
+def check_bias_kernels(dev, run=True):
     """The three bias kernels (forward, dK/dV + dbias, dQ) against their
     plain versions, entry by entry: at the pretraining driver's own shapes
     (batch 64: the encoder's self-attention with the T5 bias of one table,
@@ -2294,7 +2379,7 @@ def check_bias_kernels(dev):
     output, whose dbias trains the MLP) at the encoder. Planted faults at
     the pretraining encoder shape and at each of those: the bias rows shifted
     by one (each kernel), and dbias summed over the heads as well as the
-    batch."""
+    batch. With `run=False` the cases are returned, not run."""
     from flasht5_tpu_torch import positional
     from flasht5_tpu_torch.ops import flash_attention as fa
     from flasht5_tpu_torch.ops import flash_attention_rpe as rpe
@@ -2329,21 +2414,26 @@ def check_bias_kernels(dev):
         return torch.autograd.grad(out, (ql, kl, vl, ml), do,
                                    retain_graph=True)
 
-    def grad_limits(*args):
-        """dk, dv: one bf16 ulp of each entry plus ATTN_BWD_TOL of the
-        largest; dbias (fp32 dS, summed by the same PyTorch sum on both
+    def sums(q, k, v, bias, lse, delta, do, kw):
+        return rpe.grad_abs_plain(q, k, v, bias.float(), lse, delta, do,
+                                  **kw)
+
+    def grad_limits(q, k, v, bias, lse, delta, do, want, kw):
+        """dk, dv: the plain module's `grad_limits`, from the rounding
+        points; dbias (fp32 dS, summed by the same PyTorch sum on both
         sides): DBIAS_TOL of each entry plus DBIAS_TOL of the largest."""
-        want = args[-1]
-        lims = [ATTN_BWD_TOL * t.float().abs().max()
-                + BF16_ULP * t.float().abs() for t in want[:2]]
+        lims = rpe.grad_limits(
+            sums(q, k, v, bias, lse, delta, do, kw)[1:], want[:2],
+            q.shape[2], q.shape[2])
         lims.append(DBIAS_TOL * want[2].abs().max()
                     + DBIAS_TOL * want[2].abs())
         return lims
 
-    def dq_limits(*args):
-        dq = args[-1][0]
-        return [ATTN_BWD_TOL * dq.float().abs().max()
-                + BF16_ULP * dq.float().abs()]
+    def dq_limits(q, k, v, bias, lse, delta, do, want, kw):
+        """dq: the plain module's `grad_limits`, from the rounding
+        points."""
+        return rpe.grad_limits(sums(q, k, v, bias, lse, delta, do, kw)[:1],
+                               want, k.shape[2], q.shape[2])
 
     cases, yardsticks = [], {}
     fire = positional.init_fire_params(gen, 8, init_L=128.0, device=dev)
@@ -2440,14 +2530,17 @@ def check_bias_kernels(dev):
                      ("dbias summed over the heads as well as the batch",
                       lambda *a, kw=kw: wrong_axis(*a, **kw))]
                     if faulted else []),
-            library=bwd_lib, library_note=bwd_note, limits=grad_limits,
+            library=bwd_lib, library_note=bwd_note,
+            limits=lambda *a, kw=kw: grad_limits(*a, kw),
             bytes=nbytes(q, k, v, do, lse, delta, bias) + nbytes(k, v)
             + bias.numel() * 4, ops=8 * bh_ops,
             extra=dict(dbias_per_batch_bytes=b * 8 * m_len * n_len * 4),
-            why=f"dk, dv in bf16: one bf16 ulp of each entry plus "
-                f"{ATTN_BWD_TOL} of the output's largest entry; dbias, fp32 "
-                f"dS summed by the same PyTorch sum on both sides: "
-                f"{DBIAS_TOL} of each entry plus {DBIAS_TOL} of the largest"))
+            why=f"dk, dv in bf16: one bf16 ulp of each entry plus one bf16 "
+                f"ulp of the sum of the magnitudes its bf16 P or dS terms "
+                f"carry (ops/flash_attention_rpe.py::grad_limits); dbias, "
+                f"fp32 dS summed by the same PyTorch sum on both sides: "
+                f"{DBIAS_TOL} of each entry plus {DBIAS_TOL} of the "
+                f"largest"))
         cases.append(dict(
             common, name="flash_attention_bias_dq", outputs=1,
             kernel=lambda *a, kw=kw: fa.flash_attention_bias_dq(*a, **kw),
@@ -2457,12 +2550,16 @@ def check_bias_kernels(dev):
                       shifted(lambda *a, kw=kw:
                               fa.flash_attention_bias_dq(*a, **kw)))]
                     if faulted else []),
-            library=bwd_lib, library_note=bwd_note, limits=dq_limits,
+            library=bwd_lib, library_note=bwd_note,
+            limits=lambda *a, kw=kw: dq_limits(*a, kw),
             bytes=nbytes(q, k, v, do, lse, delta, bias) + nbytes(q),
             ops=6 * bh_ops,
-            why=f"dq in bf16: one bf16 ulp of each entry plus "
-                f"{ATTN_BWD_TOL} of its largest entry"))
+            why="dq in bf16: one bf16 ulp of each entry plus one bf16 ulp "
+                "of the sum of the magnitudes its bf16 dS terms carry "
+                "(ops/flash_attention_rpe.py::grad_limits)"))
         del q, k, v, bias, lse, delta, do, lib
+    if not run:
+        return cases
     results = run_checks(cases)
     for way, (fn, args) in yardsticks.items():
         by_name = _kernels_by_name(lambda: fn(*args))
@@ -2913,9 +3010,25 @@ def _kernels_by_name(fn, setup=None, tries: int = 3):
     return by_name
 
 
-# the attention backward's tensor-core bodies (attention.cuh), which every
-# bf16 training step must run
-BWD_BODIES = ("dkdv_mma_kernel", "dq_mma_kernel")
+# the bf16 attention bodies on TMA + wgmma (csrc/wgmma_attention.cuh), each
+# built on a bias source (its second template argument): every bf16
+# training step runs the three on its self-attention's source (the T5
+# step the table, RoPE's none) and on none for the cross-attention; every
+# prefill of the T5 encoding runs the forward on the table. On the bias
+# tensor (ALiBi's, FIRE's and the pretraining driver's self-attention) the
+# backward's two run on wgmma and the forward on mma.sync (csrc/
+# attention.cuh's fwd_mma_kernel): TENSOR_BODIES.
+NO_BIAS, TABLE, TENSOR = 0, 1, 2
+WGMMA_NAMES = ("fwd_wgmma_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel")
+WGMMA_FWD_BODY = "fwd_wgmma_kernel<64, 1>"
+TENSOR_BODIES = ("fwd_mma_kernel", f"dkdv_wgmma_kernel<64, {TENSOR}>",
+                 f"dq_wgmma_kernel<64, {TENSOR}>")
+
+
+def wgmma_bodies(*sources, d=64):
+    """The three bodies' names at head dim d on each bias source."""
+    return tuple(f"{name}<{d}, {src}>" for src in sources
+                 for name in WGMMA_NAMES)
 # quant_matmul's decode form, which every decode step runs, and the fused
 # lm_head+CE forward on TMA + wgmma, which the fused train step and the
 # scoring evals run
@@ -2931,9 +3044,6 @@ PAGED_ATTN_BODY = "paged_attn_kernel"
 # backward in each train and pretrain step
 RMS_FWD_BODY = "rms_fwd_warp_kernel"
 RMS_BWD_BODY = "rms_bwd_warp_kernel"
-# the attention forward on the tensor cores (attention.cuh), which the
-# bf16 encoder runs
-RPE_FWD_BODY = "fwd_mma_kernel"
 
 
 def _require_kernels(by_name, bodies, what):
@@ -3034,6 +3144,9 @@ def run_training(dev):
         # the kernels of one step by name and device time; the step's
         # device time is their sum (a step queued behind a sleep overstated
         # it where the host could not queue the step within the sleep)
+        bodies = (wgmma_bodies(TABLE, NO_BIAS) + (RMS_FWD_BODY, RMS_BWD_BODY)
+                  + (("flce_gemm_kernel", FLCE_FWD_BODY) if way == "fused"
+                     else ()))
         by_name = _kernels_by_name(lambda: trainer._step(db))
         step["kernels_per_step"] = sum(n for _, n in by_name.values())
         step["device_ms"] = sum(t for t, _ in by_name.values())
@@ -3045,9 +3158,7 @@ def run_training(dev):
         trainer._step(db)
         torch.cuda.synchronize()
         step["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        _require_kernels(by_name, BWD_BODIES + (RMS_FWD_BODY, RMS_BWD_BODY) + (
-            ("flce_gemm_kernel", FLCE_FWD_BODY) if way == "fused" else ()),
-            f"one {way} train step")
+        _require_kernels(by_name, bodies, f"one {way} train step")
         if way == "unfused":       # the optimizer's launches alone
             opt_kernels = _kernels_by_name(trainer.optimizer.step)
             step["optimizer_launches"] = sum(
@@ -3435,12 +3546,13 @@ def run_pretraining(dev):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     step = dict(wall_ms=sorted(walls)[1])
+    bodies = (wgmma_bodies(NO_BIAS) + TENSOR_BODIES
+              + (RMS_FWD_BODY, RMS_BWD_BODY))
     by_name = _kernels_by_name(lambda: trainer._step(db))
     step["kernels_per_step"] = sum(n for _, n in by_name.values())
     step["device_ms"] = sum(t for t, _ in by_name.values())
     step["device_idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
-    _require_kernels(by_name, BWD_BODIES + (RMS_FWD_BODY, RMS_BWD_BODY),
-                     "one pretrain step")
+    _require_kernels(by_name, bodies, "one pretrain step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     print(f"pretrain step: {json.dumps(step)} (wall: median of 3 steps; "
           f"device: the sum of one profiled step's kernel times); peak "
@@ -3552,11 +3664,13 @@ def main() -> int:
               + " | ".join(regs[:12]))
     print(f"kernel build {time.perf_counter() - t0:.3f} s", flush=True)
 
+    check_wgmma_descriptor(dev)
     checks = (check_kernels(dev) + check_paged_kernels(dev)
               + check_training_kernels(dev) + check_bias_kernels(dev)
               + check_flce_kernels(dev))
-    check_small_reference(dev)
-    check_small_paged(dev)
+    for d_kv in (32, 16):
+        check_small_reference(dev, d_kv)
+        check_small_paged(dev, d_kv)
     check_small_training(dev)
     check_small_generation(dev)
     small_encodings = check_small_encodings(dev)
@@ -3575,6 +3689,9 @@ def main() -> int:
     wide_launches, wide_scored = run_scoring(dev, "FAT5-flan-base")
     torch.cuda.empty_cache()
     pretrain_launches, pretrained = run_pretraining(dev)
+    torch.cuda.empty_cache()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--library-kernels"], check=True, timeout=600)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -3789,6 +3906,175 @@ def probe(dev) -> int:
     return 0
 
 
+# the attention rows of the train step (batch 8, 8 heads, d 64, bf16): tag,
+# query rows, keys, causal, with the table
+ATTN_ROWS = [("encoder, table", 1024, 1024, False, True),
+             ("cross, no table", 256, 1024, False, False),
+             ("decoder self, causal, table", 256, 256, True, True),
+             ("RoPE encoder, no table", 1024, 1024, False, False),
+             ("RoPE decoder self, causal, no table", 256, 256, True, False)]
+
+
+def _grads_f64(q, k, v, bias, lse, delta, do, causal, sm_scale):
+    """dq, dk, dv of the backward's function in f64 from the same inputs
+    (no rounding anywhere), and the magnitudes its roundings act on, by
+    the formula of the plain module's `grad_abs_plain` (|dS'| |k| scale,
+    |dS'|^T |q| scale, P'^T |dO|, with D 2^-16 of the f32 sums of
+    |products| on P and dS), in f64."""
+    from flasht5_tpu_torch.ops import flash_attention_rpe as rpe
+    d = q.shape[-1]
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = q @ k.transpose(-1, -2) * sm_scale + bias
+    lse4 = lse.double()[..., None]
+    ok = rpe._visible(q.shape[2], k.shape[2], causal, q.device) & (
+        lse4 > -5e29)
+    p = torch.where(ok, torch.exp(s - torch.where(ok, lse4, 0.0)), 0.0)
+    del s
+    ds = p * (do @ v.transpose(-1, -2) - delta.double()[..., None])
+    grads = (ds @ k * sm_scale, ds.transpose(-1, -2) @ q * sm_scale,
+             p.transpose(-1, -2) @ do)
+    qa, ka, va, doa = (t.abs() for t in (q, k, v, do))
+    qk = qa @ ka.transpose(-1, -2) * sm_scale
+    ds = ds.abs() + d * 2.0 ** -16 * (p * (doa @ va.transpose(-1, -2))
+                                      + ds.abs() * qk)
+    p = p + d * 2.0 ** -16 * p * qk
+    del qk
+    sums = (ds @ ka * sm_scale, ds.transpose(-1, -2) @ qa * sm_scale,
+            p.transpose(-1, -2) @ doa)
+    return grads, sums
+
+
+def attn_probe(dev) -> int:
+    """The attention kernels alone, for `flasht5_tpu_torch` as imported
+    (`--attn-probe ROOT` imports it from the checkout at ROOT, so that two
+    commits can run in turns in one call):
+    - "dq-limit": the encoder row of `check_training_kernels` (table,
+      bidirectional) on the inputs it had when the RoPE rows shared its
+      generator, where one dq entry went beyond the old limit (one ulp of
+      the entry plus 2e-3 of dq's largest): dq, dk and dv from the kernel,
+      from the plain version and in f64 from the same bf16 inputs. Per
+      output: each one's largest |error| against f64; the most the
+      kernel's error exceeds the plain version's, in units of one rounding
+      of the bf16 terms (BF16_ULP of the f64 sum of their magnitudes); the
+      entries beyond the old limit and beyond the derived one (the plain
+      module's `grad_limits`, here on the f64 sums, since ROOT's package
+      may predate it), with the worst share of each; and the same shares
+      for the kernel on its keys rolled by one.
+    - "attn-row": the forward's and the backward's device ms at ATTN_ROWS,
+      timed as the smoke times kernels;
+    - "decode-pad": `decode_attention` at the cross shape (8, 8, 512) and
+      the paged kernel at the serving shape (8 slots, 8 heads, pages of 64)
+      with bf16 caches at d 48, which the wrappers zero-pad to 64, beside
+      d 64 (ROOT's package may refuse d 48: then its line says so)."""
+    from flasht5_tpu_torch.ops import flash_attention_rpe as rpe
+    cases = check_training_kernels(dev, rope_generator=False, run=False)
+    for c in cases:    # every earlier case's copies, as run_checks makes
+        sets = copies_for(c["make"], c["in_bytes"])
+        if c["name"] == "flash_attention_bwd":
+            break
+    q, k, v, w, lse, delta, do = sets[0][0]
+    del sets
+    kw = dict(causal=False, bidirectional=True, sm_scale=1.0)
+    bias = rpe._bias(w, q.shape[2], k.shape[2], True, 32, 128)
+    want, sums = _grads_f64(q, k, v, bias.double(), lse, delta, do, False,
+                            1.0)
+    got = rpe.flash_attention_bwd(q, k, v, w, lse, delta, do, **kw)[:3]
+    plain = rpe.flash_attention_bwd_plain(q, k, v, w, lse, delta, do,
+                                          **kw)[:3]
+    rolled = rpe.flash_attention_bwd(q, torch.roll(k, 1, 2), v, w, lse,
+                                     delta, do, **kw)[:3]
+    n = dict(dq=k.shape[2], dk=q.shape[2], dv=q.shape[2])
+    for i, name in enumerate(("dq", "dk", "dv")):
+        g, p, f64, a = got[i].double(), plain[i].double(), want[i], sums[i]
+        err_k, err_p = (g - f64).abs(), (p - f64).abs()
+        unit = BF16_ULP * a
+        old = 2e-3 * p.abs().max() + BF16_ULP * p.abs()
+        new = BF16_ULP * p.abs() + (BF16_ULP + n[name] * 2.0 ** -24) * a
+        diff, fdiff = (g - p).abs(), (rolled[i].double() - p).abs()
+        at = int((diff / old).argmax())    # the old limit's worst entry
+        print("dq-limit " + json.dumps(dict(
+            output=name, max_abs_err_kernel_f64=float(err_k.max()),
+            max_abs_err_plain_f64=float(err_p.max()),
+            kernel_excess_in_roundings=float(
+                ((err_k - err_p) / unit.clamp_min(1e-30)).max()),
+            old_worst_entry=dict(
+                plain=float(p.flatten()[at]), kernel=float(g.flatten()[at]),
+                f64=float(f64.flatten()[at]), sum=float(a.flatten()[at]),
+                old_limit=float(old.flatten()[at]),
+                derived_limit=float(new.flatten()[at])),
+            old_beyond=int((diff > old).sum()),
+            old_worst_share=float((diff / old).max()),
+            derived_beyond=int((diff > new).sum()),
+            derived_worst_share=float((diff / new).max()),
+            rolled_derived_beyond=int((fdiff > new).sum()),
+            rolled_derived_worst_share=float((fdiff / new).max()),
+            entries=diff.numel())), flush=True)
+    del want, sums, got, plain, rolled
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for tag, m_len, n_len, causal, table in ATTN_ROWS:
+        kw = dict(causal=causal, bidirectional=not causal, sm_scale=1.0)
+
+        def make():
+            q, do = (torch.randn((TRAIN_B, 8, m_len, 64), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+            k, v = (torch.randn((TRAIN_B, 8, n_len, 64), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            w = (torch.randn((32, 8), generator=gen, device=dev) * 0.5
+                 if table else None)
+            o, lse = rpe.flash_attention_rpe_fwd(q, k, v, w, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            return q, k, v, w, lse, delta, do
+        sets = copies_for(make, 4 * TRAIN_B * 8 * (m_len + n_len) * 64 * 2)
+        fwd = device_ms(lambda q, k, v, w, *rest: rpe.flash_attention_rpe_fwd(
+            q, k, v, w, **kw), sets, 200)
+        bwd = device_ms(lambda *a: rpe.flash_attention_bwd(*a, **kw), sets,
+                        100)
+        print("attn-row " + json.dumps(dict(
+            shape=f"{tag}: q ({TRAIN_B}, 8, {m_len}, 64), k, v ({TRAIN_B}, "
+                  f"8, {n_len}, 64) bf16", forward_ms=fwd,
+            backward_ms=bwd)), flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+    from flasht5_tpu_torch.ops import decode_attention as da
+    from flasht5_tpu_torch.ops import paged_attention as pa
+    row = {}
+    for d in (64, 48):
+        def dec_make(d=d):
+            q = torch.randn((8, 8, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            k, v = (torch.randn((8, 8, 512, d), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            return q, k, v
+
+        def paged_make(d=d):
+            pool = [torch.randn((72, 8, 64, d), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2)]
+            table = torch.arange(72, device=dev, dtype=torch.int32).reshape(
+                8, 9)
+            lens = torch.full((8,), 500, device=dev, dtype=torch.int32)
+            q = torch.randn((8, 8, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            return q, pool[0], pool[1], None, None, table, lens
+        try:
+            row[f"decode_d{d}_ms"] = device_ms(
+                da.decode_attention, copies_for(dec_make, 2 * 8 * 8 * 512 *
+                                                d * 2), 200)
+            row[f"paged_d{d}_ms"] = device_ms(
+                pa.paged_attention, copies_for(paged_make, 2 * 72 * 8 * 64 *
+                                               d * 2), 200)
+        except ValueError as e:
+            row[f"d{d}"] = f"refused: {e}"
+    print("decode-pad " + json.dumps(row), flush=True)
+    return 0
+
+
 def profile_probe(dev, tries: int) -> int:
     """`python3 chip_smoke.py --profile-probe N`: N rounds of the smoke's
     order around its first kernel gate (a profile of SDPA's forward on a
@@ -3834,6 +4120,20 @@ if __name__ == "__main__":
         print(sh("nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader").splitlines()[0], flush=True)
         sys.exit(probe(torch.device("cuda", 0)))
+    if sys.argv[1:2] == ["--attn-probe"]:
+        if len(sys.argv) > 2:
+            sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        print(sh("nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader").splitlines()[0], flush=True)
+        from flasht5_tpu_torch import runtime
+        runtime.build_kernels(["flash_attention_rpe", "flash_attention_bwd"])
+        sys.exit(attn_probe(torch.device("cuda", 0)))
+    if sys.argv[1:2] == ["--library-kernels"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        sys.exit(library_kernels(torch.device("cuda", 0)))
     if sys.argv[1:2] == ["--profile-probe"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")

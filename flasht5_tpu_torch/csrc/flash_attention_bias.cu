@@ -5,36 +5,31 @@
 // Replaces the bias uses of flasht5_tpu/ops/flash_attention.py: the forward
 // _fwd_kernel (:90, pallas_call :325) with has_bias, the dK/dV + dbias kernel
 // _bwd_dkv_kernel (:395, pallas_call :766, want_dbias) and the dQ kernel
-// _bwd_dq_kernel (:561, pallas_call :798) given the bias. The three are
-// attention.cuh's forward (fwd_mma_kernel for bf16, fwd_kernel for f32),
-// dkdv_kernel and dq_kernel, the bodies the RPE kernels run, on the bias
-// source below (TensorBiasT).
+// _bwd_dq_kernel (:561, pallas_call :798) given the bias. bf16 inputs take
+// wgmma_attention.cuh's dkdv_wgmma_kernel and dq_wgmma_kernel on the bias
+// tensor (TensorW: each thread reads its entries at its accumulator's
+// coordinates from device memory, and writes dS there) and attention.cuh's
+// fwd_mma_kernel (mma.sync) for the forward: the wgmma forward read the bias
+// that way 3-14% slower at the encoder's shapes (PERF.md), where the
+// mma.sync body stages it into shared memory by cp.async. f32 inputs take
+// the CUDA-core forms (fwd_kernel, dkdv_kernel, dq_kernel) on TensorBiasT.
 //
 // The bias is (B|1, H|1, M, N) f32 with a contiguous last axis, read through
 // its batch, head and row strides: a stride of 0 broadcasts that axis, so a
-// (1, H, M, N) bias is never expanded in memory. Every tile pair stages its
-// block of the bias into shared memory, in place of the RPE kernels' window
-// gathered from the table: the backward (and the f32 forward) a 64 x 64
-// block by coalesced row reads, row stride 68 floats (their warps read 8
-// rows at once, four threads a row: 68 puts those rows in distinct banks);
-// the bf16 forward (attention.cuh's fwd_mma_kernel) a 128 x 64 block (32
-// KB) as part of its 2-stage cp.async ring, 16-byte copies zero-filled
-// past N where the bias rows are 16-byte aligned (plain loads where they
-// are not), row stride 72 floats: it reads (row, key pair) float2s at the
-// accumulator fragments' coordinates, 8 rows by 4 pairs a warp, and 72 (8
-// mod 32 words) puts each half warp's pairs in distinct banks.
-//
-// The tensor-core dK/dV kernel reads the tile at (query, key) accumulator
-// coordinates of S^T, (2 tq + e, g) over a warp: row stride 68 (8 mod 32
-// words) puts those reads in distinct banks; its dQ kernel reads the
-// forward's (row, key pair) float2s from the forward's 128-row, 72-float
-// tiles. Both stage the tile in their 2-stage cp.async ring.
+// (1, H, M, N) bias is never expanded in memory. The f32 kernels stage a
+// 64 x 64 block of it a tile pair by coalesced row reads, row stride 68
+// floats (their warps read 8 rows at once, four threads a row: 68 puts those
+// rows in distinct banks); the bf16 forward a 128 x 64 block (32 KB) as part
+// of its 2-stage cp.async ring, 16-byte copies zero-filled past N where the
+// bias rows are 16-byte aligned (plain loads where they are not), row stride
+// 72 floats: it reads (row, key pair) float2s at the accumulator fragments'
+// coordinates, 8 rows by 4 pairs a warp, and 72 (8 mod 32 words) puts each
+// half warp's pairs in distinct banks.
 //
 // dbias: the dK/dV kernel writes dS (fp32) of every (batch, head, row, col)
-// into a (B, H, M, N) array, each tile from shared memory with coalesced row
-// writes and zeros for the tiles a causal mask skips; the wrapper sums it
-// over the bias's broadcast axes, as the TPU path does (:811-822).
-// Deterministic, no atomics.
+// into a (B, H, M, N) array, zeros for the rows a causal mask keeps from a
+// CTA's keys; the wrapper sums it over the bias's broadcast axes, as the TPU
+// path does (:811-822). Deterministic, no atomics.
 //
 // Bound on the H100, at the encoder's shape of the pretraining batch (B 64,
 // H 8, M = N = 1024, D 64): the forward does 4 B H M N D = 137 GFLOP over
@@ -42,12 +37,10 @@
 // the dK/dV kernel does 8 B H M N D (K Q^T, V dO^T, P^T dO, dS^T Q: 0.278
 // ms) and the dQ kernel 6 B H M N D (0.208 ms). The per-batch dbias adds
 // 2.1 GB of writes (and the wrapper's reduction reads them again) that a
-// (1, H, M, N) dbias does not need. bf16 inputs run all three on the tensor
-// cores (attention.cuh's fwd_mma_kernel, dkdv_mma_kernel, dq_mma_kernel,
-// mma.sync with the bias tile in the cp.async ring); f32 inputs the
-// CUDA-core forms. Reducing dbias over the batch on chip is later work.
+// (1, H, M, N) dbias does not need. Reducing dbias over the batch on chip is
+// later work.
 
-#include "attention.cuh"
+#include "wgmma_attention.cuh"
 
 using namespace ft5::attn;
 
@@ -55,12 +48,10 @@ namespace {
 
 // A (BM x kBN) bias tile per tile pair, row stride LD floats, in NBUF
 // buffers. The f32 kernels read it four threads to a row, 8 rows at once:
-// LD 68 puts those rows in distinct banks, as it does the tensor-core dK/dV
-// kernel's reads at S^T's (query 2 tq + e, key g) coordinates. The
-// tensor-core forward and dQ kernels read (row g, keys 2 tq, 2 tq + 1)
-// pairs at accumulator coordinates, 8 rows by 4 pairs: LD 72 (8 mod 32
-// words) puts each half warp's 64-bit reads in distinct banks. With two
-// buffers the tile is part of the tensor-core kernels' cp.async rings
+// LD 68 puts those rows in distinct banks. The bf16 forward reads (row g,
+// keys 2 tq, 2 tq + 1) pairs at accumulator coordinates, 8 rows by 4
+// pairs: LD 72 (8 mod 32 words) puts each half warp's 64-bit reads in
+// distinct banks; with two buffers the tile is part of its cp.async ring
 // (16-byte copies where the bias rows allow them, zero-filled past N). NT:
 // the kernel's threads.
 template <int BM, int LD, int NBUF, int NT>
@@ -129,17 +120,17 @@ struct TensorBiasT {
   __device__ void finish(float*, size_t, int, int, int) {}
 };
 
-// the f32 kernels'; the tensor-core forward's and dQ kernel's; the
-// tensor-core dK/dV kernel's
+// the f32 kernels'; the bf16 forward's
 using TensorBias = TensorBiasT<kBM, kBN + 4, 1, kThreads>;
 using TensorBiasFwd = TensorBiasT<kFwdBM, kBN + 8, 2, kFwdThreads>;
-using TensorBiasBwd = TensorBiasT<kBM, kBN + 4, 2, kBwdThreads>;
 
-// whether cp.async can copy the bias rows (16-byte aligned rows)
-bool bias_rows_aligned(const float* bias, long long sb, long long sh,
-                       long long sm) {
-  return reinterpret_cast<uintptr_t>(bias) % 16 == 0 && sb % 4 == 0 &&
-         sh % 4 == 0 && sm % 4 == 0;
+// the bf16 kernels' bias source; its key pairs are read 8 bytes at a time
+// where every row is 8-byte aligned and N is even
+wg::TensorW tensor(const float* bias, long long sb, long long sh,
+                   long long sm, float* dbias, int N) {
+  const bool pairs = reinterpret_cast<uintptr_t>(bias) % 8 == 0 &&
+                     sb % 2 == 0 && sh % 2 == 0 && sm % 2 == 0 && N % 2 == 0;
+  return wg::TensorW{bias, sb, sh, sm, dbias, pairs};
 }
 
 }  // namespace
@@ -154,11 +145,17 @@ FT5_EXPORT int ft5_flash_attention_bias_fwd(
     long long bias_sb, long long bias_sh, long long bias_sm, void* o,
     float* lse, int B, int H, int M, int N, int D, float sm_scale, int causal,
     int dtype, void* stream) {
+  if (dtype == ft5::kBFloat16) {
+    const bool vec = reinterpret_cast<uintptr_t>(bias) % 16 == 0 &&
+                     bias_sb % 4 == 0 && bias_sh % 4 == 0 && bias_sm % 4 == 0;
+    return launch_fwd_mma(
+        TensorBiasFwd{bias, bias_sb, bias_sh, bias_sm, nullptr, vec}, q, k, v,
+        o, lse, B, H, M, N, D, sm_scale, causal, stream);
+  }
+  if (dtype != ft5::kFloat32) return cudaErrorInvalidValue;
   const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, nullptr};
-  const bool vec = bias_rows_aligned(bias, bias_sb, bias_sh, bias_sm);
-  const TensorBiasFwd mma_bv{bias, bias_sb, bias_sh, bias_sm, nullptr, vec};
-  return launch_fwd(bv, mma_bv, dtype, q, k, v, o, lse, B, H, M, N, D,
-                    sm_scale, causal, stream);
+  return launch_fwd_f32(bv, q, k, v, o, lse, B, H, M, N, D, sm_scale, causal,
+                        stream);
 }
 
 FT5_EXPORT int ft5_flash_attention_bias_dkv(
@@ -167,11 +164,14 @@ FT5_EXPORT int ft5_flash_attention_bias_dkv(
     long long bias_sb, long long bias_sh, long long bias_sm, void* dk,
     void* dv, float* dbias, int B, int H, int M, int N, int D,
     float sm_scale, int causal, int dtype, void* stream) {
+  if (dtype == ft5::kBFloat16)
+    return wg::launch_dkdv<wg::kTensorBias>(
+        wg::TableW{}, tensor(bias, bias_sb, bias_sh, bias_sm, dbias, N), q, k,
+        v, dout, lse, delta, dk, dv, B, H, M, N, D, sm_scale, causal, stream);
+  if (dtype != ft5::kFloat32) return cudaErrorInvalidValue;
   const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, dbias};
-  const bool vec = bias_rows_aligned(bias, bias_sb, bias_sh, bias_sm);
-  const TensorBiasBwd mma_bv{bias, bias_sb, bias_sh, bias_sm, dbias, vec};
-  return launch_dkdv(bv, mma_bv, dtype, q, k, v, dout, lse, delta, dk, dv, B,
-                     H, M, N, D, sm_scale, causal, stream);
+  return launch_dkdv_f32(bv, q, k, v, dout, lse, delta, dk, dv, B, H, M, N,
+                         D, sm_scale, causal, stream);
 }
 
 FT5_EXPORT int ft5_flash_attention_bias_dq(
@@ -180,9 +180,12 @@ FT5_EXPORT int ft5_flash_attention_bias_dq(
     long long bias_sb, long long bias_sh, long long bias_sm, void* dq, int B,
     int H, int M, int N, int D, float sm_scale, int causal, int dtype,
     void* stream) {
+  if (dtype == ft5::kBFloat16)
+    return wg::launch_dq<wg::kTensorBias>(
+        wg::TableW{}, tensor(bias, bias_sb, bias_sh, bias_sm, nullptr, N), q,
+        k, v, dout, lse, delta, dq, B, H, M, N, D, sm_scale, causal, stream);
+  if (dtype != ft5::kFloat32) return cudaErrorInvalidValue;
   const TensorBias bv{bias, bias_sb, bias_sh, bias_sm, nullptr};
-  const bool vec = bias_rows_aligned(bias, bias_sb, bias_sh, bias_sm);
-  const TensorBiasFwd mma_bv{bias, bias_sb, bias_sh, bias_sm, nullptr, vec};
-  return launch_dq(bv, mma_bv, dtype, q, k, v, dout, lse, delta, dq, B, H, M,
-                   N, D, sm_scale, causal, stream);
+  return launch_dq_f32(bv, q, k, v, dout, lse, delta, dq, B, H, M, N, D,
+                       sm_scale, causal, stream);
 }

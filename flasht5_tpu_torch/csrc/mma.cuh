@@ -1,7 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
-// (fused_linear_ce.cu, quant_matmul.cu, attention.cuh): mma.sync m16n8k16
-// and the ldmatrix forms that feed it, cp.async, and Hopper's mbarriers,
-// TMA tile loads and wgmma (inline PTX), and the host's TMA descriptors.
+// (fused_linear_ce.cu, quant_matmul.cu, attention.cuh, wgmma_attention.cuh):
+// mma.sync m16n8k16 and the ldmatrix forms that feed it, cp.async, and
+// Hopper's mbarriers, TMA tile loads and wgmma (inline PTX; K-major and
+// MN-major shared-memory operands, A from registers), and the host's TMA
+// descriptors.
 // Nothing here launches.
 #pragma once
 
@@ -114,6 +116,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
          "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// a 3-D tile {c0 (innermost), c1, c2} of `map` into dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 // generic-proxy writes to shared memory made visible to wgmma / TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -121,6 +134,23 @@ __device__ __forceinline__ void fence_proxy_async() {
 // a barrier over `threads` threads (a multiple of 32) on barrier `id` > 0
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+// a warpgroup's registers a thread, lowered or raised (all four warps of
+// the warpgroup execute it)
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+// 2^x by the special-function unit (ex2.approx.ftz: about 2 ulp; results
+// below the normal range flushed to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -140,6 +170,24 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
   d |= static_cast<uint64_t>(1) << 16;  // leading byte offset (unused here)
   d |= static_cast<uint64_t>(1024 >> 4) << 32;  // 8 rows of 128 bytes
   d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
+  return d;
+}
+
+// The same swizzled tiles read MN-major (the transpose bit set in the
+// instruction): a B operand whose N runs along the 128-byte rows, as V
+// (keys x D, row-major) is for O += P V, with K (the keys) down the rows.
+// 8 K rows make one 1024-byte swizzle atom (the stride byte offset); the
+// next 64 columns of N lie `panel_bytes` on (the leading byte offset: a
+// tile 128 columns wide is two TMA boxes of 64, one panel each). A
+// descriptor's start address moves 16 rows (2048 bytes) for each k16 step.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(const void* p,
+                                                        int panel_bytes) {
+  const uint64_t addr = smem_addr(p);
+  uint64_t d = 0;
+  d |= (addr & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((panel_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
   return d;
 }
 
@@ -197,6 +245,146 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x N, f32, N / 2 registers a thread, the layout of
+// wgmma_m64n128k16's) += A (64 x 16) B (16 x N), for N of 32, 64 and 128.
+// ss: A K-major from shared memory (descriptor da); rs: A from registers,
+// a[0..3] the mma.sync m16n8k16 A fragment of the warp's 16 rows (rows g
+// and g + 8, columns 2 tq and 2 tq + 8), exactly the accumulator's
+// (row, column pair) entries of 16 columns packed to bf16. B from shared
+// memory: K-major (TB 0, wgmma_desc_sw128) or MN-major (TB 1,
+// wgmma_desc_sw128_mn). scale_d 0 writes d = A B (d is not read).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, "
+      "1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, "
+      "%19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, "
+      "%33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, "
+      "%33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // TMA descriptors (host)
 // ---------------------------------------------------------------------------
@@ -244,6 +432,31 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type,
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// planes of a row-major (rows, cols) array, one after the other (an
+// (n_planes, rows, cols) array of `elem` bytes), boxes of (1, box_rows,
+// box_cols): rows past `rows` of a plane read as zeros, never the next
+// plane's
+inline bool make_map_3d(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* ptr, int n_planes, int rows, int cols,
+                        int elem, int box_rows, int box_cols,
+                        CUtensorMapSwizzle swizzle) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n_planes)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * elem,
+      static_cast<cuuint64_t>(rows) * cols * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

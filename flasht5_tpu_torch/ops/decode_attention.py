@@ -7,6 +7,13 @@ and how), on the split that `decode_plan` chooses from the shapes.
 
 Layout: q (B, H, D); k, v (B, H, L, D) in f32, bf16 or int8 with scales
 (B, H, L, 1); lengths (B,) valid positions per slot; bias (B, H, L).
+
+The kernel is built for head dims 32, 64 and 128; the wrapper takes any D up
+to 128 and zero-pads q, k and v to the next of those (`padded_head`): the
+zeros add nothing to a score (an int8 cache's per-position scales stay as
+they are) and give zero columns, which are cut off, and `sm_scale` is
+passed, not derived from D, so the result is exact. The pad is a copy of
+the cache a call; every shipped configuration has D 64 and takes none.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import functools
 from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from flasht5_tpu_torch import runtime
 
@@ -112,6 +120,15 @@ def decode_pieces(b: int, h: int, L: int) -> List[Tuple[int, int]]:
             for u in range(splits * warps)]
 
 
+def padded_head(d: int, *ts):
+    """The tensors with their last dim zero-padded from d to the kernels'
+    next head dim (32, 64 or 128); as they are where d is one."""
+    width = next(w for w in _HEAD_DIMS if d <= w)
+    if width == d:
+        return ts
+    return tuple(F.pad(t, (0, width - d)) for t in ts)
+
+
 def _lib():
     lib = runtime.kernel_library("decode_attention")
     fn = lib.ft5_decode_attention
@@ -143,7 +160,8 @@ def decode_attention(q, k, v, k_scales=None, v_scales=None, lengths=None,
             or (v_scales is not None) != quant):
         raise TypeError(f"decode_attention: q {q.dtype}, cache {k.dtype}/"
                         f"{v.dtype}; int8 caches need both scales")
-    if (k.shape != (b, h, L, d) or v.shape != k.shape or d not in _HEAD_DIMS
+    if (k.shape != (b, h, L, d) or v.shape != k.shape
+            or not 1 <= d <= _HEAD_DIMS[-1]
             or (quant and (k_scales.shape != (b, h, L, 1)
                            or v_scales.shape != (b, h, L, 1)))
             or (lengths is not None and lengths.shape != (b,))
@@ -151,8 +169,7 @@ def decode_attention(q, k, v, k_scales=None, v_scales=None, lengths=None,
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, cache "
                          f"{tuple(k.shape)}")
     lib, fn = _lib()
-    q = q.contiguous()
-    k, v = k.contiguous(), v.contiguous()
+    q, k, v = padded_head(d, q.contiguous(), k.contiguous(), v.contiguous())
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: cache rows must be 16-byte "
                          "aligned")
@@ -165,12 +182,13 @@ def decode_attention(q, k, v, k_scales=None, v_scales=None, lengths=None,
     out = torch.empty_like(q)
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(ks),
             runtime.ptr(vs), runtime.ptr(lens), runtime.ptr(bias),
-            runtime.ptr(out), b, h, L, d, float(sm_scale), _Q_CODES[q.dtype],
+            runtime.ptr(out), b, h, L, q.shape[-1], float(sm_scale),
+            _Q_CODES[q.dtype],
             _KV_CODES[k.dtype], *decode_plan(b, h, L),
             runtime.stream_handle(q))
     runtime.check_launch(lib, rc, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
 decode_attention.launches = 0

@@ -28,7 +28,8 @@ import torch
 
 from flasht5_tpu_torch import runtime
 from flasht5_tpu_torch.ops.flash_attention_rpe import (_DTYPE_CODES, _check,
-                                                       _fn, attention,
+                                                       _check_scale, _fn,
+                                                       _widths, attention,
                                                        attention_plain,
                                                        padded,
                                                        scores_grad_plain)
@@ -98,10 +99,11 @@ def _bias_args(name, q, k, bias):
     return bias, strides + [bias.stride(2)]
 
 
-def _common(q, k, v, *more):
+def _common(name, q, k, v, sm_scale, *more):
     """q, k, v (and `more`) zero-padded to the kernels' head dim, with
     (B, H, M, N, padded D)."""
-    q, k, v, *more = padded(q, k, v, *more)
+    _check_scale(name, q, sm_scale)
+    q, k, v, *more = padded(q, k, v, *more, widths=_widths(q.dtype))
     b, h, m_len, d = q.shape
     return q, k, v, more, (b, h, m_len, k.shape[2], d)
 
@@ -128,7 +130,8 @@ def flash_attention_bias_fwd(q, k, v, bias, *, causal=False, sm_scale=1.0):
     bias, (sb, sh, sm) = _bias_args(name, q, k, bias)
     lib, fn = _fn(_LIB, "ft5_flash_attention_bias_fwd", _FWD_ARGS)
     d_in = q.shape[-1]
-    q, k, v, _, (b, h, m_len, n_len, d) = _common(q, k, v)
+    q, k, v, _, (b, h, m_len, n_len, d) = _common(name, q, k, v,
+                                                  sm_scale)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, m_len), dtype=torch.float32, device=q.device)
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(bias),
@@ -160,7 +163,8 @@ def flash_attention_bias_dkv(q, k, v, bias, lse, delta, do, *, causal=False,
     bias, (sb, sh, sm) = _bias_args(name, q, k, bias)
     lib, fn = _fn(_LIB, "ft5_flash_attention_bias_dkv", _DKV_ARGS)
     d_in = q.shape[-1]
-    q, k, v, (do,), (b, h, m_len, n_len, d) = _common(q, k, v, do)
+    q, k, v, (do,), (b, h, m_len, n_len, d) = _common(name, q, k, v,
+                                                      sm_scale, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((b, h, m_len, n_len), dtype=torch.float32,
                         device=q.device)
@@ -190,7 +194,8 @@ def flash_attention_bias_dq(q, k, v, bias, lse, delta, do, *, causal=False,
     bias, (sb, sh, sm) = _bias_args(name, q, k, bias)
     lib, fn = _fn(_LIB, "ft5_flash_attention_bias_dq", _DQ_ARGS)
     d_in = q.shape[-1]
-    q, k, v, (do,), (b, h, m_len, n_len, d) = _common(q, k, v, do)
+    q, k, v, (do,), (b, h, m_len, n_len, d) = _common(name, q, k, v,
+                                                      sm_scale, do)
     dq = torch.empty_like(q)
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(do),
             runtime.ptr(lse), runtime.ptr(delta), runtime.ptr(bias), sb, sh,

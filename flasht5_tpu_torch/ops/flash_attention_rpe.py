@@ -13,11 +13,12 @@ Both kernels also run without a table, adding no bias: that is plain flash
 attention (`ops/flash_attention.py`), which `flash_attention_rpe(...,
 rpe_weights=None)` falls through to, as in the JAX package.
 
-The kernels are built for head dims 32, 64 and 128. The wrappers (these and
-the bias kernels') take any d up to 128 and zero-pad q, k, v (and dO) to the
-next of those widths: the padded features add 0 to every score and give 0
-in every output column, and `sm_scale` is passed, not derived from d, so
-the sliced results are exact.
+The bf16 kernels (TMA + wgmma, `csrc/wgmma_attention.cuh`) are built for
+head dims 64 and 128, the f32 ones (and the bias tensor's bf16 kernels) for
+32, 64 and 128. The wrappers (these and the bias kernels') take any d up to
+128 and zero-pad q, k, v (and dO) to the next of those widths: the padded
+features add 0 to every score and give 0 in every output column, and
+`sm_scale` is passed, not derived from d, so the sliced results are exact.
 """
 
 from __future__ import annotations
@@ -32,9 +33,12 @@ from flasht5_tpu_torch import positional, runtime
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
+_WGMMA_HEAD_DIMS = (64, 128)   # the bf16 kernels' (TMA boxes of 64 columns)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KEY_TILE = 64               # keys per CTA of the backward's dK/dV kernel
+# keys per CTA of the backward's dK/dV kernel (one row of dW's partials)
+_KEY_TILE = {torch.float32: 64, torch.bfloat16: 128}
 _MAX_BUCKETS = 256
+_BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative to the value
 
 
 def _bias(rpe_weights, m_len, n_len, bidirectional, num_buckets,
@@ -131,6 +135,60 @@ def flash_attention_dw_abs_plain(q, k, v, rpe_weights, lse, delta, do, *,
     return _bucket_sums(ds.abs(), bidirectional, num_buckets, max_distance)
 
 
+def flash_attention_grad_abs_plain(q, k, v, rpe_weights, lse, delta, do, *,
+                                   causal=False, sm_scale=1.0,
+                                   bidirectional=True, num_buckets=32,
+                                   max_distance=128):
+    """`grad_abs_plain` with the bias gathered from the table (or none)."""
+    bias = _bias(rpe_weights, q.shape[2], k.shape[2], bidirectional,
+                 num_buckets, max_distance)
+    return grad_abs_plain(q, k, v, bias, lse, delta, do, causal=causal,
+                          sm_scale=sm_scale)
+
+
+def grad_abs_plain(q, k, v, bias, lse, delta, do, *, causal=False,
+                   sm_scale=1.0):
+    """The magnitudes that the backward's bf16 roundings act on, fp32, one
+    tensor shaped like each of dq, dk and dv: (|dS'| |k| scale, |dS'|^T |q|
+    scale, P'^T |dO|), summed over the keys (dq) or the query rows (dk, dv).
+
+    A kernel and this plain version round the same products to bf16 at the
+    same points: P before dV = P^T dO, dS before dK = dS^T q and dQ = dS k.
+    Two roundings of nearly equal f32 values may land one bf16 ulp apart
+    (2^-7 of the value), so each term of an output's sum may move by one
+    ulp of its magnitude, and the output by one ulp of the sum of those
+    magnitudes (what this returns), on top of the rounding of the output
+    itself. P' and dS' add to |P| and |dS| what f32 scores and dP summed in
+    another order can move them by: at most D f32 ulps (2^-24) of the sum
+    of |products| (|q||k|^T, |dO||v|^T), taken with a margin of 2 as D
+    2^-16 P (|q||k|^T scale + ...) once the ulp of 2^-7 multiplies them."""
+    p, ds = scores_grad_plain(q, k, v, bias, lse, delta, do, causal=causal,
+                              sm_scale=sm_scale)
+    d = q.shape[-1]
+    qa, ka, va, doa = (t.float().abs() for t in (q, k, v, do))
+    ds_in = (p * torch.matmul(doa, va.transpose(-1, -2))
+             + ds.abs() * torch.matmul(qa, ka.transpose(-1, -2))
+             * sm_scale)
+    p_in = p * torch.matmul(qa, ka.transpose(-1, -2)) * sm_scale
+    ds_a = ds.abs() + d * 2.0 ** -16 * ds_in
+    p_a = p + d * 2.0 ** -16 * p_in
+    return (torch.matmul(ds_a, ka) * sm_scale,
+            torch.matmul(ds_a.transpose(-1, -2), qa) * sm_scale,
+            torch.matmul(p_a.transpose(-1, -2), doa))
+
+
+def grad_limits(sums, want, n_keys, n_rows):
+    """The entry-by-entry limits of a bf16 backward's dq, dk and dv against
+    this module's plain version (the leading ones of them that `want`
+    holds), derived from the rounding points: `sums` are
+    `grad_abs_plain`'s, and an entry may move by one bf16 ulp (2^-7) of
+    its sum, by the f32 sum of n_keys (dq) or n_rows (dk, dv) terms in
+    another order (n f32 ulps of the sum), and by one ulp of itself for its
+    own rounding."""
+    return [_BF16_ULP * w.float().abs() + (_BF16_ULP + n * 2.0 ** -24) * a
+            for w, a, n in zip(want, sums, (n_keys, n_rows, n_rows))]
+
+
 def _scores_grad_plain(q, k, v, rpe_weights, lse, delta, do, causal,
                        sm_scale, bidirectional, num_buckets, max_distance):
     bias = _bias(rpe_weights, q.shape[2], k.shape[2], bidirectional,
@@ -190,14 +248,27 @@ def _check(name, q, k, v, rpe_weights, num_buckets, *more):
             f"{None if rpe_weights is None else tuple(rpe_weights.shape)}")
 
 
-def padded(*ts):
+def _check_scale(name, q, sm_scale):
+    """The bf16 kernels take the rows' maxima over the unscaled products,
+    so they need a positive scale."""
+    if q.dtype == torch.bfloat16 and not sm_scale > 0:
+        raise ValueError(f"{name}: the bf16 kernels take sm_scale > 0, not "
+                         f"{sm_scale}")
+
+
+def padded(*ts, widths=_HEAD_DIMS):
     """The tensors, contiguous, their last dim zero-padded to the kernels'
-    next head dim (32, 64 or 128)."""
+    next head dim of `widths` (32, 64 or 128 by default)."""
     d = ts[0].shape[-1]
-    width = next(w for w in _HEAD_DIMS if d <= w)
+    width = next(w for w in widths if d <= w)
     if width == d:
         return [t.contiguous() for t in ts]
     return [F.pad(t, (0, width - d)) for t in ts]
+
+
+def _widths(dtype):
+    """The head dims of the kernels that take `dtype`."""
+    return _WGMMA_HEAD_DIMS if dtype == torch.bfloat16 else _HEAD_DIMS
 
 
 def _table_args(q, rpe_weights, m_len, n_len, bidirectional, num_buckets,
@@ -240,11 +311,12 @@ def flash_attention_rpe_fwd(q, k, v, rpe_weights, *, causal=False,
     if q.device.type == "cpu":
         return flash_attention_rpe_plain(q, k, v, rpe_weights, **kw)
     _check("flash_attention_rpe", q, k, v, rpe_weights, num_buckets)
+    _check_scale("flash_attention_rpe", q, sm_scale)
     b, h, m_len, d = q.shape
     n_len = k.shape[2]
     lib, fn = _fn("flash_attention_rpe", "ft5_flash_attention_rpe_fwd",
                   _FWD_ARGS)
-    q, k, v = padded(q, k, v)
+    q, k, v = padded(q, k, v, widths=_widths(q.dtype))
     dp = q.shape[-1]
     table, bucket, nb = _table_args(q, rpe_weights, m_len, n_len,
                                     bidirectional, num_buckets, max_distance)
@@ -277,6 +349,7 @@ def flash_attention_bwd(q, k, v, rpe_weights, lse, delta, do, *,
                                          **kw)
     _check("flash_attention_bwd", q, k, v, rpe_weights, num_buckets, lse,
            delta, do)
+    _check_scale("flash_attention_bwd", q, sm_scale)
     b, h, m_len, d = q.shape
     n_len = k.shape[2]
     if do.shape != q.shape or lse.shape != (b, h, m_len) or \
@@ -287,7 +360,7 @@ def flash_attention_bwd(q, k, v, rpe_weights, lse, delta, do, *,
         raise ValueError(f"flash_attention_bwd: {num_buckets} buckets")
     lib, fn = _fn("flash_attention_bwd", "ft5_flash_attention_bwd",
                   _BWD_ARGS)
-    q, k, v, do = padded(q, k, v, do.to(q.dtype))
+    q, k, v, do = padded(q, k, v, do.to(q.dtype), widths=_widths(q.dtype))
     dp = q.shape[-1]
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
@@ -296,7 +369,7 @@ def flash_attention_bwd(q, k, v, rpe_weights, lse, delta, do, *,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dw_part = None
     if table is not None:
-        dw_part = torch.empty((b, h, -(-n_len // _KEY_TILE), nb),
+        dw_part = torch.empty((b, h, -(-n_len // _KEY_TILE[q.dtype]), nb),
                               dtype=torch.float32, device=q.device)
     rc = fn(runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(do),
             runtime.ptr(lse), runtime.ptr(delta), runtime.ptr(table),
@@ -312,6 +385,28 @@ def flash_attention_bwd(q, k, v, rpe_weights, lse, delta, do, *,
 
 
 flash_attention_bwd.launches = 0
+
+
+def wgmma_mn_check(a, b):
+    """a @ b on wgmma with b an MN-major operand: a (64, 64) and b (64, N)
+    bf16 on the card, N 64 or 128; (c with A from shared memory, c with A
+    from registers), (64, N) f32 each. It checks the descriptor that the
+    bf16 kernels read V, K, Q and dO through, against `a.float() @
+    b.float()`; no path calls it."""
+    if not (a.is_cuda and b.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and a.shape == (64, 64) and b.shape[0] == 64
+            and b.shape[1] in _WGMMA_HEAD_DIMS):
+        raise ValueError(f"wgmma_mn_check: a {tuple(a.shape)} {a.dtype}, b "
+                         f"{tuple(b.shape)} {b.dtype}")
+    lib, fn = _fn("flash_attention_rpe", "ft5_wgmma_mn_check",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    a, b = a.contiguous(), b.contiguous()
+    c_ss = torch.empty((64, b.shape[1]), dtype=torch.float32, device=a.device)
+    c_rs = torch.empty_like(c_ss)
+    rc = fn(runtime.ptr(a), runtime.ptr(b), runtime.ptr(c_ss),
+            runtime.ptr(c_rs), b.shape[1], runtime.stream_handle(a))
+    runtime.check_launch(lib, rc, "wgmma_mn_check")
+    return c_ss, c_rs
 
 
 class _FlashAttentionFn(torch.autograd.Function):

@@ -16,6 +16,12 @@ pools, likewise; page_table (B, maxp) page ids; lengths (B,) tokens per
 slot; bias (B, H, maxp * P) f32. Returns out (B, H, D) in q's dtype and,
 with `return_state`, the softmax state m, l (B, H) f32 of each (slot, head):
 m = -1e30 and l = 0 for a slot of length 0, whose out is 0.
+
+Head dims other than the kernel's 32, 64 and 128 (any D up to 128) are
+zero-padded to the next of those, q and both pools, as
+`decode_attention.padded_head` does: exact, the int8 scales unchanged, at
+the cost of a copy of the pools a call (no shipped configuration takes
+it).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import List, Tuple
 import torch
 
 from flasht5_tpu_torch import runtime
+from flasht5_tpu_torch.ops.decode_attention import padded_head
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -169,7 +176,8 @@ def paged_attention(q, k_pages, v_pages, k_scales, v_scales, page_table,
     maxp = page_table.shape[1] if page_table.dim() == 2 else 0
     ks_stride = k_scales.stride() if quant else (0, 0, 1)
     if (k_pages.dim() != 4 or k_pages.shape[1:] != (h, psize, d)
-            or d not in _HEAD_DIMS or v_pages.shape != k_pages.shape
+            or not 1 <= d <= _HEAD_DIMS[-1]
+            or v_pages.shape != k_pages.shape
             or v_pages.stride() != k_pages.stride()
             or k_pages.stride()[2:] != (d, 1)
             or (quant and (k_scales.shape != (n, h, psize)
@@ -187,7 +195,7 @@ def paged_attention(q, k_pages, v_pages, k_scales, v_scales, page_table,
             and _aligned(v_pages, v_pages.stride()[:3])):
         raise ValueError("paged_attention: page rows must be 16-byte aligned")
     lib, fn = _lib()
-    q = q.contiguous()
+    q, k_pages, v_pages = padded_head(d, q.contiguous(), k_pages, v_pages)
     table = page_table.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     bias = None if bias is None else bias.float().contiguous()
@@ -199,12 +207,14 @@ def paged_attention(q, k_pages, v_pages, k_scales, v_scales, page_table,
     rc = fn(runtime.ptr(q), runtime.ptr(k_pages), runtime.ptr(v_pages),
             runtime.ptr(k_scales), runtime.ptr(v_scales), runtime.ptr(table),
             runtime.ptr(lens), runtime.ptr(bias), runtime.ptr(out),
-            runtime.ptr(m), runtime.ptr(l), b, h, d, psize, maxp,
+            runtime.ptr(m), runtime.ptr(l), b, h, q.shape[-1], psize, maxp,
             k_pages.stride(0), k_pages.stride(1), ks_stride[0], ks_stride[1],
             float(sm_scale), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
             *paged_plan(b, h, maxp), runtime.stream_handle(q))
     runtime.check_launch(lib, rc, "paged_attention")
     paged_attention.launches += 1
+    if out.shape[-1] != d:
+        out = out[..., :d].contiguous()
     return (out, m, l) if return_state else out
 
 

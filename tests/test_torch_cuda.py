@@ -631,6 +631,82 @@ def test_flash_attention_bwd_kernel(dev, causal, m_len, n_len, d, dtype,
         assert got[3] is None and want[3] is None
 
 
+@pytest.mark.parametrize("n", [64, 128])
+def test_wgmma_mn_descriptor(dev, n):
+    """wgmma's MN-major B operand alone (the descriptor the bf16 attention
+    kernels read V, K, Q and dO through): a (64, 64) @ (64, n) product, A
+    from shared memory and from registers, against f32 matmul (exact
+    products, f32 sums in another order)."""
+    a = torch.randn((64, 64), device=dev).to(torch.bfloat16)
+    b = torch.randn((64, n), device=dev).to(torch.bfloat16)
+    want = a.float() @ b.float()
+    for got in flash_attention_rpe.wgmma_mn_check(a, b):
+        _close_to_max(got, want, 1e-5)
+
+
+# The bf16 kernels on TMA + wgmma at their tiles' edges: 128-row forward
+# and dQ CTAs (two warpgroups of 64), 128-key forward tiles at D 64 and 64
+# at D 128, 64-key dQ tiles, 128-key dK/dV CTAs over 64-row (D 64) or
+# 32-row (D 128) query tiles; M and N one under and one past each, causal
+# with N > M and M > N (rows that see no key), the cross shape
+@pytest.mark.parametrize("m_len,n_len,d", [(127, 129, 64), (129, 127, 128),
+                                           (257, 33, 64), (33, 257, 128),
+                                           (1, 129, 64), (129, 1, 64),
+                                           (65, 63, 128), (256, 1024, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("table", [True, False])
+def test_wgmma_attention_tile_edges(dev, m_len, n_len, d, causal, table):
+    q, do = (torch.randn((2, 4, m_len, d), device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((2, 4, n_len, d), device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    w = torch.randn((32, 4), device=dev) if table else None
+    kw = dict(causal=causal, bidirectional=not causal, sm_scale=d ** -0.5)
+    o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w, **kw)
+    o0, lse0 = flash_attention_rpe.flash_attention_rpe_plain(q, k, v, w,
+                                                              **kw)
+    torch.testing.assert_close(o.float(), o0.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, lse0, rtol=1e-4, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_attention_rpe.flash_attention_bwd(q, k, v, w, lse, delta, do,
+                                                  **kw)
+    want = flash_attention_rpe.flash_attention_bwd_plain(q, k, v, w, lse,
+                                                         delta, do, **kw)
+    floor = 2.0 ** -8 * float(want[2].float().abs().max())
+    for g, g0 in zip(got[:3], want[:3]):
+        scale = max(float(g0.float().abs().max()), floor)
+        torch.testing.assert_close(g.float(), g0.float(), rtol=0,
+                                   atol=3e-2 * scale)
+    if table:
+        bound = _dw_error_bound(q, k, w, lse, delta, do, v, kw) \
+            + 1e-3 * floor
+        assert torch.all((got[3] - want[3]).abs() <= bound), \
+            (got[3] - want[3]).abs().max()
+
+
+@pytest.mark.parametrize("table", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_bf16_runs_are_bit_equal(dev, table, d, causal):
+    """The forward's o and lse and the backward's dq, dk, dv and dW, bit-
+    equal over two runs (no atomics; dW's partial rows summed in a fixed
+    order)."""
+    q, k, v, do = (torch.randn((8, 8, 300, d), device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    w = torch.randn((32, 8), device=dev) if table else None
+    kw = dict(causal=causal, bidirectional=not causal, sm_scale=d ** -0.5)
+    runs = []
+    for _ in range(2):
+        o, lse = flash_attention_rpe.flash_attention_rpe_fwd(q, k, v, w,
+                                                             **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        runs.append((o, lse) + tuple(
+            t for t in flash_attention_rpe.flash_attention_bwd(
+                q, k, v, w, lse, delta, do, **kw) if t is not None))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_flash_attention_bwd_dw_is_deterministic(dev):
     q, k, v, do = (torch.randn((8, 8, 256, 64), device=dev).to(torch.bfloat16)
                    for _ in range(4))
@@ -1244,6 +1320,48 @@ def test_attention_kernels_at_padded_head_dims(dev, d, causal, dtype, table):
     if table:
         bound = _dw_error_bound(q, k, w, lse, delta, do, v, kw)
         assert torch.all((got[3] - want[3]).abs() <= bound)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("L", [66, 1000])
+def test_decode_attention_at_padded_head_dims(dev, d, kv, L):
+    """d 16, 48 and 96 run zero-padded to 32, 64 and 128 (q and the cache;
+    an int8 cache's scales unchanged): against the plain version at d
+    itself, with `test_decode_attention_splits`' tolerances; outputs of
+    width d."""
+    b, h = 4, 4
+    q, args, lens, bias = _decode_case(dev, kv, b, h, L, d, [0, 1, 37, L])
+    got = decode_attention.decode_attention(q, *args, lengths=lens,
+                                            bias=bias, sm_scale=d ** -0.5)
+    want = decode_attention.decode_attention_plain(
+        q, *args, lengths=lens, bias=bias, sm_scale=d ** -0.5)
+    assert got.shape == (b, h, d) and got.is_contiguous()
+    tol = 1e-4 if kv == "f32" else (1e-2 if L <= 512 else 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.all(got[lens == 0] == 0)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96])
+@pytest.mark.parametrize("layout", ["standard", "fused"])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_paged_attention_at_padded_head_dims(dev, d, layout, kv):
+    """The paged kernel at d 16, 48 and 96: q and both pools zero-padded
+    (the scales unchanged), out, m and l against the plain version with
+    `test_paged_attention_kernel`'s tolerances."""
+    q, args, bias = _paged_case(dev, kv, d, layout, True)
+    got = paged_attention.paged_attention(q, *args, bias=bias,
+                                          sm_scale=d ** -0.5,
+                                          return_state=True)
+    want = paged_attention.paged_attention_plain(q, *args, bias=bias,
+                                                 sm_scale=d ** -0.5,
+                                                 return_state=True)
+    assert got[0].shape == q.shape
+    tol = 2e-2 if kv == "bf16" else 1e-4
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    for g, g0 in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, g0, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("d", [16, 48, 96])
