@@ -27,7 +27,10 @@ of JAX. In order:
    reduction), the attention backward (the bucket one above; the keys
    rolled by one without a table; dq, dk and dv held to limits derived
    from the rounding points, `grad_limits`), the
-   cross-entropy backward (its small entries flushed or doubled), the
+   cross-entropy backward (its small entries flushed or doubled; in the
+   vocab-split form, a shard of 8192 of the train step's logits, forward
+   and backward, and four shards combined against the unsplit loss,
+   `class_start_idx` one too high), the
    paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
    as well as the batch; also on ALiBi's asymmetric and FIRE's biases),
@@ -71,7 +74,15 @@ of JAX. In order:
    them, as in the paged window below);
 8. serves 16 requests of 512 random tokens with that engine, three times,
    with every launch count set to 0 just before each run and read just
-   after; each serving kernel must have launched in each;
+   after; each serving kernel must have launched in each; then serves them
+   with speculative windows of 4 (`spec_window`, plain attention) beside
+   the standard engine on the same plain attention, each run counted
+   from 0: the tokens must be the standard engine's, request by request,
+   with random drafts and with oracle drafts (which must take fewer
+   windows); where the plain-attention standard engine's tokens part from
+   the decode kernel's, both engines' margins and logits there,
+   teacher-forced along the common prefix; one window's launches and
+   kernels (the profile held to the wrappers' counts);
 9. serves 16 requests of 512 random tokens and up to 256 new ones with the
    paged engine at full width (int8, pages of 64, sync 64): a warm run read
    window by window (wall, launches, one profiled window), then three runs
@@ -105,6 +116,18 @@ of JAX. In order:
    attention's TMA + wgmma bodies and the `rms_norm` kernels must be
    among them, and the fused step's GEMMs and TMA + wgmma forward) and
    the optimizer's launches;
+11b. checks each task head (token and sequence classification in its
+   three problem types, QA) over a tiny f32 trunk on `pallas_rpe`: the
+   card's logits, loss and every gradient against the CPU's, and pooling
+   the first EOS instead of the last (a planted fault) beyond the limit;
+   then fine-tunes the FAT5-small encoder (written to safetensors by the
+   port's exporter and read back) with a 2-label head on the toy task,
+   32 x 512 a step, 30 steps counted from 0 (the loss must fall; energy at
+   the card's power limit), one profiled step (the wgmma attention bodies
+   and the `rms_norm` kernels required, each body's launches equal to its
+   wrapper's count, else the profile is retaken) timed also by
+   `utils.profiling.timed`, and one step each of token classification and
+   QA;
 12. scores a FAT5-small checkpoint and then a FAT5-flan-base one (d 768,
    12 heads, vocabulary 32128: the fused lm_head+CE kernels in chunks of
    d), seeded weights written as FAT5-named safetensors by the port's
@@ -131,7 +154,7 @@ of JAX. In order:
    after every other phase: in one process SDPA's profiles have left later
    profiles short of kernels, and empty after the phases);
 15. prints JSON lines of the serving, paged serving, generation, training,
-   scoring, pretraining and encodings results, the smoke's wall, and the
+   fine-tuning, scoring, pretraining and encodings results, the smoke's wall, and the
    kernels (each with its launches in each path that runs it, and their
    sum), the `nvidia-smi` name and power limit line, and, last,
    {"ok": true, "device": {...}}.
@@ -147,8 +170,10 @@ smoke does not take), `--profile-probe N` (profiles that miss a kernel),
 `--library-kernels` (step 14 alone), `--attn-probe [ROOT]` (the
 attention backward's limit on the inputs that
 once went beyond the old one, against f64; the attention kernels' device
-ms at the train step's shapes), ROOT a checkout whose package is imported
-instead of this one's, so that two commits run in turns in one call.
+ms at the train step's shapes), `--spec-probe` (the speculative window's
+attention batched over its Q rows: requests whose tokens change, tokens/s,
+kernels a window step), ROOT a checkout whose package is imported instead
+of this one's, so that two commits run in turns in one call.
 """
 
 from __future__ import annotations
@@ -395,6 +420,13 @@ def check_kernels(dev, run=True):
              main=True)
     qmm_case(8, 512, 2048, "decode wi_0/wi_1 x (8, 512) @ int8 (512, 2048)")
     qmm_case(8, 2048, 512, "decode wo x (8, 2048) @ int8 (2048, 512)")
+    # the speculative window's rows: 8 slots x SPEC_WINDOW (4) rows, the
+    # decode form's largest M
+    for k_dim, n, what in ((512, 32768, "lm_head"), (512, 512, "Wq/Wk/Wv/o"),
+                           (512, 2048, "wi_0/wi_1"), (2048, 512, "wo")):
+        m = 8 * SPEC_WINDOW
+        qmm_case(m, k_dim, n, f"speculative window {what} x ({m}, {k_dim}) "
+                 f"@ int8 ({k_dim}, {n})")
     qmm_case(4096, 512, 2048,
              "prefill wi_0/wi_1 x (4096, 512) @ int8 (512, 2048)")
     qmm_case(4096, 512, 512, "prefill Wq/Wk/Wv/o x (4096, 512) @ int8 "
@@ -774,7 +806,9 @@ def run_checks(cases):
             _require_kernels(
                 _kernels_by_name(lambda: c["kernel"](*arg_sets[0])),
                 c["require"], f"{c['name']} ({c['label']})")
-        iters = 200 if c["bytes"] < 64 * 2 ** 20 else 50
+        # a case of many small launches sets its own count, so that the
+        # launches of one timing fit the launch queue
+        iters = c.get("iters", 200 if c["bytes"] < 64 * 2 ** 20 else 50)
         ms = device_ms(c["kernel"], arg_sets, iters)
         plain_ms = device_ms(c["plain"], arg_sets, max(10, iters // 4))
         lib_ms = (device_ms(c["library"], [lb for _, lb in sets], iters)
@@ -1193,12 +1227,199 @@ def run_engine(dev):
     if logits.shape != (slots, cfg.vocab_size) or not np.isfinite(
             logits[0]).all():
         raise AssertionError(f"full-width logits {logits.shape} not finite")
+    kernel_tokens = {r.uid: r.result for r in done}
+    spec = run_spec_engine(dev, cfg, params, ecfg, inputs, kernel_tokens,
+                           eng)
+    del eng
+    torch.cuda.empty_cache()
     return median["launches"], dict(
         tokens_per_s_median=median["tokens_per_s"],
         tokens_per_s=[r["tokens_per_s"] for r in runs],
         tokens=median["tokens"], seconds=median["seconds"],
         per_prefill=per_prefill, per_step=per_step,
-        quant_matmul_per_step=qmm_per_step, step=step)
+        quant_matmul_per_step=qmm_per_step, step=step, spec=spec)
+
+
+SPEC_WINDOW = 4
+
+
+def _serve(eng, cfg, inputs, max_new, drafts=None):
+    """Serve one request of max_new tokens for each of `inputs` (its
+    `draft_source` from `drafts`), with the launch counts set to 0 just
+    before and read just after: ({uid: tokens}, the run's figures)."""
+    from flasht5_tpu_torch import ops
+    from flasht5_tpu_torch.inference import engine
+    requests = [engine.Request(
+        uid=i, input_ids=x, max_new_tokens=max_new,
+        draft_source=None if drafts is None else drafts[i])
+        for i, x in enumerate(inputs)]
+    spec = eng.ecfg.spec_window >= 2
+    if spec:
+        eng.spec_stats = dict.fromkeys(eng.spec_stats, 0)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    tokens = _check_results(done, cfg, max_new)
+    run = dict(tokens=tokens, seconds=wall, tokens_per_s=tokens / wall,
+               launches=launches)
+    if spec:
+        run["stats"] = dict(eng.spec_stats)
+        run["tokens_per_slot_window"] = (eng.spec_stats["tokens"]
+                                         / eng.spec_stats["slot_windows"])
+    return {r.uid: r.result for r in done}, run
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _divergence_witness(engines, inputs, tokens, max_new, slots):
+    """Where two engines' greedy tokens part, each engine teacher-forced
+    along their common prefix: the first position p where they part, and
+    at p each engine's margin of its own token over the other engine's,
+    in bf16 ulps of its top logit (the logits are bf16); and the largest
+    difference between the two engines' logits over steps 0..p, in ulps
+    of the largest logit. A margin of a few ulps, where the engines'
+    logits differ by as much, is a near-tie that the two rounding orders
+    resolve apart; a fault in one engine's attention would part the
+    logits by far more. `engines` and `tokens`: two of each, {uid:
+    tokens} each."""
+    from flasht5_tpu_torch.inference import engine
+    a_tok, b_tok = tokens
+    uids = [i for i in a_tok if not np.array_equal(a_tok[i], b_tok[i])]
+    first = {i: next(t for t in range(min(len(a_tok[i]), len(b_tok[i])))
+                     if a_tok[i][t] != b_tok[i][t]) for i in uids}
+    reqs = [engine.Request(uid=i, input_ids=inputs[i], max_new_tokens=max_new)
+            for i in uids]
+    prefixes = [a_tok[i][:first[i] + 1] for i in uids]
+    forced = [_forced_logits(eng, reqs, prefixes, slots) for eng in engines]
+    rows = []
+    for n, i in enumerate(uids):
+        p = first[i]
+        row = dict(uid=i, position=p, of=len(a_tok[i]))
+        for side, (own, other) in enumerate(((a_tok, b_tok), (b_tok, a_tok))):
+            lg = forced[side][n, p]
+            top = float(lg.max())
+            margin = float(lg[own[i][p]] - lg[other[i][p]])
+            row[f"engine_{side}"] = dict(
+                argmax_reproduced=bool(lg.argmax() == own[i][p]),
+                margin=margin, margin_ulps=margin / _bf16_ulp(top))
+        gap = max(float(np.abs(forced[0][n, t] - forced[1][n, t]).max())
+                  for t in range(p + 1))
+        row["logit_gap"] = gap
+        row["logit_gap_ulps"] = gap / _bf16_ulp(max(
+            float(np.abs(forced[0][n, t]).max()) for t in range(p + 1)))
+        rows.append(row)
+    for eng in engines:
+        eng.state.active = torch.zeros_like(eng.state.active)
+    return rows
+
+
+def run_spec_engine(dev, cfg, params, ecfg, inputs, kernel_tokens,
+                    kernel_engine):
+    """Speculative serving: the slot engine with `spec_window`
+    SPEC_WINDOW (plain attention, as the windows require) beside the
+    standard engine on the same plain attention, at the serving settings
+    (int8 weights and KV), on the same requests. The speculative run's
+    tokens must equal the standard run's, request by request; each run has
+    its launch counts set to 0 just before and read just after, and every
+    speculative-serving kernel must launch. Then one more speculative run
+    with oracle drafts (each request's standard tokens behind the start
+    token as its `draft_source`), which must give the same tokens in
+    fewer windows, and one window's launches and kernels. Where the
+    plain-attention standard engine's tokens part from the decode
+    kernel's (`kernel_engine`'s `kernel_tokens`), `_divergence_witness`
+    reads both engines' logits there."""
+    import dataclasses
+
+    from flasht5_tpu_torch import ops
+    from flasht5_tpu_torch.inference import engine
+
+    plain_cfg = dataclasses.replace(ecfg, use_decode_kernel=False)
+    spec_cfg = dataclasses.replace(plain_cfg, spec_window=SPEC_WINDOW)
+    max_new = ecfg.max_decode_len - 2
+    engines = {}
+    for way, c in (("standard", plain_cfg), ("spec", spec_cfg)):
+        engines[way] = engine.InferenceEngine(cfg, params, c, device=dev)
+        engines[way].warmup()
+    torch.cuda.synchronize()
+
+    std_tokens, std = _serve(engines["standard"], cfg, inputs, max_new)
+    spec_tokens, spec = _serve(engines["spec"], cfg, inputs, max_new)
+    oracle = {i: np.concatenate([[0], std_tokens[i]]).astype(np.int32)
+              for i in std_tokens}
+    oracle_tokens, oracle_run = _serve(engines["spec"], cfg, inputs, max_new,
+                                       oracle)
+    for label, got in (("speculative", spec_tokens),
+                       ("speculative, oracle drafts", oracle_tokens)):
+        differ = [i for i in std_tokens
+                  if not np.array_equal(std_tokens[i], got[i])]
+        if differ:
+            raise AssertionError(f"{label} serving: requests {differ} differ "
+                                 f"from the standard engine's tokens")
+    missing = [name for name in SPEC_SERVING if spec["launches"][name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in speculative serving: "
+                             f"{missing}")
+    if not oracle_run["stats"]["windows"] < spec["stats"]["windows"]:
+        raise AssertionError(f"oracle drafts took no fewer windows: "
+                             f"{oracle_run['stats']} {spec['stats']}")
+    same_as_kernel = sum(np.array_equal(std_tokens[i], kernel_tokens[i])
+                         for i in std_tokens)
+    for label, run in (("standard engine, plain attention", std),
+                       (f"spec_window {SPEC_WINDOW}", spec),
+                       (f"spec_window {SPEC_WINDOW}, oracle drafts",
+                        oracle_run)):
+        print(f"spec serving ({label}): {len(inputs)} requests, "
+              f"{run['tokens']} tokens in {run['seconds']:.6f} s = "
+              f"{run['tokens_per_s']:.3f} tokens/s; "
+              + json.dumps({k: v for k, v in run.items()
+                            if k not in ("tokens", "seconds",
+                                         "tokens_per_s")}), flush=True)
+    print(f"spec serving: tokens equal to the standard engine's in every "
+          f"request (random and oracle drafts); the plain-attention "
+          f"standard engine's tokens equal the decode kernel's in "
+          f"{same_as_kernel} of {len(inputs)} requests", flush=True)
+    witness = _divergence_witness(
+        (engines["standard"], kernel_engine), inputs,
+        (std_tokens, kernel_tokens), max_new, ecfg.max_slots)
+    print("plain attention (engine_0) against the decode kernel (engine_1), "
+          "where their tokens part: " + json.dumps(witness), flush=True)
+
+    # one window of SPEC_WINDOW-row steps with every slot decoding
+    eng = engines["spec"]
+    k = spec_cfg.steps_per_sync
+
+    def fill():
+        st = eng.state
+        st.enc_len.fill_(spec_cfg.max_encode_len)
+        st.pos = torch.zeros_like(st.pos)
+        st.budget = torch.full_like(st.budget, max_new)
+        st.active = torch.ones_like(st.active)
+        torch.cuda.synchronize()
+    fill()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng._window()[1].synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    per_step = {name: n / k for name, n in ops.launch_counts().items()}
+    by_name = _kernels_by_name(lambda: eng._window()[1].synchronize(),
+                               setup=fill, expect={
+                                   "quant_matmul": (QMM_DECODE_BODY,),
+                                   "rms_norm": (RMS_FWD_BODY,)})
+    window = dict(steps=k, wall_ms=window_ms, launches_per_step=per_step,
+                  kernels_per_step=sum(n for _, n in by_name.values()) / k,
+                  device_ms_per_step=sum(t for t, _ in by_name.values()) / k)
+    print(f"spec window ({k} steps of {SPEC_WINDOW} rows, "
+          f"{spec_cfg.max_slots} slots): {json.dumps(window)}", flush=True)
+    eng.state.active = torch.zeros_like(eng.state.active)
+    return dict(standard=std, launches=spec["launches"], random_drafts=spec,
+                oracle_drafts=oracle_run, window=window,
+                plain_equals_kernel_requests=same_as_kernel,
+                plain_against_kernel=witness)
 
 
 PAGED_REQUESTS = 16   # tools/serving_paged_ab.py serves 32: halved for time
@@ -2325,6 +2546,128 @@ def check_training_kernels(dev, rope_generator=True, run=True):
         why="bf16 dlogits from the same lse, exp by another implementation "
             "in fp32: one bf16 ulp of each entry (a flip of its rounding) "
             "and no absolute floor, so every entry is held"))
+
+    # -- the vocab-split form: the train step's logits in 4 shards of 8192,
+    # smoothing spread over the whole vocabulary, z-loss 1e-4 ---------------
+    n_shards = 4
+    sv = vocab // n_shards
+    split_kw = dict(lse_square_scale=1e-4, label_smoothing=0.1,
+                    total_classes=vocab)
+
+    def make_shard():
+        logits = randn(rows, vocab, scale=3.0)
+        labels = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        shard = logits[:, sv:2 * sv].contiguous()
+        del logits
+        lse = torch.logsumexp(shard.float(), -1)
+        dloss = torch.full((rows,), 1.0 / rows, device=dev)
+        dz = torch.zeros((rows,), device=dev)
+        local = labels - sv
+        local = torch.where((local >= 0) & (local < sv), local, -100)
+        ll = shard.detach().requires_grad_(True)
+        loss = F.cross_entropy(ll, local, reduction="none")
+        return ((shard, labels, lse, dloss, dz),
+                (shard, local, loss, ll, dloss))
+
+    def split_fwd(start):
+        def fn(shard, labels, *rest):
+            return cross_entropy.cross_entropy_loss(
+                shard, labels, class_start_idx=start, split=True, **split_kw)
+        return fn
+
+    def split_fwd_plain(shard, labels, *rest):
+        lse, total = cross_entropy.cross_entropy_fwd_plain(
+            shard, label_smoothing=0.1)
+        return cross_entropy.cross_entropy_assemble(
+            shard, labels, lse, total, class_start_idx=sv, split=True,
+            **split_kw)
+
+    def split_bwd(start, plain=False):
+        fn = (cross_entropy.cross_entropy_bwd_plain if plain
+              else cross_entropy.cross_entropy_bwd)
+
+        def bwd(shard, labels, lse, dloss, dz):
+            return fn(shard, labels, lse, dloss, dz, class_start_idx=start,
+                      **split_kw)
+        return bwd
+    (shard, labels, lse, dloss, dz), _ = make_shard()
+    off_by_one = "class_start_idx one too high"
+    shard_label = (f"shard 2 of 4: logits (2048, {sv}) of {vocab} bf16, "
+                   f"class_start_idx {sv}, smoothing 0.1 over {vocab}")
+    cases.append(dict(
+        name="cross_entropy_fwd", label=shard_label + ", split: (loss, z)",
+        make=make_shard, in_bytes=2 * nbytes(shard), outputs=2,
+        kernel=split_fwd(sv), plain=split_fwd_plain,
+        faults=[(off_by_one, split_fwd(sv + 1))],
+        library=lambda x, labels, *rest: F.cross_entropy(
+            x, labels, reduction="none"),
+        library_note="F.cross_entropy forward on the shard, labels of other "
+                     "shards ignored (a yardstick: no call computes the "
+                     "partial loss)",
+        atol=1e-4, rtol=1e-5, bytes=nbytes(shard) + rows * 16,
+        ops=4 * rows * sv, ops_type="f32", main=False, iters=16,
+        why="fp32 log-sum-exp and row sum over 8192 values in another "
+            "order; the label's logit gathered alike"))
+    cases.append(dict(
+        name="cross_entropy_bwd", label=shard_label + ", z-loss 1e-4",
+        make=make_shard, in_bytes=2 * nbytes(shard),
+        kernel=split_bwd(sv), plain=split_bwd(sv, plain=True),
+        faults=[(off_by_one, split_bwd(sv + 1))],
+        library=lambda x, labels, loss, ll, dloss: torch.autograd.grad(
+            loss, ll, dloss, retain_graph=True),
+        library_note="autograd backward of F.cross_entropy on the shard",
+        atol=2.0 ** -24, scaled=True, rtol=BF16_ULP,
+        bytes=2 * nbytes(shard) + rows * 16, ops=10 * rows * sv,
+        ops_type="f32", main=False,
+        why="one bf16 ulp of each entry, plus one f32 ulp of the largest "
+            "entry where smoothing's constant cancels the probability"))
+
+    def make_shards():
+        logits = randn(rows, vocab, scale=3.0)
+        labels = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        shards = [logits[:, i * sv:(i + 1) * sv].contiguous()
+                  for i in range(n_shards)]
+        return (logits, labels, *shards), (logits, labels)
+
+    def combined(bad=None):
+        """The shards' partial losses combined as tensor parallelism
+        would: the global lse by logsumexp of the shard lses, the
+        partials summed, the global lse and its z-loss added."""
+        def fn(logits, labels, *shards):
+            partial, lses = 0.0, []
+            for i, shard in enumerate(shards):
+                start = i * sv + (1 if i == bad else 0)
+                lse, total = cross_entropy.cross_entropy_fwd(
+                    shard, label_smoothing=0.1)
+                loss, _ = cross_entropy.cross_entropy_assemble(
+                    shard, labels, lse, total, class_start_idx=start,
+                    split=True, **split_kw)
+                partial = partial + loss
+                lses.append(lse)
+            lse = torch.logsumexp(torch.stack(lses), dim=0)
+            z = 1e-4 * lse * lse
+            valid = labels != -100
+            return (torch.where(valid, partial + lse + z, 0.0),
+                    torch.where(valid, z, 0.0))
+        return fn
+    (logits, labels, *shards), _ = make_shards()
+    cases.append(dict(
+        name="cross_entropy_fwd", label=f"4 shards of (2048, {sv}) combined "
+        f"against the unsplit (2048, {vocab}) bf16 loss, smoothing 0.1, "
+        f"z-loss 1e-4", make=make_shards, in_bytes=2 * nbytes(logits),
+        outputs=2, kernel=combined(),
+        plain=lambda logits, labels, *rest: cross_entropy.cross_entropy_loss(
+            logits, labels, 1e-4, 0.1),
+        faults=[("shard 3's " + off_by_one, combined(bad=2))],
+        library=lambda logits, labels: F.cross_entropy(
+            logits, labels, reduction="none", label_smoothing=0.1),
+        library_note="F.cross_entropy forward on the whole logits, "
+                     "smoothing 0.1 (no z-loss)",
+        atol=2e-4, rtol=1e-5, bytes=nbytes(logits) + rows * 16,
+        ops=4 * rows * vocab, ops_type="f32", main=False, iters=4,
+        why="the global lse by logsumexp of four shard lses against one "
+            "streaming pass, row sums in another order"))
+    del logits, shards, shard
     return run_checks(cases) if run else cases
 
 
@@ -2965,9 +3308,11 @@ def _small_training_step(dev, tag, cfg, batch, faults):
 # profiles that recorded no device event at all, each retaken (see
 # _kernels_by_name)
 EMPTY_PROFILES = []
+# profiles retaken because their launches differed from the wrappers'
+SHORT_PROFILES = []
 
 
-def _kernels_by_name(fn, setup=None, tries: int = 3):
+def _kernels_by_name(fn, setup=None, tries: int = 3, expect=None):
     """{kernel name: (device ms, launches)} of one profiled call of fn
     (`setup()` runs first, outside the profile).
 
@@ -2976,17 +3321,37 @@ def _kernels_by_name(fn, setup=None, tries: int = 3):
     session's activity records, as it did about once in twenty smoke
     runs under torch 2.11. Such a profile is retaken, up to `tries` in
     all, each printed with the launches the port's wrappers counted
-    meanwhile. A profile that holds kernels is never retaken, so a
-    dispatch to the wrong form always fails its gate."""
-    from torch.profiler import ProfilerActivity
+    meanwhile. A profile that holds kernels is never retaken for that, so
+    a dispatch to the wrong form always fails its gate.
+
+    `expect` ({wrapper: bodies}) holds the profile to the wrappers'
+    counts: each body's launches in the profile must equal the launches
+    its wrapper counted during the profiled call (each of these wrappers
+    launches each of its bodies once a call). A profile that holds fewer
+    or more lost or mixed up records, so its times are not the call's:
+    it is printed as "profile-short" and retaken, within the same
+    `tries`, and the smoke fails if none holds them all. Such a profile
+    first traces one more call of fn (after `setup()`) as the profiler's
+    warm-up, whose records it drops: a fine-tune step's profile taken
+    without it missed the step's first kernels, three times of three
+    (1 of 12 attention forwards, 2 of 25 `rms_norm` forwards)."""
+    from torch.profiler import ProfilerActivity, schedule
 
     from flasht5_tpu_torch import ops
     for attempt in range(tries):
         if setup is not None:
             setup()
-        counted = ops.launch_counts()
         with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=1)
+                if expect else None) as prof:
+            if expect:
+                fn()
+                torch.cuda.synchronize()
+                if setup is not None:
+                    setup()
+                prof.step()
+            counted = ops.launch_counts()
             fn()
             torch.cuda.synchronize()
         by_name = {}
@@ -2999,14 +3364,28 @@ def _kernels_by_name(fn, setup=None, tries: int = 3):
                 t, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3,
                                    n + 1)
-        if by_name:
-            return by_name
         launched = {name: n - counted[name]
                     for name, n in ops.launch_counts().items()
                     if n != counted[name]}
-        EMPTY_PROFILES.append(dict(attempt=attempt, launched=launched))
-        print("profile-empty " + json.dumps(EMPTY_PROFILES[-1]),
-              flush=True)
+        if not by_name:
+            EMPTY_PROFILES.append(dict(attempt=attempt, launched=launched))
+            print("profile-empty " + json.dumps(EMPTY_PROFILES[-1]),
+                  flush=True)
+            continue
+        short = {f"{wrapper}: {body}": dict(
+            counted=launched.get(wrapper, 0),
+            profiled=sum(n for name, (_, n) in by_name.items()
+                         if body in name))
+            for wrapper, bodies in (expect or {}).items() for body in bodies}
+        short = {k: v for k, v in short.items()
+                 if v["counted"] != v["profiled"]}
+        if not short:
+            return by_name
+        SHORT_PROFILES.append(dict(attempt=attempt, differ=short))
+        print("profile-short " + json.dumps(SHORT_PROFILES[-1]), flush=True)
+    if expect and by_name:
+        raise AssertionError(f"no profile of {tries} held the launches the "
+                             f"wrappers counted: {SHORT_PROFILES[-1]}")
     return by_name
 
 
@@ -3194,6 +3573,278 @@ def run_training(dev):
                    launches_per_step={k: n / 10 for k, n in
                                       median["fused"]["launches"].items()}))
     return median["unfused"]["launches"], median["fused"]["launches"], result
+
+
+# ---------------------------------------------------------------------------
+# fine-tuning: the task heads over the encoder trunk
+# ---------------------------------------------------------------------------
+
+def _first_eos_pooling():
+    """A planted fault of the sequence-classification head: each row
+    pools its first EOS instead of its last."""
+    from flasht5_tpu_torch.models import heads
+
+    def first_eos(input_ids, eos_token_id):
+        eos = input_ids == eos_token_id
+        return torch.where(eos.any(dim=1), eos.int().argmax(dim=1),
+                           input_ids.shape[1] - 1)
+    return _patched(heads, "last_eos_positions", first_eos)
+
+
+def check_small_finetune(dev):
+    """Each task head over a tiny f32 trunk on `pallas_rpe` with the fused
+    `rms_norm`, on the card (the kernels) against the CPU (their plain
+    versions): token classification, sequence classification in each
+    problem type (regression, single- and multi-label) and extractive QA;
+    the logits, the loss and every gradient leaf, each gap relative to the
+    output's or leaf's largest entry, within SMALL_GRAD_TOL (the tiny
+    training step's limit: f32 on both sides, sums in other orders). A
+    leaf whose largest entry is under a hundredth of the tree's largest is
+    held relative to that hundredth: its entries are rounding noise where
+    the gradient is zero in exact arithmetic, as the QA bias's is (the
+    softmax over a row's positions is blind to a shift of the row). A
+    planted fault, pooling each row's first EOS instead of its last, must
+    move the sequence-classification logits beyond it."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.models import heads
+    from flasht5_tpu_torch.models.t5 import tree_leaves_with_path
+
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+                        d_ff=256, num_layers=2, dropout_rate=0.0,
+                        attention_scale=1.0, dtype="float32",
+                        attention_type="pallas_rpe", use_fused_layernorm=True,
+                        pad_token_id=0)
+    rng = np.random.default_rng(7)
+    b, n = 4, 96
+    ids = rng.integers(2, 512, (b, n)).astype(np.int32)
+    ids[0, 30] = ids[0, 80] = 1          # two EOS: the last is pooled
+    ids[1, n - 1] = 1
+    ids[3, 50] = 1                       # row 2 has none: its last position
+    ids = torch.from_numpy(ids)
+    tok_labels = torch.from_numpy(rng.integers(0, 9, (b, n)))
+    tok_labels[2, 10:20] = -100
+    cases = {
+        "token classification": (
+            lambda: heads.init_token_classification_params(
+                cfg, 9, seed=3, device="cpu"),
+            lambda p, d: heads.token_classification_forward(
+                cfg, p, ids.to(d), labels=tok_labels.to(d)), ("logits",)),
+        "question answering": (
+            lambda: heads.init_question_answering_params(
+                cfg, seed=3, device="cpu"),
+            lambda p, d: heads.question_answering_forward(
+                cfg, p, ids.to(d),
+                start_positions=torch.tensor([3, 90, n + 4, 0], device=d),
+                end_positions=torch.tensor([9, n - 1, 40, -2], device=d)),
+            ("start_logits", "end_logits")),
+    }
+    seq_labels = {
+        "regression": (1, torch.from_numpy(
+            rng.standard_normal((b, 1)).astype(np.float32))),
+        "single_label_classification": (3, torch.from_numpy(
+            rng.integers(0, 3, (b,)))),
+        "multi_label_classification": (3, torch.from_numpy(
+            (rng.random((b, 3)) > 0.5).astype(np.float32))),
+    }
+    for problem, (nl, labels) in seq_labels.items():
+        cases[f"sequence classification, {problem}"] = (
+            lambda nl=nl: heads.init_sequence_classification_params(
+                cfg, nl, seed=3, device="cpu"),
+            lambda p, d, nl=nl, labels=labels:
+                heads.sequence_classification_forward(
+                    cfg, p, ids.to(d), labels=labels.to(d), num_labels=nl),
+            ("logits",))
+
+    def run(init, fwd, keys, device, cpu_params):
+        params = _to(copy.deepcopy(cpu_params), device)
+        leaves = tree_leaves_with_path(params)
+        for _, p in leaves:
+            p.requires_grad_(True)
+        out = fwd(params, device)
+        out["loss"].backward()
+        return ([out[k].detach().float().cpu() for k in keys + ("loss",)],
+                [(path, p.grad.cpu()) for path, p in leaves])
+
+    def gap(a, b, floor=0.0):
+        worst, where = 0.0, None
+        for (path, g), (_, w) in zip(a, b):
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   floor, 1e-30)
+            if rel > worst:
+                worst, where = rel, path
+        return worst, where
+
+    results = {}
+    for name, (init, fwd, keys) in cases.items():
+        cpu_params = init()
+        want_out, want = run(init, fwd, keys, "cpu", cpu_params)
+        got_out, got = run(init, fwd, keys, dev, cpu_params)
+        names = keys + ("loss",)
+        out_gap = gap(list(zip(names, got_out)), list(zip(names, want_out)))
+        grad_gap = gap(got, want, floor=1e-2 * max(
+            float(w.abs().max()) for _, w in want))
+        print(f"small-finetune ({name}): outputs card vs cpu largest gap "
+              f"{out_gap[0]} at {out_gap[1]}, gradients {grad_gap[0]} at "
+              f"{grad_gap[1]} (of the largest entry; tol {SMALL_GRAD_TOL})",
+              flush=True)
+        if not (out_gap[0] <= SMALL_GRAD_TOL and grad_gap[0] <= SMALL_GRAD_TOL):
+            raise AssertionError(f"tiny {name}: card and cpu differ")
+        results[name] = dict(output_gap=out_gap[0], gradient_gap=grad_gap[0])
+        if name.endswith("single_label_classification"):
+            with _first_eos_pooling():
+                fault_out, _ = run(init, fwd, keys, dev, cpu_params)
+            fault_gap = gap(list(zip(names, fault_out)),
+                            list(zip(names, want_out)))
+            print(f"small-finetune ({name}): planted fault, the first EOS "
+                  f"pooled: outputs largest gap {fault_gap[0]} at "
+                  f"{fault_gap[1]} (tol {SMALL_GRAD_TOL})", flush=True)
+            if not fault_gap[0] > SMALL_GRAD_TOL:
+                raise AssertionError("pooling the first EOS stays within "
+                                     "the tolerance")
+            results[name]["fault_gap"] = fault_gap[0]
+    return results
+
+
+FT_B, FT_LEN, FT_STEPS = 32, 512, 30
+
+
+def run_finetune(dev):
+    """Fine-tuning at full width: the FAT5-small encoder trunk (12 layers,
+    d_model 512, `pallas_rpe`, bf16 activations), written to safetensors by
+    the port's exporter and read back by `load_fat5_safetensors`, with a
+    2-label sequence-classification head; FT_STEPS steps of
+    `finetune_classification.train_step` on the demo's toy task at 32 x 512
+    (four fixed batches), with the launch counts set to 0 just before and
+    read just after, and `EnergyCallback` at the card's power limit; the
+    loss must fall. Then one profiled step (the wgmma attention bodies and
+    the `rms_norm` kernels required), the step timed by
+    `utils.profiling.timed`, and one step each of token classification and
+    QA heads over the same trunk."""
+    import tempfile
+
+    from flasht5_tpu_torch import flagship_config, ops
+    from flasht5_tpu_torch.convert import (load_fat5_safetensors,
+                                           params_to_fat5_state_dict,
+                                           safetensors_file)
+    from flasht5_tpu_torch.models import heads, t5
+    from flasht5_tpu_torch.train import EnergyCallback
+    from flasht5_tpu_torch.train import finetune_classification as ft
+    from flasht5_tpu_torch.utils import profiling
+
+    cfg = flagship_config()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fat5-small-encoder.safetensors")
+        safetensors_file.save_file(params_to_fat5_state_dict(
+            t5.init_encoder_params(cfg, seed=0, device=dev)), path)
+        size = os.path.getsize(path)
+        trunk = load_fat5_safetensors(path, device=dev)
+    if set(trunk) != {"shared", "encoder"}:
+        raise AssertionError(f"the exported trunk read back as {set(trunk)}")
+    params = ft.attach_head(cfg, trunk, 2)
+    optimizer = ft.make_optimizer(params, 1e-4)
+    pool = [(torch.from_numpy(i).to(dev), torch.from_numpy(y).to(dev))
+            for i, y in ft.toy_pool(cfg, rows=FT_B, length=FT_LEN)]
+    torch.cuda.synchronize()
+    print(f"finetune: FAT5-small encoder {cfg.num_layers} layers, "
+          f"{cfg.attention_type}, {cfg.dtype} activations; trunk written "
+          f"({size} bytes) and read back, head attached "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def step(i):
+        ids, y = pool[i % len(pool)]
+        return ft.train_step(cfg, params, optimizer, ids, y, 2)
+
+    for i in range(2):                     # warm-up: Triton and cuBLAS
+        step(i)
+    torch.cuda.synchronize()
+    energy = EnergyCallback(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    energy.on_train_begin(None)
+    t1 = time.perf_counter()
+    out = [step(i) for i in range(FT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    result = {}
+    energy.on_train_end(None, result)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(loss) for loss, _ in out]
+    accs = [float(acc) for _, acc in out]
+    tokens = FT_STEPS * FT_B * FT_LEN
+    print(f"finetune loop: {FT_STEPS} steps of {FT_B} x {FT_LEN}, {tokens} "
+          f"tokens in {wall:.6f} s = {tokens / wall:.3f} tokens/s; losses "
+          f"{json.dumps(losses)}; accuracies {json.dumps(accs)}; launches "
+          f"{json.dumps(launches)}; peak memory {peak} bytes; energy at the "
+          f"card's power limit ({energy.watts} W) "
+          f"{json.dumps(result['energy'])}", flush=True)
+    missing = [name for name in FINETUNE if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in fine-tuning: "
+                             f"{missing}")
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-4:]) < np.mean(losses[:4])):
+        raise AssertionError(f"fine-tuning losses {losses}")
+
+    fwd, dkdv, dq = wgmma_bodies(TABLE)
+    by_name = _kernels_by_name(lambda: step(0), expect={
+        "flash_attention_rpe": (fwd,), "flash_attention_bwd": (dkdv, dq),
+        "rms_norm": (RMS_FWD_BODY,), "rms_norm_bwd": (RMS_BWD_BODY,)})
+    _require_kernels(by_name, wgmma_bodies(TABLE)
+                     + (RMS_FWD_BODY, RMS_BWD_BODY), "one fine-tune step")
+    timed_s = profiling.timed(step, 0, iters=5, warmup=1)
+    one = dict(wall_ms=wall / FT_STEPS * 1e3, timed_ms=timed_s * 1e3,
+               device_ms=sum(t for t, _ in by_name.values()),
+               kernels_per_step=sum(n for _, n in by_name.values()))
+    one["device_idle_share"] = 1.0 - one["device_ms"] / one["wall_ms"]
+    print(f"finetune step: {json.dumps(one)} (wall: the loop / "
+          f"{FT_STEPS}; timed: utils.profiling.timed, CUDA events over 5 "
+          f"steps queued back to back; device: the sum of one profiled "
+          f"step's kernel times)", flush=True)
+
+    # one step each of the other heads over the same trunk
+    others = {}
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (
+        FT_B, FT_LEN)).astype(np.int32)).to(dev)
+    for name, init, fwd in (
+            ("token classification",
+             lambda: heads.init_token_classification_params(
+                 cfg, 9, seed=2, device=dev),
+             lambda p: heads.token_classification_forward(
+                 cfg, p, ids, labels=torch.randint(
+                     0, 9, (FT_B, FT_LEN), device=dev))),
+            ("question answering",
+             lambda: heads.init_question_answering_params(
+                 cfg, seed=2, device=dev),
+             lambda p: heads.question_answering_forward(
+                 cfg, p, ids,
+                 start_positions=torch.randint(0, FT_LEN, (FT_B,), device=dev),
+                 end_positions=torch.randint(0, FT_LEN, (FT_B,),
+                                             device=dev)))):
+        p = init()
+        p["shared"], p["encoder"] = trunk["shared"], trunk["encoder"]
+        opt = ft.make_optimizer(p, 1e-4)
+        ops.reset_launch_counts()
+        t2 = time.perf_counter()
+        loss = fwd(p)["loss"]
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        others[name] = dict(loss=float(loss.detach()), wall_ms=(
+            time.perf_counter() - t2) * 1e3, launches=ops.launch_counts())
+        if not np.isfinite(others[name]["loss"]) or any(
+                others[name]["launches"][k] <= 0 for k in FINETUNE):
+            raise AssertionError(f"{name} step: {others[name]}")
+        print(f"finetune {name}: one step {json.dumps(others[name])}",
+              flush=True)
+    return launches, dict(
+        tokens_per_s=tokens / wall, tokens=tokens, seconds=wall,
+        losses=losses, accuracies=accs, peak_memory_bytes=peak, step=one,
+        energy=result["energy"], watts=energy.watts, trunk_bytes=size,
+        other_heads=others)
 
 
 # ---------------------------------------------------------------------------
@@ -3635,6 +4286,13 @@ SCORING = ("fused_linear_ce_fwd", "quant_matmul")
 FUSED_TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
                   "flash_attention_bwd", "fused_linear_ce_fwd",
                   "fused_linear_ce_bwd")
+# fine-tuning a head over the encoder on `pallas_rpe` (the heads' losses
+# are plain PyTorch, as the JAX package's are plain XLA)
+FINETUNE = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
+            "flash_attention_bwd")
+# the slot engine's speculative windows: the prefill's encoder, then the
+# windows' plain attention on quant_matmul and the rms_norm forward
+SPEC_SERVING = ("rms_norm", "flash_attention_rpe", "quant_matmul")
 
 
 def main() -> int:
@@ -3684,6 +4342,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained_launches, fused_launches, trained = run_training(dev)
     torch.cuda.empty_cache()
+    small_finetune = check_small_finetune(dev)
+    finetune_launches, finetuned = run_finetune(dev)
+    torch.cuda.empty_cache()
     scored_launches, scored = run_scoring(dev)
     torch.cuda.empty_cache()
     wide_launches, wide_scored = run_scoring(dev, "FAT5-flan-base")
@@ -3713,6 +4374,10 @@ def main() -> int:
             by_path["scoring_flan_base"] = wide_launches[name]
         if name in FUSED_TRAINING:
             by_path["fused_training"] = fused_launches[name]
+        if name in FINETUNE:
+            by_path["finetune"] = finetune_launches[name]
+        if name in SPEC_SERVING:
+            by_path["spec_serving"] = served["spec"]["launches"][name]
         for pe in FULL_ENCODINGS:
             bias = pe != "RoPE"
             if name in (BIAS_TRAINING if bias else TRAINING):
@@ -3739,6 +4404,8 @@ def main() -> int:
     print(json.dumps({"paged_engine": paged}))
     print(json.dumps({"generation": generated}))
     print(json.dumps({"training": trained}))
+    print(json.dumps({"finetune": dict(small=small_finetune,
+                                       full_width=finetuned)}))
     print(json.dumps({"scoring": scored}))
     print(json.dumps({"scoring_flan_base": wide_scored}))
     print(json.dumps({"pretraining": pretrained}))
@@ -3746,6 +4413,7 @@ def main() -> int:
                                         goldens=goldens,
                                         full_width=encodings)}))
     print("empty profiles retaken " + json.dumps(EMPTY_PROFILES), flush=True)
+    print("short profiles retaken " + json.dumps(SHORT_PROFILES), flush=True)
     print(f"smoke wall {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -4075,6 +4743,82 @@ def attn_probe(dev) -> int:
     return 0
 
 
+def spec_probe(dev) -> int:
+    """`--spec-probe`: the speculative window's attention as one batched
+    call a layer ((B, H, Q, N) scores by one einsum, one softmax, one
+    einsum) in place of `engine._window_attention`'s Q single-query calls,
+    for the self-attention, the cross-attention and both, at
+    `run_spec_engine`'s serving settings on `run_engine`'s requests: for
+    each way, the requests whose tokens part from the standard engine's
+    (plain attention, one query a slot), tokens/s, and one window's
+    kernels and device ms a step."""
+    import dataclasses
+
+    from flasht5_tpu_torch import flagship_config
+    from flasht5_tpu_torch.inference import engine
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.quantize import quantize_params
+
+    cfg = flagship_config()
+    params = quantize_params(t5.init_params(cfg, seed=0, device=dev), "int8")
+    n_req, enc_len, max_new, slots = 16, 512, 64, 8
+    ecfg = engine.EngineConfig(max_slots=slots, max_decode_len=max_new + 2,
+                               max_encode_len=enc_len,
+                               encode_buckets=(enc_len,), kv_dtype="int8",
+                               steps_per_sync=8, use_decode_kernel=False)
+    rng = np.random.default_rng(0)
+    inputs = [rng.integers(2, cfg.vocab_size, size=(enc_len,)).astype(
+        np.int32) for _ in range(n_req)]
+    std = engine.InferenceEngine(cfg, params, ecfg, device=dev)
+    std.warmup()
+    std_tokens, std_run = _serve(std, cfg, inputs, max_new)
+    print(f"spec-probe standard engine: {std_run['tokens_per_s']:.3f} "
+          f"tokens/s", flush=True)
+    del std
+    spec_cfg = dataclasses.replace(ecfg, spec_window=SPEC_WINDOW)
+    eng = engine.InferenceEngine(cfg, params, spec_cfg, device=dev)
+    eng.warmup()
+    loop = engine._window_attention
+
+    def batched(q, k, v, bias, valid, scale, dtype):
+        s = torch.einsum("bhqd,bhnd->bhqn", q.float(), k) * scale
+        if bias is not None:
+            s = s + bias
+        s = torch.where(valid[:, None], s, engine._NEG_INF)
+        return torch.einsum("bhqn,bhnd->bqhd", torch.softmax(s, -1),
+                            v).to(dtype)
+
+    def fill():
+        st = eng.state
+        st.enc_len.fill_(enc_len)
+        st.pos = torch.zeros_like(st.pos)
+        st.budget = torch.full_like(st.budget, max_new)
+        st.active = torch.ones_like(st.active)
+        torch.cuda.synchronize()
+
+    for way in ("loop", "self", "cross", "both"):
+        def attention(q, k, v, bias, valid, scale, dtype, way=way):
+            own = "self" if bias is not None else "cross"
+            fn = batched if way in (own, "both") else loop
+            return fn(q, k, v, bias, valid, scale, dtype)
+        with _patched(engine, "_window_attention", attention):
+            tokens, run = _serve(eng, cfg, inputs, max_new)
+            by_name = _kernels_by_name(
+                lambda: eng._window()[1].synchronize(), setup=fill)
+        eng.state.active = torch.zeros_like(eng.state.active)
+        k = spec_cfg.steps_per_sync
+        differ = [i for i in std_tokens
+                  if not np.array_equal(std_tokens[i], tokens[i])]
+        print("spec-probe " + json.dumps(dict(
+            batched=way, requests=n_req, differ=differ,
+            tokens_per_s=run["tokens_per_s"],
+            tokens_per_slot_window=run["tokens_per_slot_window"],
+            kernels_per_step=sum(n for _, n in by_name.values()) / k,
+            device_ms_per_step=sum(t for t, _ in by_name.values()) / k)),
+            flush=True)
+    return 0
+
+
 def profile_probe(dev, tries: int) -> int:
     """`python3 chip_smoke.py --profile-probe N`: N rounds of the smoke's
     order around its first kernel gate (a profile of SDPA's forward on a
@@ -4134,6 +4878,12 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")
         sys.exit(library_kernels(torch.device("cuda", 0)))
+    if sys.argv[1:2] == ["--spec-probe"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        print(sh("nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader").splitlines()[0], flush=True)
+        sys.exit(spec_probe(torch.device("cuda", 0)))
     if sys.argv[1:2] == ["--profile-probe"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")

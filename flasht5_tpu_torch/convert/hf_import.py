@@ -241,7 +241,8 @@ def params_to_fat5_state_dict(params: Params) -> Dict[str, torch.Tensor]:
 
 
 def validate_params(params: Params, config: FlashT5Config) -> None:
-    """Shape-check an imported tree against a config; raises on mismatch."""
+    """Shape-check an imported tree against a config; raises on mismatch.
+    An encoder-only tree (no `decoder`) is checked as one."""
     d, v = config.d_model, config.vocab_size
     inner = config.inner_dim
     emb = params["shared"]["embedding"]
@@ -249,6 +250,8 @@ def validate_params(params: Params, config: FlashT5Config) -> None:
         raise ValueError(f"shared.embedding {tuple(emb.shape)} != {(v, d)}")
     for stack, n in (("encoder", config.num_layers),
                      ("decoder", config.num_decoder_layers)):
+        if stack == "decoder" and stack not in params:
+            continue
         blocks = params[stack]["block"]
         if len(blocks) != n:
             raise ValueError(f"{stack} has {len(blocks)} blocks, config "

@@ -25,8 +25,22 @@ self-attention and the bucket for cross-attention; results end in EOS
 Each step picks its tokens by argmax, or with `temperature > 0` draws them
 (`inference.sampling.sample_token`: temperature, top-k, top-p) with Gumbel
 noise from one `torch.Generator` on the engine's device, seeded by
-`sample_seed`. Speculative windows (`spec_window >= 2`) and tensor
-parallelism are not ported yet.
+`sample_seed`. Tensor parallelism is not ported yet.
+
+Speculative windows (`spec_window` = Q >= 2, greedy only, the plain
+attention path), as in the JAX engine (`_make_spec_step`): each step of a
+window, every slot drafts Q - 1 tokens by bigram lookup in its own encoder
+input (or its request's `draft_source`), runs [current token, drafts]
+through one Q-row decode pass, causal within the window with each row's
+own T5 bias row, and emits the longest prefix its argmax chain confirms
+plus one bonus token, so each slot advances by its own count. The window's
+K/V rows are masked overwrites (a rejected draft leaves stale rows that the
+next window rewrites), native or int8. Each row's attention is the
+standard step's plain attention on that row, and every other operation
+acts row by row, so the tokens are the standard greedy engine's at any
+acceptance rate (with `use_decode_kernel=False`, as the window requires).
+`spec_stats` counts windows with an active slot, (window, active slot)
+pairs and tokens: tokens / slot_windows is the acceptance.
 """
 
 from __future__ import annotations
@@ -55,6 +69,9 @@ class Request:
     input_ids: np.ndarray           # (L,) int32
     max_new_tokens: int = 32
     result: Optional[np.ndarray] = None  # filled when finished
+    # speculative windows look up their bigram drafts here instead of in
+    # input_ids when set (a speed hint only: the tokens do not change)
+    draft_source: Optional[np.ndarray] = None
     # host wall-clock seconds relative to the start of run():
     arrival_s: float = 0.0          # earliest admit time
     admitted_at: Optional[float] = None
@@ -77,7 +94,8 @@ class EngineConfig:
     top_k: int = 0
     top_p: float = 1.0
     sample_seed: int = 0
-    spec_window: int = 0             # >= 2 (speculation) not ported yet
+    # >= 2: Q-token speculative verify windows (greedy, plain attention)
+    spec_window: int = 0
 
 
 class KVTensor(NamedTuple):
@@ -98,6 +116,35 @@ def _kv_make(x: torch.Tensor, quantized: bool) -> KVTensor:
     if not quantized:
         return KVTensor(x)
     return KVTensor(*quantize_kv(x))
+
+
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor], valid: torch.Tensor,
+                     scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """One query a slot: q (B, H, D) against f32 k, v (B, H, N, D), an
+    f32 bias (B, H, N) or None, valid (B, N) -> (B, H, D) in `dtype`. The
+    standard step's plain attention, and each row of a speculative
+    window's."""
+    s = torch.einsum("bhd,bhnd->bhn", q.float(), k) * scale
+    if bias is not None:
+        s = s + bias
+    s = torch.where(valid[:, None, :], s, _NEG_INF)
+    return torch.einsum("bhn,bhnd->bhd", torch.softmax(s, -1), v).to(dtype)
+
+
+def _window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: Optional[torch.Tensor], valid: torch.Tensor,
+                      scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """A speculative window's Q queries a slot: q (B, H, Q, D) against
+    f32 k, v (B, H, N, D), an f32 bias (B, H, Q, N) or None, valid
+    (B, Q, N) -> (B, Q, H, D) in `dtype`. Each row is the standard step's
+    `_plain_attention`, call for call, so a window row rounds as the
+    standard step does and the tokens stay the standard engine's (one
+    batched einsum over the Q rows rounds otherwise, and at bf16 the
+    argmax flips on near-ties: `chip_smoke.py --spec-probe`)."""
+    return torch.stack([_plain_attention(
+        q[:, :, j], k, v, None if bias is None else bias[:, :, j],
+        valid[:, j], scale, dtype) for j in range(q.shape[2])], dim=1)
 
 
 def bucket_for(buckets: Tuple[int, ...], length: int) -> int:
@@ -162,6 +209,7 @@ class BatchState:
         self.cur_token = zeros(torch.int64)   # last emitted token
         self.active = zeros(torch.bool)
         self.budget = zeros(torch.int64)      # remaining new tokens
+        self.prev_token = zeros(torch.int64)  # the token before cur_token
 
 
 class InferenceEngine:
@@ -184,8 +232,13 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"InferenceEngine serves the T5 relative bias only, not "
                 f"{config.position_encoding_type}")
-        if ecfg.spec_window >= 2:
-            raise NotImplementedError("speculative windows are not ported yet")
+        if ecfg.spec_window >= 2 and ecfg.temperature > 0.0:
+            raise ValueError("speculative windows are greedy only "
+                             "(temperature must be 0)")
+        if ecfg.spec_window >= 2 and ecfg.use_decode_kernel:
+            raise ValueError("the decode kernel is single-query: "
+                             "use_decode_kernel must be off with "
+                             "spec_window >= 2")
         if ecfg.kv_dtype not in ("native", "int8"):
             raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
         self.device = runtime.resolve_device(device)
@@ -211,6 +264,20 @@ class InferenceEngine:
             ecfg.sample_seed)
         self._host_bufs = []
         self._windows = 0
+        if ecfg.spec_window >= 2:
+            q = ecfg.spec_window
+            # buckets of the window rows' offsets k - (pos + j), down to
+            # -(L + Q) (rows past the cache belong to slots that are done)
+            self._spec_lut = positional.bucket_lut(
+                -(L + q), L - 1, bidirectional=False,
+                num_buckets=config.relative_attention_num_buckets,
+                max_distance=config.relative_attention_max_distance,
+                device=self.device)
+            self._qrange = torch.arange(q, device=self.device)
+            # each slot's draft source, written at admission
+            self._draft = torch.zeros((ecfg.max_slots, ecfg.max_encode_len),
+                                      dtype=torch.int64, device=self.device)
+            self.spec_stats = {"windows": 0, "tokens": 0, "slot_windows": 0}
 
     # -- prefill -----------------------------------------------------------
 
@@ -241,6 +308,7 @@ class InferenceEngine:
         st.cur_token[slot] = 0          # decoder start token
         st.active[slot] = True
         st.budget[slot] = max_new
+        st.prev_token[slot] = 0
 
     # -- decode ------------------------------------------------------------
 
@@ -295,13 +363,10 @@ class InferenceEngine:
                     v_scales=cache.self_v.scales, lengths=self_len,
                     bias=self_bias, sm_scale=scale)
             else:
-                s = torch.einsum("bhd,bhnd->bhn", q[:, :, 0].float(),
-                                 _kv_read(cache.self_k)) * scale
-                s = s + self_bias
-                valid = self._kpos[None, :] <= pos[:, None]
-                s = torch.where(valid[:, None, :], s, _NEG_INF)
-                attn = torch.einsum("bhn,bhnd->bhd", torch.softmax(s, -1),
-                                    _kv_read(cache.self_v)).to(x.dtype)
+                attn = _plain_attention(
+                    q[:, :, 0], _kv_read(cache.self_k),
+                    _kv_read(cache.self_v), self_bias,
+                    self._kpos[None, :] <= pos[:, None], scale, x.dtype)
             x = x + t5._matmul(attn.reshape(b, 1, h * dkv), sa["o"])
 
             ca = blk["cross_attention_layer"]["cross_attention"]
@@ -316,12 +381,10 @@ class InferenceEngine:
                     v_scales=cache.cross_v.scales, lengths=st.enc_len,
                     sm_scale=scale)
             else:
-                s = torch.einsum("bhd,bhnd->bhn", qc.float(),
-                                 _kv_read(cache.cross_k)) * scale
-                valid = self._cpos[None, :] < st.enc_len[:, None]
-                s = torch.where(valid[:, None, :], s, _NEG_INF)
-                attn = torch.einsum("bhn,bhnd->bhd", torch.softmax(s, -1),
-                                    _kv_read(cache.cross_v)).to(x.dtype)
+                attn = _plain_attention(
+                    qc, _kv_read(cache.cross_k), _kv_read(cache.cross_v),
+                    None, self._cpos[None, :] < st.enc_len[:, None], scale,
+                    x.dtype)
             x = x + t5._matmul(attn.reshape(b, 1, h * dkv), ca["o"])
             x = t5._ff(config, blk["ff_layer"], x)
 
@@ -344,6 +407,132 @@ class InferenceEngine:
         st.active = active & ~finished
         return nxt, finished, logits
 
+    # -- speculative windows (spec_window >= 2) ---------------------------
+
+    def _drafts(self) -> torch.Tensor:
+        """Each slot's Q - 1 prompt-lookup drafts: the tokens after the last
+        place where its draft source holds the bigram (previous token,
+        current token), or zeros where it holds none; at position 0 the
+        current token alone is matched at the source's first place."""
+        st, q = self.state, self.ecfg.spec_window
+        src = self._draft
+        prev_eff = torch.where(st.pos == 0, -2, st.prev_token)
+        prev_src = F.pad(src[:, :-1], (1, 0), value=-1)
+        match = ((src == st.cur_token[:, None])
+                 & (prev_src == prev_eff[:, None]))
+        j_star = torch.where(match, self._cpos[None, :], -1).amax(dim=-1)
+        src_pad = F.pad(src, (0, q - 1))
+        idx = (j_star[:, None] + 1 + self._qrange[None, :q - 1]).clamp(
+            0, src_pad.shape[1] - 1)
+        draft = torch.gather(src_pad, 1, idx)
+        return torch.where((j_star >= 0)[:, None], draft, 0)
+
+    def _write_window(self, kv: KVTensor, new: torch.Tensor,
+                      in_win: torch.Tensor, row: torch.Tensor) -> None:
+        """Overwrite each slot's window rows pos..pos+Q-1 (those inside the
+        cache) with new (B, H, Q, D), in place."""
+        newq = _kv_make(new, kv.scales is not None)
+        idx = row[:, None, :, None]
+        mask = in_win[:, None, :, None]
+        kv.values.copy_(torch.where(
+            mask, torch.gather(newq.values.to(kv.values.dtype), 2,
+                               idx.expand(-1, new.shape[1], -1,
+                                          new.shape[3])), kv.values))
+        if kv.scales is not None:
+            kv.scales.copy_(torch.where(
+                mask, torch.gather(newq.scales, 2,
+                                   idx.expand(-1, new.shape[1], -1, 1)),
+                kv.scales))
+
+    def _spec_step(self):
+        """One Q-row verify window for every slot (inactive slots run too;
+        their outputs are masked). Updates the state; returns (the window's
+        argmax tokens (B, Q), tokens emitted (B,), finished flags), on the
+        device."""
+        config, ecfg, st, params = self.config, self.ecfg, self.state, self.params
+        b, dkv, q_len = ecfg.max_slots, config.d_kv, ecfg.spec_window
+        L = ecfg.max_decode_len
+        scale = config.softmax_scale
+        emb = params["shared"]["embedding"]
+        pos, cur, active = st.pos, st.cur_token, st.active
+        draft = self._drafts()
+        w_in = torch.cat([cur[:, None], draft], dim=1)            # (B, Q)
+        x = emb[w_in].to(runtime.torch_dtype(config.dtype))
+        q_pos = pos[:, None] + self._qrange[None, :]               # (B, Q)
+        kpos = self._kpos
+        in_win = ((kpos[None, :] >= pos[:, None])
+                  & (kpos[None, :] < pos[:, None] + q_len))         # (B, L)
+        row = (kpos[None, :] - pos[:, None]).clamp(0, q_len - 1)
+        valid = kpos[None, None, :] <= q_pos[:, :, None]         # (B, Q, L)
+        cross_valid = (self._cpos[None, :] < st.enc_len[:, None])[
+            :, None, :].expand(-1, q_len, -1)
+        bias = None
+
+        for li, blk in enumerate(params["decoder"]["block"]):
+            cache = st.layers[li]
+            sa = blk["self_attention_layer"]["self_attention"]
+            h = sa["Wq"].shape[1] // dkv
+            normed = t5._layer_norm(
+                config, blk["self_attention_layer"]["layer_norm"]["weight"], x)
+            qh = kv_cache._proj_heads(normed, sa["Wq"], h, dkv)  # (B,H,Q,D)
+            self._write_window(cache.self_k, kv_cache._proj_heads(
+                normed, sa["Wk"], h, dkv), in_win, row)
+            self._write_window(cache.self_v, kv_cache._proj_heads(
+                normed, sa["Wv"], h, dkv), in_win, row)
+            if li == 0:
+                # each window row's bias row bucket(k - (pos + j)):
+                # (B, H, Q, L)
+                table = sa["pe_encoding"]["relative_attention_bias"].float()
+                n_lut = self._spec_lut.shape[0]
+                bias = table[self._spec_lut[
+                    (kpos[None, None, :] - q_pos[:, :, None] + L
+                     + q_len).clamp(0, n_lut - 1)].long()].permute(0, 3, 1, 2)
+            attn = _window_attention(qh, _kv_read(cache.self_k),
+                                     _kv_read(cache.self_v), bias, valid,
+                                     scale, x.dtype)              # (B,Q,H,D)
+            x = x + t5._matmul(attn.reshape(b, q_len, h * dkv), sa["o"])
+
+            ca = blk["cross_attention_layer"]["cross_attention"]
+            normed = t5._layer_norm(
+                config, blk["cross_attention_layer"]["layer_norm"]["weight"],
+                x)
+            qc = kv_cache._proj_heads(normed, ca["Wq"], h, dkv)
+            attn = _window_attention(qc, _kv_read(cache.cross_k),
+                                     _kv_read(cache.cross_v), None,
+                                     cross_valid, scale, x.dtype)
+            x = x + t5._matmul(attn.reshape(b, q_len, h * dkv), ca["o"])
+            x = t5._ff(config, blk["ff_layer"], x)
+
+        x = t5._layer_norm(config, params["decoder"]["final_layer_norm"]["weight"],
+                           x)
+        if config.tie_word_embeddings:
+            logits = torch.matmul(x, emb.T.to(x.dtype))
+        else:
+            logits = t5._matmul(x, params["lm_head"])
+        g = torch.argmax(logits, dim=-1)                            # (B, Q)
+
+        # acceptance: the confirmed prefix plus one, clipped to the budget,
+        # stopped at the first EOS
+        ok = torch.cumprod((draft == g[:, :-1]).long(), dim=1)
+        n_emit = torch.minimum(ok.sum(dim=1) + 1, st.budget.clamp(min=1))
+        within = self._qrange[None, :] < n_emit[:, None]
+        eos_in = (g == config.eos_token_id) & within
+        has_eos = eos_in.any(dim=-1)
+        n_eff = torch.where(has_eos, eos_in.long().argmax(dim=-1) + 1, n_emit)
+        n_eff = torch.where(active, n_eff, 0)
+        st.budget = torch.where(active, st.budget - n_eff, st.budget)
+        new_pos = pos + n_eff
+        last = torch.gather(g, 1, (n_eff - 1).clamp(min=0)[:, None])[:, 0]
+        before = torch.gather(g, 1, (n_eff - 2).clamp(min=0)[:, None])[:, 0]
+        st.prev_token = torch.where(
+            active & (n_eff >= 2), before,
+            torch.where(active & (n_eff == 1), cur, st.prev_token))
+        st.cur_token = torch.where(active & (n_eff > 0), last, cur)
+        finished = active & (has_eos | (new_pos + 1 >= L) | (st.budget <= 0))
+        st.pos = torch.where(active, new_pos, pos)
+        st.active = active & ~finished
+        return g, n_eff, finished
+
     def probe_step(self, token_override=None):
         """One decode step that also returns the (B, V) logits; optionally
         overrides cur_token first (teacher forcing). Mutates the state like
@@ -356,13 +545,22 @@ class InferenceEngine:
         return nxt.cpu().numpy(), logits.float().cpu().numpy()
 
     def _window(self):
-        """`steps_per_sync` decode steps, queued without a host sync. Returns
-        (host (3, k, B) int64 tokens/finished/was-active, ready event)."""
+        """`steps_per_sync` decode steps (speculative windows with
+        `spec_window` >= 2), queued without a host sync. Returns (host
+        int64 outputs, ready event): (3, k, B) tokens/finished/was-active,
+        or (Q + 3, k, B) for speculative windows, the Q argmax tokens, then
+        tokens emitted/finished/was-active."""
         rows = []
         for _ in range(self.ecfg.steps_per_sync):
             was_active = self.state.active
-            nxt, finished, _ = self._step(self.state.cur_token)
-            rows.append(torch.stack([nxt, finished.long(), was_active.long()]))
+            if self.ecfg.spec_window >= 2:
+                g, n_eff, finished = self._spec_step()
+                rows.append(torch.cat([g.T, torch.stack(
+                    [n_eff, finished.long(), was_active.long()])]))
+            else:
+                nxt, finished, _ = self._step(self.state.cur_token)
+                rows.append(torch.stack([nxt, finished.long(),
+                                         was_active.long()]))
         out = torch.stack(rows, dim=1)
         if self.device.type != "cuda":
             return out, None
@@ -434,6 +632,10 @@ class InferenceEngine:
         emitted: List[List[int]] = [[] for _ in range(ecfg.max_slots)]
         limits: List[int] = [0] * ecfg.max_slots
         eos = self.config.eos_token_id
+        spec = ecfg.spec_window >= 2
+        # tokens one queued window can emit a slot, at most
+        window_credit = ecfg.steps_per_sync * (ecfg.spec_window if spec
+                                               else 1)
 
         def refresh_queue():
             t = now() - t0
@@ -470,24 +672,44 @@ class InferenceEngine:
                     slots[i] = req
                     emitted[i] = []
                     req.admitted_at = now() - t0
+                    if spec:
+                        src = (req.input_ids if req.draft_source is None
+                               else req.draft_source)
+                        n = min(len(src), ecfg.max_encode_len)
+                        row = np.zeros((ecfg.max_encode_len,), np.int64)
+                        row[:n] = np.asarray(src[:n], np.int64)
+                        self._draft[i] = torch.from_numpy(row).to(self.device)
 
         def harvest(pending):
             """Wait for one window's host copy and retire finished requests."""
             snapshot, _credit, host, event = pending
             if event is not None:
                 event.synchronize()
-            toks_h, fins_h, act_h = (a.copy() for a in host.numpy())
+            out = host.numpy().copy()
+            # (Q, k, B) argmax tokens and the tokens each slot emitted, or
+            # (1, k, B) tokens and one each
+            toks_h, n_h, fins_h, act_h = (
+                (out[:-3], out[-3], out[-2], out[-1]) if spec
+                else (out[:1], np.ones_like(out[0]), out[1], out[2]))
             t_host = now() - t0
             finished_now = [False] * len(snapshot)
-            for t in range(toks_h.shape[0]):
+            for t in range(toks_h.shape[1]):
+                any_active = False
                 for i, req in enumerate(snapshot):
                     if req is None or finished_now[i] or not act_h[t, i]:
                         continue
-                    if not emitted[i]:
+                    any_active = True
+                    n = int(n_h[t, i])
+                    if n > 0 and not emitted[i]:
                         req.first_token_at = t_host
-                    emitted[i].append(int(toks_h[t, i]))
+                    emitted[i].extend(int(v) for v in toks_h[:n, t, i])
+                    if spec:
+                        self.spec_stats["tokens"] += n
+                        self.spec_stats["slot_windows"] += 1
                     if fins_h[t, i]:
                         finished_now[i] = True
+                if spec and any_active:
+                    self.spec_stats["windows"] += 1
             for i, req in enumerate(snapshot):
                 if req is None or not finished_now[i]:
                     continue
@@ -535,7 +757,7 @@ class InferenceEngine:
                 continue
             host, event = self._window()
             snapshot = list(slots)
-            credit = {i: ecfg.steps_per_sync for i, s in enumerate(slots)
+            credit = {i: window_credit for i, s in enumerate(slots)
                       if s is not None}
             if pending is not None:
                 harvest(pending)

@@ -180,6 +180,20 @@ def init_params(config: FlashT5Config, seed: int = 0,
     return params
 
 
+def init_encoder_params(config: FlashT5Config, seed: int = 0,
+                        device=None) -> Params:
+    """The encoder-only tree (`shared` + `encoder`, the reference's
+    FlashT5EncoderModel, modeling:739-774), drawn on `device` (default
+    `cuda`; raises without a GPU unless device='cpu') from `seed`."""
+    device = runtime.resolve_device(device)
+    init = _Init(config, seed, device)
+    return {
+        "shared": {"embedding": init.normal(
+            (config.vocab_size, config.d_model), config.initializer_factor)},
+        "encoder": init.stack(is_decoder=False),
+    }
+
+
 # ===========================================================================
 # Building blocks
 # ===========================================================================

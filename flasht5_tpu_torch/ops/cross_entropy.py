@@ -17,8 +17,13 @@ element. Each forward program streams a block of rows through the
 vocabulary in tiles, keeping the running maximum and sum of exponentials of
 each row in registers; the vocabulary need not be a multiple of the tile.
 
-The vocab-parallel form (`split=True`, `class_start_idx != 0`) comes with
-tensor parallelism and raises until then.
+The vocab-split form (the JAX op's `total_classes`, `class_start_idx` and
+`split`, a shard of the vocabulary in each call) runs through the same two
+kernels: labels are shifted by `class_start_idx`, a label owned by another
+shard keeps only the smoothing part, smoothing is spread over
+`total_classes`, and `split=True` leaves the lse term and the z-loss out of
+the shard's partial loss (the caller adds the global lse). As in the JAX
+package, the backward reads the shard's own lse whatever `split` says.
 """
 
 from __future__ import annotations
@@ -76,11 +81,12 @@ def cross_entropy_fwd_plain(logits: torch.Tensor, *, logit_scale: float = 1.0,
 def cross_entropy_bwd_plain(logits, labels, lse, dloss, dz, *,
                             lse_square_scale=0.0, label_smoothing=0.0,
                             logit_scale=1.0, ignore_index=_IGNORE,
-                            total_classes=None):
+                            total_classes=None, class_start_idx=0):
     """dlogits in the logits' dtype: the backward kernel's function,
     dloss (p - (1 - ls) onehot - ls / V) + (dloss + dz) 2 s lse p, scaled
     by `logit_scale`; ignored rows are zero. V is `total_classes`, by
-    default the logits' width."""
+    default the logits' width; the one-hot sits at column label -
+    `class_start_idx` (nowhere for a label of another shard)."""
     x = logits.float() * logit_scale
     v = x.shape[1]
     ignored = labels == ignore_index
@@ -88,7 +94,7 @@ def cross_entropy_bwd_plain(logits, labels, lse, dloss, dz, *,
     dz = torch.where(ignored, 0.0, dz.float())
     probs = torch.exp(x - lse[:, None])
     onehot = (torch.arange(v, device=x.device)[None, :]
-              == labels.long()[:, None])
+              == labels.long()[:, None] - class_start_idx)
     if label_smoothing > 0.0:
         ce_grad = (probs - label_smoothing / (total_classes or v)
                    - torch.where(onehot, 1.0 - label_smoothing, 0.0))
@@ -136,8 +142,8 @@ def _triton_kernels():
     @triton.jit
     def bwd(logits_ptr, labels_ptr, lse_ptr, dloss_ptr, dz_ptr, dlogits_ptr,
             n_rows, n_cols, logit_scale, lse_square_scale, smoothing,
-            ignore_index, ROWS: tl.constexpr, BLOCK_V: tl.constexpr,
-            SMOOTH: tl.constexpr):
+            ignore_index, class_start_idx, total_classes,
+            ROWS: tl.constexpr, BLOCK_V: tl.constexpr, SMOOTH: tl.constexpr):
         rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
         cols = tl.program_id(1) * BLOCK_V + tl.arange(0, BLOCK_V)
         rmask = rows < n_rows
@@ -153,9 +159,9 @@ def _triton_kernels():
         dz = tl.where(ignored, 0.0,
                       tl.load(dz_ptr + rows, mask=rmask, other=0.0))
         probs = tl.exp(x - lse[:, None])
-        onehot = cols[None, :] == labels[:, None]
+        onehot = cols[None, :] == (labels - class_start_idx)[:, None]
         if SMOOTH:
-            ce_grad = (probs - smoothing / n_cols
+            ce_grad = (probs - smoothing / total_classes
                        - tl.where(onehot, 1.0 - smoothing, 0.0))
         else:
             ce_grad = probs - tl.where(onehot, 1.0, 0.0)
@@ -208,13 +214,15 @@ cross_entropy_fwd.launches = 0
 
 def cross_entropy_bwd(logits, labels, lse, dloss, dz, *,
                       lse_square_scale=0.0, label_smoothing=0.0,
-                      logit_scale=1.0, ignore_index=_IGNORE):
+                      logit_scale=1.0, ignore_index=_IGNORE,
+                      total_classes=None, class_start_idx=0):
     """dlogits in the logits' dtype. A CUDA tensor goes to the Triton
     kernel, a CPU tensor to `cross_entropy_bwd_plain`; anything else
     raises."""
     kw = dict(lse_square_scale=lse_square_scale,
               label_smoothing=label_smoothing, logit_scale=logit_scale,
-              ignore_index=ignore_index)
+              ignore_index=ignore_index, total_classes=total_classes,
+              class_start_idx=class_start_idx)
     if logits.device.type == "cpu":
         return cross_entropy_bwd_plain(logits, labels, lse, dloss, dz, **kw)
     _check("cross_entropy_bwd", logits, labels, lse, dloss, dz)
@@ -227,7 +235,8 @@ def cross_entropy_bwd(logits, labels, lse, dloss, dz, *,
         lse.float().contiguous(), dloss.float().contiguous(),
         dz.float().contiguous(), dlogits, rows, v, float(logit_scale),
         float(lse_square_scale), float(label_smoothing), int(ignore_index),
-        ROWS=_BWD_ROWS, BLOCK_V=_BWD_BLOCK_V, SMOOTH=label_smoothing > 0.0,
+        int(class_start_idx), float(total_classes or v), ROWS=_BWD_ROWS,
+        BLOCK_V=_BWD_BLOCK_V, SMOOTH=label_smoothing > 0.0,
         num_warps=4)
     cross_entropy_bwd.launches += 1
     return dlogits
@@ -236,41 +245,48 @@ def cross_entropy_bwd(logits, labels, lse, dloss, dz, *,
 cross_entropy_bwd.launches = 0
 
 
-def _assemble(logits, labels, lse, total, lse_square_scale, label_smoothing,
-              logit_scale, ignore_index):
-    """Per-row (loss, z) from the kernel's lse (and row sum), as the JAX
-    package's `_ce_fwd_tiled` assembles them outside its kernel."""
+def cross_entropy_assemble(logits, labels, lse, total, *,
+                           lse_square_scale=0.0, label_smoothing=0.0,
+                           logit_scale=1.0, ignore_index=_IGNORE,
+                           total_classes=None, class_start_idx=0,
+                           split=False):
+    """Per-row (loss, z) from the forward kernel's lse (and row sum), as
+    the JAX package's `_ce_fwd_tiled` assembles them outside its kernel;
+    the CPU path and the card's share it."""
     v = logits.shape[1]
-    lab = labels.long()
-    in_shard = (lab >= 0) & (lab < v)
-    safe = lab.clamp(0, v - 1)
+    tc = total_classes or v
+    local = labels.long() - class_start_idx
+    in_shard = (local >= 0) & (local < v)
+    safe = local.clamp(0, v - 1)
     label_logit = torch.gather(logits, 1, safe[:, None])[:, 0].float() \
         * logit_scale
+    lse_term = torch.zeros_like(lse) if split else lse
     if label_smoothing > 0.0:
-        loss_in = (lse - label_smoothing * total / v
+        loss_in = (lse_term - label_smoothing * total / tc
                    - (1.0 - label_smoothing) * label_logit)
-        loss_out = label_smoothing * (lse - total / v)
+        loss_out = label_smoothing * (lse_term - total / tc)
         loss = torch.where(in_shard, loss_in, loss_out)
     else:
-        loss = torch.where(in_shard, lse - label_logit, 0.0)
-    z = lse_square_scale * lse * lse
-    loss = loss + z
+        loss = torch.where(in_shard, lse_term - label_logit, 0.0)
+    if split:
+        z = torch.zeros_like(lse)
+    else:
+        z = lse_square_scale * lse * lse
+        loss = loss + z
     ignored = labels == ignore_index
     return torch.where(ignored, 0.0, loss), torch.where(ignored, 0.0, z)
 
 
 class _CrossEntropyFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, lse_square_scale, label_smoothing,
-                logit_scale, ignore_index):
-        lse, total = cross_entropy_fwd(logits, logit_scale=logit_scale,
-                                       label_smoothing=label_smoothing)
-        loss, z = _assemble(logits, labels, lse, total, lse_square_scale,
-                            label_smoothing, logit_scale, ignore_index)
+    def forward(ctx, logits, labels, kw, split):
+        lse, total = cross_entropy_fwd(
+            logits, logit_scale=kw["logit_scale"],
+            label_smoothing=kw["label_smoothing"])
+        loss, z = cross_entropy_assemble(logits, labels, lse, total,
+                                         split=split, **kw)
         ctx.save_for_backward(logits, labels, lse)
-        ctx.kw = dict(lse_square_scale=lse_square_scale,
-                      label_smoothing=label_smoothing,
-                      logit_scale=logit_scale, ignore_index=ignore_index)
+        ctx.kw = kw
         return loss, z
 
     @staticmethod
@@ -279,7 +295,7 @@ class _CrossEntropyFn(torch.autograd.Function):
         dloss = torch.zeros_like(lse) if dloss is None else dloss
         dz = torch.zeros_like(lse) if dz is None else dz
         dlogits = cross_entropy_bwd(logits, labels, lse, dloss, dz, **ctx.kw)
-        return dlogits, None, None, None, None, None
+        return dlogits, None, None, None
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -292,11 +308,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        split: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused per-row (loss, z_loss), differentiable in the logits; reduce
-    outside (the model reproduces the reference's mean over all rows)."""
-    if split or class_start_idx != 0 or total_classes not in (
-            None, logits.shape[-1]):
-        raise NotImplementedError(
-            "vocab-parallel cross-entropy (split, class_start_idx, "
-            "total_classes) comes with tensor parallelism, not ported yet")
-    return _CrossEntropyFn.apply(logits, labels, lse_square_scale,
-                                 label_smoothing, logit_scale, ignore_index)
+    outside (the model reproduces the reference's mean over all rows).
+    With a vocab shard (`class_start_idx`, `total_classes`, `split`) the
+    JAX op's per-shard partial loss."""
+    kw = dict(lse_square_scale=lse_square_scale,
+              label_smoothing=label_smoothing, logit_scale=logit_scale,
+              ignore_index=ignore_index, total_classes=total_classes,
+              class_start_idx=class_start_idx)
+    return _CrossEntropyFn.apply(logits, labels, kw, split)

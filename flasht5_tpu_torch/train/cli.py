@@ -26,7 +26,7 @@ import numpy as np
 
 from flasht5_tpu_torch.config import FlashT5Config, load_run_config
 from flasht5_tpu_torch.data import DataCollatorForUL2, Denoiser
-from flasht5_tpu_torch.train.callbacks import JSONLCallback
+from flasht5_tpu_torch.train import callbacks as cb
 from flasht5_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 # The reference's 7-denoiser UL2 mixture (train_flash_t5.py:57-64)
@@ -104,13 +104,31 @@ def make_collator(run_cfg: dict, tokenizer,
     )
 
 
-def _callbacks(targs: dict, output_dir: str) -> list:
+def _callbacks(targs: dict, output_dir: str, device=None) -> list:
+    """The trackers `report_to` names (`train.py`'s mapping): jsonl, wandb,
+    clearml and energy. A tracker whose package is missing is printed and
+    skipped, as `train.py` does; an unknown name raises."""
     callbacks = []
+    project = str(targs.get("project", "flasht5_tpu"))
     for tracker in targs.get("report_to", ["jsonl"]):
-        if tracker != "jsonl":
-            raise NotImplementedError(f"tracker {tracker!r} is not ported "
-                                      f"yet (only 'jsonl')")
-        callbacks.append(JSONLCallback(f"{output_dir}/tracker_log.jsonl"))
+        try:
+            if tracker == "jsonl":
+                callbacks.append(cb.JSONLCallback(
+                    f"{output_dir}/tracker_log.jsonl"))
+            elif tracker == "wandb":
+                callbacks.append(cb.WandbCallback(project=project))
+            elif tracker == "clearml":
+                callbacks.append(cb.ClearMLCallback(
+                    project=project,
+                    task_name=str(targs.get("run_name", "pretrain"))))
+            elif tracker == "energy":
+                callbacks.append(cb.EnergyCallback(
+                    watts_per_chip=targs.get("watts_per_chip"),
+                    out_path=f"{output_dir}/energy.json", device=device))
+            else:
+                raise ValueError(f"unknown tracker {tracker!r}")
+        except ImportError as e:
+            print(f"tracker {tracker!r} unavailable: {e}")
     return callbacks
 
 
@@ -126,7 +144,7 @@ def run(run_cfg: dict, tokenizer, train_set, eval_set=None, *, device=None,
     collator = make_collator(run_cfg, tokenizer, model_cfg)
     tcfg = trainer_config(targs)
     trainer = Trainer(model_cfg, tcfg,
-                      callbacks=_callbacks(targs, tcfg.output_dir),
+                      callbacks=_callbacks(targs, tcfg.output_dir, device),
                       device=device)
     resume = Trainer.latest_checkpoint(tcfg.output_dir)
     if resume:

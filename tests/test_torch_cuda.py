@@ -807,6 +807,45 @@ def test_cross_entropy_kernels(dev, rows, v, dtype, smoothing):
     assert torch.all(got[::7] == 0)
 
 
+@pytest.mark.parametrize("rows,v,shards", [(2048, 32768, 4), (37, 1000, 3)])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_cross_entropy_split_kernels(dev, rows, v, shards, smoothing):
+    """The vocab-split form: each shard's backward kernel (the one-hot
+    moved by `class_start_idx`, smoothing over `total_classes`) against its
+    plain version, and the shards' partial losses combined against the
+    unsplit loss. bf16 logits; dlogits to 1e-2 as the unsplit test, the
+    combined loss to 1e-4 (sums over the shards in another order)."""
+    logits = (3 * torch.randn((rows, v), device=dev)).to(torch.bfloat16)
+    labels = torch.randint(0, v, (rows,), device=dev)
+    labels[::7] = -100
+    dloss, dz = torch.randn(rows, device=dev), torch.randn(rows, device=dev)
+    w = -(-v // shards)
+    partials, lses = [], []
+    for start in range(0, v, w):
+        shard = logits[:, start:start + w].contiguous()
+        kw = dict(lse_square_scale=1e-4, label_smoothing=smoothing,
+                  total_classes=v, class_start_idx=start)
+        lse, _ = cross_entropy.cross_entropy_fwd(shard)
+        got = cross_entropy.cross_entropy_bwd(shard, labels, lse, dloss, dz,
+                                              **kw)
+        want = cross_entropy.cross_entropy_bwd_plain(shard, labels, lse,
+                                                     dloss, dz, **kw)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+        loss, z = cross_entropy.cross_entropy_loss(
+            shard, labels, 1e-4, smoothing, total_classes=v,
+            class_start_idx=start, split=True)
+        assert torch.all(z == 0)
+        partials.append(loss)
+        lses.append(lse)
+    lse = torch.logsumexp(torch.stack(lses), dim=0)
+    combined = torch.where(labels != -100,
+                           sum(partials) + lse + 1e-4 * lse * lse, 0.0)
+    whole, _ = cross_entropy.cross_entropy_loss(logits, labels, 1e-4,
+                                                smoothing)
+    torch.testing.assert_close(combined, whole, rtol=1e-4, atol=1e-4)
+
+
 # bias shapes: per head, per batch and head, one for all, per batch, and a
 # (1, H, M, N) bias expanded to (B, H, M, N) with stride 0 (use_full_bias_size)
 _BIAS_FORMS = {"1h": (1, 4), "bh": (2, 4), "11": (1, 1), "b1": (2, 1),
@@ -1588,3 +1627,14 @@ def test_encodings_on_the_card_match_the_cpu(dev, encoding):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
     for a, b in zip(tok1, tok0):
         assert torch.equal(a, b)
+
+
+def test_timed_waits_for_the_card_when_fn_returns_no_tensor(dev):
+    """`utils.profiling.timed` on a call that queues a matmul on the card
+    and returns None: the host clock must span the matmuls (about 3 ms
+    each in f32), not only their enqueueing (microseconds)."""
+    from flasht5_tpu_torch.utils.profiling import timed
+    x = torch.randn((4096, 4096), device=dev)
+    with_tensor = timed(lambda: x @ x, iters=5, warmup=1)
+    without = timed(lambda: (x @ x, None)[1], iters=5, warmup=1)
+    assert without >= 0.5 * with_tensor

@@ -127,12 +127,14 @@ def test_warmup_leaves_the_pool_idle(models):
     assert all(r.result is not None for r in done)
 
 
-# sampling (temperature > 0) runs now: tests/test_torch_generate.py
+# sampling (temperature > 0) runs now: tests/test_torch_generate.py;
+# speculative windows too (tests/test_torch_engine_spec.py), but not on the
+# single-query decode kernel, which these settings turn on
 @pytest.mark.parametrize("change", [dict(spec_window=2),
                                     dict(spec_window=4)])
 def test_engine_refuses_what_is_not_ported(models, change):
     *_, cfg, params = models
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="single-query"):
         engine.InferenceEngine(
             cfg, params,
             engine.EngineConfig(**_engine_kw("int8", True), **change),

@@ -388,9 +388,63 @@ def test_training_wrappers_refuse_a_dtype_they_do_not_take():
 
 
 def test_unported_options_raise():
-    logits = torch.zeros((3, 10))
-    labels = torch.zeros((3,), dtype=torch.long)
+    """What the training path still refuses: data, tensor and pipeline
+    parallelism (the CE's vocab-split form is ported, below)."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.train import Trainer, TrainerConfig
+    cfg = FlashT5Config(vocab_size=64, d_model=32, d_kv=8, num_heads=4,
+                        d_ff=64, num_layers=1, dtype="float32")
+    for name in ("data_parallel", "tensor_parallel", "pipeline_parallel"):
+        with pytest.raises(NotImplementedError):
+            Trainer(cfg, TrainerConfig(**{name: 2}), device="cpu")
     with pytest.raises(NotImplementedError):
-        cross_entropy.cross_entropy_loss(logits, labels, split=True)
-    with pytest.raises(NotImplementedError):
-        cross_entropy.cross_entropy_loss(logits, labels, class_start_idx=10)
+        t5.check_supported(cfg.replace(tp_axis="tp"))
+
+
+# ---------------------------------------------------------------------------
+# the vocab-split form
+# ---------------------------------------------------------------------------
+
+_SPLIT_V, _SPLIT_SHARDS = 256, 4
+
+
+@pytest.mark.parametrize("smoothing,z_scale", [(0.0, 0.0), (0.1, 1e-4)])
+def test_cross_entropy_split_matches_jax(smoothing, z_scale):
+    """Each of four vocab shards of V = 256 through `split=True`,
+    `class_start_idx` and `total_classes`: the per-row partial loss, z and
+    dlogits against the JAX op's tiled kernels (interpret mode), with and
+    without smoothing and z-loss (which `split` leaves out of the loss but
+    not of the backward, as in JAX). Then the four shards combined (the
+    global lse by logsumexp of the shard lses, the partials summed, the
+    z-loss of the global lse added) against the unsplit loss. f32, 1e-4:
+    sums of up to 256 terms in another order."""
+    rows, v = 29, _SPLIT_V
+    w = v // _SPLIT_SHARDS
+    logits, labels, dloss, dz = _ce_inputs(rows, v, "float32", seed=16)
+    partials, lses = [], []
+    for s in range(_SPLIT_SHARDS):
+        shard = np.ascontiguousarray(logits[:, s * w:(s + 1) * w])
+        kw = dict(total_classes=v, class_start_idx=s * w, split=True)
+        (loss_j, z_j), vjp = jax.vjp(
+            lambda x: jce.cross_entropy_loss(
+                x, jnp.asarray(labels), z_scale, smoothing, 1.0, -100,
+                v, s * w, True), jnp.asarray(shard))
+        (dlogits_j,) = vjp((jnp.asarray(dloss), jnp.asarray(dz)))
+        x = _t(shard, grad=True)
+        loss, z = cross_entropy.cross_entropy_loss(
+            x, torch.from_numpy(labels), z_scale, smoothing, **kw)
+        torch.autograd.backward([loss, z], [_t(dloss), _t(dz)])
+        _close(loss, loss_j, F32_TOL)
+        _close(z, z_j, F32_TOL)
+        _close(x.grad, dlogits_j, F32_TOL)
+        assert float(z.detach().abs().max()) == 0.0
+        partials.append(loss.detach())
+        lses.append(torch.logsumexp(_t(shard), dim=-1))
+    lse = torch.logsumexp(torch.stack(lses), dim=0)
+    valid = torch.from_numpy(labels) != -100
+    combined = torch.where(valid, sum(partials) + lse
+                           + z_scale * lse * lse, 0.0)
+    whole, _ = cross_entropy.cross_entropy_loss(
+        _t(logits), torch.from_numpy(labels), z_scale, smoothing)
+    np.testing.assert_allclose(combined.numpy(), whole.numpy(), **F32_TOL)
