@@ -116,6 +116,27 @@ of JAX. In order:
    attention's TMA + wgmma bodies and the `rms_norm` kernels must be
    among them, and the fused step's GEMMs and TMA + wgmma forward) and
    the optimizer's launches;
+11a. trains across ranks (`parallel/`, `run_parallel`): one child
+   process a card, NCCL, the kernels this process built; the
+   tensor-parallel step on (1, n) (the vocab-parallel loss on the CE
+   kernels' split form), the data-parallel step on (n, 1) and the
+   pipeline step on (pipe n, data 1) with 4 micro-batches (with 4 cards
+   also (2, 2) and pipe 2 x data 2) at the train step's width and batch:
+   step 1's loss and every gradient leaf against the one-card
+   `Trainer._step` within per-leaf limits from that leaf's own bf16
+   noise (its gap to the same step in f32, or to the step reordered
+   into micro-batches, times t + 1), the tensor-parallel step in f32
+   against the one-card step in f32 (1e-3, the witness that the layout's
+   math is right at full width), `sharded_train_step`'s loss, three
+   more steps counted from 0 (every kernel of the path
+   launched on some rank), one profiled step (the TP step's held to the
+   wrappers' counts: the split CE, wgmma attention and `rms_norm`
+   bodies); tiny f32 models' steps against the CPU's one rank; the split
+   backward at the train step's logits as four ranks run it, with the
+   planted fault (each shard's own lse) beyond its limit, and at t > 1
+   the same fault on the tensor-parallel step; then
+   `Trainer(tensor_parallel=n)` 5 steps, losses falling; a failed rank,
+   or 300 s, ends them all;
 11b. checks each task head (token and sequence classification in its
    three problem types, QA) over a tiny f32 trunk on `pallas_rpe`: the
    card's logits, loss and every gradient against the CPU's, and pooling
@@ -154,7 +175,7 @@ of JAX. In order:
    after every other phase: in one process SDPA's profiles have left later
    profiles short of kernels, and empty after the phases);
 15. prints JSON lines of the serving, paged serving, generation, training,
-   fine-tuning, scoring, pretraining and encodings results, the smoke's wall, and the
+   training across ranks, fine-tuning, scoring, pretraining and encodings results, the smoke's wall, and the
    kernels (each with its launches in each path that runs it, and their
    sum), the `nvidia-smi` name and power limit line, and, last,
    {"ok": true, "device": {...}}.
@@ -167,7 +188,8 @@ as the engine finds its weights and caches cold.
 
 Probes, each on its own: `--probe [ROOT]` (host costs and kernel rows the
 smoke does not take), `--profile-probe N` (profiles that miss a kernel),
-`--library-kernels` (step 14 alone), `--attn-probe [ROOT]` (the
+`--library-kernels` (step 14 alone), `--parallel` (step 11a alone, at
+every card of the machine), `--attn-probe [ROOT]` (the
 attention backward's limit on the inputs that
 once went beyond the old one, against f64; the attention kernels' device
 ms at the train step's shapes), `--spec-probe` (the speculative window's
@@ -3423,6 +3445,10 @@ PAGED_ATTN_BODY = "paged_attn_kernel"
 # backward in each train and pretrain step
 RMS_FWD_BODY = "rms_fwd_warp_kernel"
 RMS_BWD_BODY = "rms_bwd_warp_kernel"
+# the cross-entropy's Triton kernels (ops/cross_entropy.py), the unsplit
+# and the vocab-split form alike
+CE_FWD_BODY = "ce_fwd_kernel"
+CE_BWD_BODY = "ce_bwd_kernel"
 
 
 def _require_kernels(by_name, bodies, what):
@@ -3573,6 +3599,597 @@ def run_training(dev):
                    launches_per_step={k: n / 10 for k, n in
                                       median["fused"]["launches"].items()}))
     return median["unfused"]["launches"], median["fused"]["launches"], result
+
+
+# ---------------------------------------------------------------------------
+# training across ranks: parallel/ on torch.distributed, one rank a card
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3              # counted steps of each step function
+PAR_TRAINER_STEPS = 5      # Trainer(tensor_parallel=n).train
+PAR_MICROBATCHES = 4       # the pipeline step's
+PAR_TIMEOUT_S = 300        # the children's join, then they are killed
+# the tiny f32 models' card-vs-CPU gradients: of each leaf's largest entry
+# (or of a hundredth of the tree's, for a leaf that small), as
+# check_small_training's f32 steps agree to a few 1e-6
+PAR_SMALL_TOL = 1e-5
+# the full-width witness: the tensor-parallel step and the one-card step
+# both in f32, each gradient leaf of its largest entry (or of a hundredth
+# of the tree's); sums in other orders over 24 blocks, far under the bf16
+# gaps (a few 1e-2) that the bf16 gate below admits
+PAR_F32_TOL = 1e-3
+BF16_EPS = 2.0 ** -8       # half a bf16 ulp, relative
+
+
+def _par_tcfg(**kw):
+    from flasht5_tpu_torch.train import TrainerConfig
+    return TrainerConfig(learning_rate=1e-3, weight_decay=0.0,
+                         lr_scheduler="constant", max_steps=10 ** 6,
+                         logging_steps=1, seed=0, **kw)
+
+
+def _par_batch(cfg, b=8, enc=1024, dec=256, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(0, cfg.vocab_size, (b, enc)).astype(
+                np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (b, dec)).astype(
+                np.int32)}
+
+
+def _par_small_config():
+    from flasht5_tpu_torch.config import FlashT5Config
+    return FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+                         d_ff=256, num_layers=4, num_decoder_layers=4,
+                         dropout_rate=0.0, attention_scale=1.0,
+                         dtype="float32", attention_type="pallas_rpe",
+                         use_fused_layernorm=True,
+                         use_fused_crossentropy=True, z_loss=1e-4,
+                         label_smoothing=0.1, pad_token_id=0)
+
+
+def _grads_by_path(params) -> dict:
+    """{path: gradient} of a tree's leaves (zeros where none)."""
+    from flasht5_tpu_torch.models import t5
+    return {path: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for path, p in t5.tree_leaves_with_path(params)}
+
+
+def _par_references(dev, cfg, batch):
+    """What the steps across ranks are held to, made before the process
+    group exists (the one-card trainer's path): the one-card
+    `Trainer._step` on the batch (its loss and every gradient), the same
+    step in f32 (what the bf16 step rounds), the bf16 step with the batch
+    cut into the pipeline's micro-batches of 8 / PAR_MICROBATCHES rows and
+    their gradients summed by hand (the rounding that the reordering alone
+    brings), and a tiny f32 model's loss and gradients on the CPU."""
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.train import Trainer
+    ref = {}
+    for key, c in (("", cfg), ("f32_", cfg.replace(dtype="float32"))):
+        tr = Trainer(c, _par_tcfg(), device=dev)
+        out = tr._step(tr._device_batch(batch))
+        ref[key + "loss"] = float(out["loss"])
+        ref[key + "grads"] = {path: p.grad.detach().clone()
+                              for path, p in zip(tr._paths, tr._leaves)}
+        del tr, out
+    params = t5.init_params(cfg, seed=0, device=dev)
+    for _, p in t5.tree_leaves_with_path(params):
+        p.requires_grad_(True)
+    db = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    mb = len(batch["input_ids"]) // PAR_MICROBATCHES
+    loss = 0.0
+    for i in range(PAR_MICROBATCHES):
+        rows = slice(i * mb, (i + 1) * mb)
+        part = t5.forward(cfg, params, input_ids=db["input_ids"][rows],
+                          labels=db["labels"][rows])["loss"] / \
+            PAR_MICROBATCHES
+        part.backward()
+        loss += float(part.detach())
+    ref["acc_loss"] = loss
+    ref["acc_grads"] = _grads_by_path(params)
+    del params
+    small = _par_small_config()
+    sbatch = _par_batch(small, enc=96, dec=40, seed=3)
+    sp = t5.init_params(small, seed=5, device="cpu")
+    for _, p in t5.tree_leaves_with_path(sp):
+        p.requires_grad_(True)
+    sl = t5.forward(small, sp, **{k: torch.from_numpy(v)
+                                  for k, v in sbatch.items()})["loss"]
+    sl.backward()
+    ref["small"] = {"loss": float(sl.detach()), "grads": _grads_by_path(sp)}
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _par_split_check(dev):
+    """The split backward (`vocab_parallel.split_backward`) at the train
+    step's logits (2048, 32768) bf16 as four tensor ranks run it (a shard
+    of 8192 each, its `class_start_idx`, `total_classes` 32768, the global
+    lse), against the plain unsplit gradient, dloss 1 a row, z-loss 1e-4,
+    label smoothing 0 and 0.1: within one bf16 ulp of each entry plus one
+    f32 ulp of the largest (the vocab-split kernel rows' limit: the same
+    f32 math rounded to bf16 once on each side); the planted fault, each
+    shard fed its own lse, beyond it. Returns each run's worst share of
+    the limit."""
+    from flasht5_tpu_torch.ops import cross_entropy
+    from flasht5_tpu_torch.parallel.vocab_parallel import split_backward
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, v, shards = 2048, 32768, 4
+    logits = (3 * torch.randn((rows, v), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (rows,), generator=gen, device=dev)
+    dloss = torch.ones((rows,), device=dev)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    shares = {}
+    for smoothing in (0.0, 0.1):
+        want = cross_entropy.cross_entropy_bwd_plain(
+            logits, labels, lse, dloss, torch.zeros_like(lse),
+            lse_square_scale=1e-4, label_smoothing=smoothing).float()
+        limit = BF16_ULP * want.abs() + 2.0 ** -24 * want.abs().max()
+        for name, fault in (("global lse", False),
+                            ("fault: shard's lse", True)):
+            parts = []
+            for start in range(0, v, v // shards):
+                shard = logits[:, start:start + v // shards].contiguous()
+                parts.append(split_backward(
+                    shard, labels,
+                    torch.logsumexp(shard.float(), dim=-1) if fault else lse,
+                    dloss, lse_square_scale=1e-4, label_smoothing=smoothing,
+                    total_classes=v, class_start_idx=start))
+            got = torch.cat(parts, dim=1).float()
+            shares[f"{name}, smoothing {smoothing}"] = float(
+                ((got - want).abs() / limit).max())
+            del parts, got
+        del want, limit
+    print("parallel split backward, 4 shards of the train step's logits: "
+          "worst share of the limit " + json.dumps(shares), flush=True)
+    for smoothing in (0.0, 0.1):
+        if not (shares[f"global lse, smoothing {smoothing}"] <= 1.0
+                < shares[f"fault: shard's lse, smoothing {smoothing}"]):
+            raise AssertionError(f"split backward: {shares}")
+    return shares
+
+
+def _par_state(kind, cfg, mesh, dev, params=None):
+    """(local parameters, optimizer, step function) of a step kind."""
+    from flasht5_tpu_torch.parallel import pp_step, tp_step, train_step
+    if kind == "pp":
+        local, opt = pp_step.pp_train_state(cfg, mesh, seed=0, params=params,
+                                            device=dev)
+        return local, opt, pp_step.make_pp_train_step(
+            cfg, mesh, opt, n_microbatches=PAR_MICROBATCHES)
+    local, opt = tp_step.tp_train_state(cfg, mesh, seed=0, params=params,
+                                        device=dev)
+    make = (tp_step.make_tp_train_step if kind == "tp"
+            else train_step.make_train_step)
+    return local, opt, make(cfg, mesh, opt)
+
+
+def _par_gather_grads(kind, local, mesh) -> dict:
+    """{path: the whole tree's gradient} on every rank (a collective)."""
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.parallel import pp_step
+    from flasht5_tpu_torch.parallel.sharding import gather_tree, param_pspecs
+    from flasht5_tpu_torch.quantize import _map_with_path
+    grads = _grads_by_path(local)
+    tree = _map_with_path(lambda path, _: grads[path], local)
+    if kind == "pp":
+        full = pp_step.from_pp_params(gather_tree(
+            tree, pp_step.pp_param_pspecs(tree), mesh, "pipe"))
+    else:
+        full = gather_tree(tree, param_pspecs(tree), mesh)
+    return dict(t5.tree_leaves_with_path(full))
+
+
+def _grad_gaps(got: dict, want: dict, floor_share: float = 0.0) -> dict:
+    """{path: max|got - want| / (the leaf's largest |want|, at least
+    floor_share of the tree's)}."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return {path: float((got[path].float() - w.float()).abs().max())
+            / max(float(w.abs().max()), floor_share * top, 1e-30)
+            for path, w in want.items()}
+
+
+def _par_layouts(n):
+    """[(kind, mesh shape)] of the step functions at n cards."""
+    layouts = [("tp", (1, n)), ("dp", (n, 1)), ("pp", (n, 1))]
+    if n == 4:
+        layouts += [("tp", (2, 2)), ("pp", (2, 2))]
+    return layouts
+
+
+def _par_mesh(kind, shape):
+    from flasht5_tpu_torch.parallel.mesh import make_mesh, make_pp_mesh
+    return make_pp_mesh(*shape) if kind == "pp" else make_mesh(*shape)
+
+
+def _par_planted_fault(cfg, mesh, dev, rows, ref, limits, rank):
+    """Step 1 of the tensor-parallel step with the split backward fed each
+    rank's own lse (where t > 1 the shards' lse differ from the global
+    one): some leaf must land beyond its limit."""
+    from flasht5_tpu_torch.parallel import vocab_parallel
+    real = vocab_parallel.split_backward
+
+    def own_lse(logits, labels, lse, dloss, **kw):
+        return real(logits, labels, torch.logsumexp(logits.float(), -1),
+                    dloss, **kw)
+
+    local, _, step = _par_state("tp", cfg, mesh, dev)
+    with _patched(vocab_parallel, "split_backward", own_lse):
+        step(local, rows)
+    grads = _par_gather_grads("tp", local, mesh)
+    row = None
+    if rank == 0:
+        gaps = _grad_gaps(grads, ref["grads"])
+        worst = max(gaps, key=lambda p: gaps[p] / limits[p])
+        row = dict(worst_share_of_limit=gaps[worst] / limits[worst],
+                   worst_leaf=worst,
+                   leaves_over=sum(g > limits[p] for p, g in gaps.items()))
+        print("parallel planted fault (the split backward on each rank's "
+              "own lse): " + json.dumps(row), flush=True)
+        if not row["leaves_over"]:
+            raise AssertionError("the planted fault stays within the limits")
+    del local, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def _par_f32_witness(cfg, mesh, dev, rows, ref, rank, tag):
+    """Step 1 of the tensor-parallel step in f32 against the one-card step
+    in f32 on the same parameters and batch: the loss within PAR_F32_TOL
+    relative, every gradient leaf within PAR_F32_TOL of its largest entry
+    (or of a hundredth of the tree's). What bf16 leaves of the gap to the
+    one-card step is then rounding, not the layout's math."""
+    cfg32 = cfg.replace(dtype="float32")
+    local, _, step = _par_state("tp", cfg32, mesh, dev)
+    loss = float(step(local, rows)["loss"])
+    grads = _par_gather_grads("tp", local, mesh)
+    row = None
+    if rank == 0:
+        gaps = _grad_gaps(grads, ref["f32_grads"], 1e-2)
+        worst = max(gaps, key=gaps.get)
+        row = dict(loss=loss, ref_loss=ref["f32_loss"],
+                   loss_gap=abs(loss - ref["f32_loss"]) / abs(
+                       ref["f32_loss"]),
+                   worst_grad_gap=gaps[worst], worst_leaf=worst,
+                   median_grad_gap=float(np.median(list(gaps.values()))),
+                   tol=PAR_F32_TOL)
+        print(f"parallel {tag} f32 witness vs the one-card f32 step: "
+              + json.dumps(row), flush=True)
+        if not (row["loss_gap"] <= PAR_F32_TOL
+                and gaps[worst] <= PAR_F32_TOL):
+            raise AssertionError(f"{tag}: the f32 step parts from the "
+                                 f"one-card f32 step")
+    del local, step, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def _par_sharded_step(cfg, mesh, dev, batch, ref, limits, rank, tag):
+    """`train_step.sharded_train_step` on the mesh (its parameters drawn
+    from seed 0, as the one-card reference's): its loss against the
+    one-card step's, within the steps' loss limit."""
+    from flasht5_tpu_torch.parallel.train_step import sharded_train_step
+    loss = float(sharded_train_step(cfg, mesh, batch["input_ids"],
+                                    batch["labels"], device=dev, seed=0))
+    row = None
+    if rank == 0:
+        row = dict(mesh=tag, loss=loss, ref_loss=ref["loss"],
+                   loss_gap=abs(loss - ref["loss"]),
+                   loss_limit=limits["loss"])
+        print("parallel sharded_train_step: " + json.dumps(row), flush=True)
+        if not (np.isfinite(loss) and row["loss_gap"] <= row["loss_limit"]):
+            raise AssertionError(f"sharded_train_step on {tag}: {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sum_over_ranks(counts: dict, dev) -> dict:
+    """{kernel: launches} summed over every rank (a collective)."""
+    import torch.distributed as dist
+    names = sorted(counts)
+    t = torch.tensor([counts[k] for k in names], dtype=torch.int64,
+                     device=dev)
+    dist.all_reduce(t)
+    return dict(zip(names, t.tolist()))
+
+
+def parallel_rank(rank: int, world: int, work: str) -> int:
+    """One rank of `run_parallel` (`chip_smoke.py --parallel-rank R N
+    DIR`): the kernels the parent built, NCCL over the cards."""
+    import torch.distributed as dist
+
+    from flasht5_tpu_torch import flagship_config, ops, runtime
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.parallel.distributed import initialize_multihost
+    from flasht5_tpu_torch.parallel.sharding import batch_slice
+    from flasht5_tpu_torch.train import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in runtime.kernel_sources()
+               if not runtime._lib_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"the parent built no {missing}")
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    cfg = flagship_config()
+    batch = _par_batch(cfg)
+    t0 = time.perf_counter()
+    ref = _par_references(dev, cfg, batch) if rank == 0 else None
+    ref_s = time.perf_counter() - t0
+    info = initialize_multihost(device="cuda")
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    out = {"world": info, "references_s": ref_s, "small": {}, "steps": {}}
+    if rank == 0:
+        out["split_backward"] = _par_split_check(dev)
+
+    def rows_of(mesh, b):
+        s = batch_slice(mesh, len(b["input_ids"]))
+        return {k: torch.from_numpy(v[s]).to(dev) for k, v in b.items()}
+
+    # ---- tiny f32 models: the card's steps against the CPU's one rank ----
+    small = _par_small_config()
+    sbatch = _par_batch(small, enc=96, dec=40, seed=3)
+    sparams = t5.init_params(small, seed=5, device="cpu")
+    for kind, shape in _par_layouts(world):
+        mesh = _par_mesh(kind, shape)
+        local, _, step = _par_state(kind, small, mesh, dev, params=sparams)
+        loss = float(step(local, rows_of(mesh, sbatch))["loss"])
+        grads = _par_gather_grads(kind, local, mesh)
+        if rank == 0:
+            gaps = _grad_gaps({k: g.cpu() for k, g in grads.items()},
+                              ref["small"]["grads"], 1e-2)
+            worst = max(gaps, key=gaps.get)
+            loss_gap = abs(loss - ref["small"]["loss"]) / abs(
+                ref["small"]["loss"])
+            row = dict(loss=loss, cpu_loss=ref["small"]["loss"],
+                       loss_gap=loss_gap, worst_grad_gap=gaps[worst],
+                       worst_leaf=worst, tol=PAR_SMALL_TOL)
+            out["small"][f"{kind}{shape}"] = row
+            print(f"parallel small {kind} {shape}: " + json.dumps(row),
+                  flush=True)
+            if not (loss_gap <= PAR_SMALL_TOL
+                    and gaps[worst] <= PAR_SMALL_TOL):
+                raise AssertionError(f"tiny {kind} step at {shape}: card "
+                                     f"and CPU differ")
+        del local, step
+    del sparams
+
+    # ---- the full-width steps ----
+    # Each leaf's limit, of its largest entry: (t + 1) times the leaf's own
+    # bf16 noise, plus half a bf16 ulp. The noise is the larger of two
+    # gaps of the one-card step, each of that leaf: to the same step in
+    # f32 (the rounding of every activation, which a tensor-parallel
+    # layout changes at each row-split product) and to the same step
+    # summed over PAR_MICROBATCHES micro-batches (the rounding of the
+    # sums over rows, which data and pipeline layouts change; it leaves
+    # every row's activations as they were). t, the layout's tensor
+    # degree: each row-split product's output is t partial sums rounded
+    # to bf16 and summed once more where the one-card product rounds
+    # once, and the one-card step's own rounding adds one more draw. The
+    # f32 witness below holds the tensor-parallel math itself to 1e-3.
+    noise = None
+    if rank == 0:
+        acc_gaps = _grad_gaps(ref["acc_grads"], ref["grads"])
+        f32_gaps = _grad_gaps(ref["grads"], ref["f32_grads"])
+        noise = {p: max(acc_gaps[p], f32_gaps[p]) for p in ref["grads"]}
+        out["limits"] = dict(
+            loss=(2.0 * abs(ref["acc_loss"] - ref["loss"])
+                  + BF16_EPS * abs(ref["loss"])),
+            worst_acc_gap=max(acc_gaps.values()),
+            worst_f32_gap=max(f32_gaps.values()),
+            median_acc_gap=float(np.median(list(acc_gaps.values()))),
+            median_f32_gap=float(np.median(list(f32_gaps.values()))),
+            f32_loss_gap=abs(ref["f32_loss"] - ref["loss"]))
+        print("parallel limits: " + json.dumps(out["limits"]), flush=True)
+        del ref["acc_grads"]
+    launches = {}
+    for kind, shape in _par_layouts(world):
+        tag = f"{kind}{shape}"
+        limits = None
+        if rank == 0:
+            t = shape[1] if kind == "tp" else 1
+            limits = {p: (t + 1) * noise[p] + BF16_EPS for p in noise}
+        mesh = _par_mesh(kind, shape)
+        local, opt, step = _par_state(kind, cfg, mesh, dev)
+        rows = rows_of(mesh, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = float(step(local, rows)["loss"])
+        grads = _par_gather_grads(kind, local, mesh)
+        row = {"loss_step1": first}
+        if rank == 0:
+            gaps = _grad_gaps(grads, ref["grads"])
+            over = {p: (g, limits[p]) for p, g in gaps.items()
+                    if g > limits[p]}
+            worst = max(gaps, key=lambda p: gaps[p] / limits[p])
+            shares = sorted(gaps[p] / limits[p] for p in gaps)
+            row.update(ref_loss=ref["loss"],
+                       loss_gap=abs(first - ref["loss"]),
+                       loss_limit=out["limits"]["loss"],
+                       grad_limit=limits[worst],
+                       worst_share_of_limit=shares[-1],
+                       median_share_of_limit=float(np.median(shares)),
+                       worst_leaf=worst, worst_gap=gaps[worst],
+                       worst_leaf_noise=noise[worst],
+                       worst_gap_over_noise=max(gaps[p] / noise[p]
+                                                for p in gaps if noise[p]),
+                       leaves_over=len(over))
+            print(f"parallel {tag} step 1 vs the one-card step: "
+                  + json.dumps(row), flush=True)
+            if over or row["loss_gap"] > row["loss_limit"]:
+                raise AssertionError(f"{tag}: step 1 beyond its limits: "
+                                     f"{list(over.items())[:5]}")
+        del grads
+        if kind == "tp":
+            row["f32_witness"] = _par_f32_witness(cfg, mesh, dev, rows, ref,
+                                                  rank, tag)
+        if kind == "tp" and "sharded_train_step" not in out:
+            out["sharded_train_step"] = _par_sharded_step(
+                cfg, mesh, dev, batch, ref, out.get("limits"), rank, tag)
+        if kind == "tp" and shape[1] > 1 and "fault" not in out:
+            out["fault"] = _par_planted_fault(cfg, mesh, dev, rows, ref,
+                                              limits, rank)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = [first] + [float(step(local, rows)["loss"])
+                            for _ in range(PAR_STEPS)]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) / PAR_STEPS
+        # the path's launches: every rank's (a pipeline's first stages
+        # compute no loss, so launch no CE kernel)
+        counted = _sum_over_ranks(ops.launch_counts(), dev)
+        # each kind's first layout spans every card
+        launches.setdefault(f"{kind}_training", counted)
+        missing = [k for k in TRAINING if counted[k] <= 0]
+        if missing:
+            raise AssertionError(f"{tag}: kernels not launched {missing}")
+        expect = None
+        if kind == "tp":
+            expect = {"flash_attention_rpe": ("fwd_wgmma_kernel",),
+                      "flash_attention_bwd": ("dkdv_wgmma_kernel",
+                                              "dq_wgmma_kernel"),
+                      "rms_norm": (RMS_FWD_BODY,),
+                      "rms_norm_bwd": (RMS_BWD_BODY,),
+                      "cross_entropy_fwd": (CE_FWD_BODY,),
+                      "cross_entropy_bwd": (CE_BWD_BODY,)}
+        # a profile retaken on one rank would leave the others a step
+        # behind in the collectives: one try where there are several
+        by_name = _kernels_by_name(lambda: step(local, rows), expect=expect,
+                                   tries=3 if world == 1 else 1)
+        if kind == "tp" and rank == 0:
+            _require_kernels(by_name, wgmma_bodies(TABLE, NO_BIAS)
+                             + (RMS_FWD_BODY, RMS_BWD_BODY, CE_FWD_BODY,
+                                CE_BWD_BODY), f"one {tag} train step")
+        nccl = {name: v for name, v in by_name.items()
+                if "nccl" in name.lower()}
+        # NCCL's kernels also wait for the other ranks: their time apart
+        row.update(losses=losses, wall_ms=wall * 1e3,
+                   device_ms=sum(t for name, (t, _) in by_name.items()
+                                 if name not in nccl),
+                   nccl_ms=sum(t for t, _ in nccl.values()),
+                   kernels=sum(n for _, n in by_name.values()),
+                   nccl_kernels=sum(n for _, n in nccl.values()),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   launches_per_step={k: v / PAR_STEPS
+                                      for k, v in counted.items() if v})
+        out["steps"][tag] = row
+        if rank == 0:
+            print(f"parallel {tag}: " + json.dumps(
+                {k: v for k, v in row.items() if k != "launches_per_step"}),
+                flush=True)
+        del local, opt, step
+        torch.cuda.empty_cache()
+
+    # ---- the trainer across ranks, through train() ----
+    # tp_axis set: the tensor-parallel model and the split CE at any
+    # count of cards, one included
+    tcfg = _par_tcfg(tensor_parallel=world)
+    tr = Trainer(cfg.replace(tp_axis="tensor"), tcfg, device=dev)
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    logs = tr.train([batch] * PAR_TRAINER_STEPS)["logs"]
+    torch.cuda.synchronize()
+    losses = [e["loss"] for e in logs]
+    out["trainer"] = dict(tensor_parallel=world, losses=losses,
+                          wall_ms=(time.perf_counter() - t1)
+                          / PAR_TRAINER_STEPS * 1e3,
+                          launches=_sum_over_ranks(ops.launch_counts(), dev))
+    if rank == 0:
+        print(f"parallel Trainer(tensor_parallel={world}): "
+              + json.dumps({k: v for k, v in out["trainer"].items()
+                            if k != "launches"}), flush=True)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and abs(losses[0] - ref["loss"]) <= out["limits"]["loss"]):
+            raise AssertionError(f"Trainer(tensor_parallel={world}) "
+                                 f"losses {losses}")
+    out["launches"] = launches
+    dist.barrier()
+    if rank == 0:
+        with open(os.path.join(work, "rank0.json"), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_parallel(dev):
+    """Training across ranks (`parallel/`): one child process a card
+    (`torch.cuda.device_count()`), NCCL, a TCP rendezvous on localhost;
+    the children load the kernels this process built. Each holds, at
+    FAT5-small width with the train step's batch (8 x (1024 + 256)):
+    `make_tp_train_step` on a (1, n) mesh (the vocab-parallel loss on the
+    CE kernels' split form), `make_train_step` on (n, 1) and
+    `make_pp_train_step` on (pipe n, data 1) with 4 micro-batches (and at
+    4 cards also (2, 2) and (pipe 2, data 2)): step 1's loss and every
+    gradient leaf against the one-card `Trainer._step` on the same
+    parameters and batch (and, for the tensor-parallel step, its f32 form
+    against the one-card f32 step, and `sharded_train_step`'s loss), then
+    PAR_STEPS more steps counted from 0, one
+    profiled step (the TP step's held to the wrappers' counts: the CE
+    split form's bodies, the wgmma attention's and rms_norm's); tiny f32
+    models' TP, DP and PP steps against the CPU's one rank; then
+    `Trainer(tensor_parallel=n).train` for 5 steps (losses falling).
+    The children are joined within PAR_TIMEOUT_S and killed after it."""
+    import socket
+    import tempfile
+
+    del dev
+    n = torch.cuda.device_count()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="parallel-") as work:
+        procs = []
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--parallel-rank", str(r), str(n), work], env=env))
+        t0 = time.perf_counter()
+        try:
+            # a rank that fails leaves the others waiting in a collective:
+            # the first failure, or the time limit, ends them all
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() - t0 < PAR_TIMEOUT_S):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            raise AssertionError(f"parallel ranks exited with {codes} "
+                                 f"(killed at {PAR_TIMEOUT_S} s or after "
+                                 f"another rank's failure)")
+        with open(os.path.join(work, "rank0.json")) as f:
+            out = json.load(f)
+    out["cards"] = n
+    out["wall_s"] = time.perf_counter() - t0
+    launches = out.pop("launches")
+    print(f"parallel phase: {n} card(s), {out['wall_s']:.3f} s", flush=True)
+    return launches, out
+
+
+def parallel_only() -> int:
+    """`python3 chip_smoke.py --parallel`: the kernels' build, then
+    `run_parallel` alone (a call with several cards)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from flasht5_tpu_torch import runtime
+    smi = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    print(f"cards: {smi}", flush=True)
+    runtime.build_kernels()
+    launches, out = run_parallel(torch.device("cuda", 0))
+    print(json.dumps({"parallel": out, "launches": launches}))
+    print(smi.splitlines()[0])
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4342,6 +4959,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained_launches, fused_launches, trained = run_training(dev)
     torch.cuda.empty_cache()
+    parallel_launches, parallel = run_parallel(dev)
     small_finetune = check_small_finetune(dev)
     finetune_launches, finetuned = run_finetune(dev)
     torch.cuda.empty_cache()
@@ -4374,6 +4992,9 @@ def main() -> int:
             by_path["scoring_flan_base"] = wide_launches[name]
         if name in FUSED_TRAINING:
             by_path["fused_training"] = fused_launches[name]
+        for path, counted in parallel_launches.items():
+            if counted[name]:
+                by_path[path] = counted[name]
         if name in FINETUNE:
             by_path["finetune"] = finetune_launches[name]
         if name in SPEC_SERVING:
@@ -4404,6 +5025,7 @@ def main() -> int:
     print(json.dumps({"paged_engine": paged}))
     print(json.dumps({"generation": generated}))
     print(json.dumps({"training": trained}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"finetune": dict(small=small_finetune,
                                        full_width=finetuned)}))
     print(json.dumps({"scoring": scored}))
@@ -4856,6 +5478,11 @@ def profile_probe(dev, tries: int) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
+    if sys.argv[1:2] == ["--parallel"]:
+        sys.exit(parallel_only())
     if sys.argv[1:2] == ["--probe"]:
         if len(sys.argv) > 2:
             sys.path.insert(0, os.path.abspath(sys.argv[2]))

@@ -152,6 +152,11 @@ class PagedInferenceEngine:
 
     def __init__(self, config: FlashT5Config, params, ecfg: PagedEngineConfig,
                  device=None):
+        if config.tp_axis is not None:
+            raise NotImplementedError(
+                "serving across tensor ranks (tp_axis) is the sharded "
+                "engines' (the JAX package's inference/sharded_engine.py "
+                "and sharded_paged_engine.py), not ported yet")
         t5.check_supported(config)
         if config.position_encoding_type != "t5":
             # the JAX package's engine builds only the T5 bias

@@ -65,9 +65,47 @@ Params = Dict[str, Any]
 
 
 def check_supported(config: FlashT5Config) -> None:
-    """Raise for the parts of the configuration the port does not run yet."""
-    if config.tp_axis is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet")
+    """Raise unless `config.tp_axis` (if set) names a dimension of the
+    current mesh (`parallel.mesh.use_mesh`), whose process group the
+    tensor-parallel model's collectives run over."""
+    _tp_group(config)
+
+
+def _tp_group(config: FlashT5Config):
+    """The tensor group (None without tensor parallelism)."""
+    if config.tp_axis is None:
+        return None
+    from flasht5_tpu_torch.parallel.mesh import axis_group
+    return axis_group(config.tp_axis)
+
+
+def _to_columns(group, x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-split product: Megatron's identity forward
+    with the gradient all-reduced over the tensor group."""
+    if group is None:
+        return x
+    from flasht5_tpu_torch.parallel.collective_matmul import (
+        copy_to_tensor_group)
+    return copy_to_tensor_group(x, group)
+
+
+def _row_parallel_matmul(config: FlashT5Config, group, x: torch.Tensor,
+                         w) -> torch.Tensor:
+    """x @ w, w split by row under tensor parallelism, summed over the
+    tensor group (JAX t5.py:217-238): an all-reduce, or with
+    `use_collective_matmul` the ring reduce-scatter and an all-gather,
+    where the token count splits over the group (else the all-reduce, as
+    the JAX model falls back)."""
+    if group is None:
+        return _matmul(x, w)
+    from flasht5_tpu_torch.parallel import collective_matmul as cm
+    lead, k = x.shape[:-1], x.shape[-1]
+    m = x.numel() // k
+    t = torch.distributed.get_world_size(group)
+    if config.use_collective_matmul and t > 1 and m % t == 0:
+        out = cm.row_parallel_ring(x.reshape(m, k), w, group)
+        return out.reshape(*lead, out.shape[-1])
+    return cm.reduce_from_tensor_group(_matmul(x, w), group)
 
 
 def tree_leaves_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -229,8 +267,11 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 def _ff(config: FlashT5Config, params: Params, x: torch.Tensor, *,
         generator=None, deterministic=True) -> torch.Tensor:
-    """Pre-norm MLP with residual (reference: modeling_flash_t5.py:147-164)."""
-    h = _layer_norm(config, params["layer_norm"]["weight"], x)
+    """Pre-norm MLP with residual (reference: modeling_flash_t5.py:147-164).
+    Under tensor parallelism wi is split by column and wo by row."""
+    group = _tp_group(config)
+    h = _to_columns(group, _layer_norm(config, params["layer_norm"]["weight"],
+                                       x))
     if config.use_gelu_act:
         def act(t):
             return F.gelu(t, approximate="tanh")
@@ -242,7 +283,7 @@ def _ff(config: FlashT5Config, params: Params, x: torch.Tensor, *,
     else:
         h = act(_matmul(h, params["act"]["wi"]))
     h = _dropout(generator, config.dropout_rate, h, deterministic)
-    h = _matmul(h, params["wo"])
+    h = _row_parallel_matmul(config, group, h, params["wo"])
     return x + _dropout(generator, config.dropout_rate, h, deterministic)
 
 
@@ -357,6 +398,14 @@ def _rotate(config: FlashT5Config, q: torch.Tensor, k: torch.Tensor,
     return q, k, v
 
 
+def _local_heads(group, bias: torch.Tensor) -> torch.Tensor:
+    """This tensor rank's heads of a bias over all heads (ALiBi's, FIRE's;
+    JAX t5.py:286-292); FIRE's gradient comes back whole on every rank."""
+    per = bias.shape[1] // torch.distributed.get_world_size(group)
+    start = torch.distributed.get_rank(group) * per
+    return _to_columns(group, bias)[:, start:start + per]
+
+
 def _attention(config: FlashT5Config, params: Params,
                hidden_states: torch.Tensor, *,
                mask: Optional[torch.Tensor] = None,
@@ -371,9 +420,13 @@ def _attention(config: FlashT5Config, params: Params,
     `mask` is the padding mask of the queries' side (B, N), used only with
     `use_masking`; cross-attention has no bias to fold it into."""
     b, m = hidden_states.shape[:2]
-    kv_src = hidden_states if key_value_states is None else key_value_states
+    group = _tp_group(config)
+    hidden_states = _to_columns(group, hidden_states)
+    kv_src = (hidden_states if key_value_states is None
+              else _to_columns(group, key_value_states))
     n = kv_src.shape[1]
     dkv = config.d_kv
+    # the head count of this rank's (column-split) projection
     h = params["Wq"].shape[1] // dkv
     q = _matmul(hidden_states, params["Wq"]).reshape(b, m, h, dkv)
     k = _matmul(kv_src, params["Wk"]).reshape(b, n, h, dkv)
@@ -391,6 +444,9 @@ def _attention(config: FlashT5Config, params: Params,
             position_bias = _position_bias(
                 config, pe_params, m, n, bidirectional=bidirectional,
                 device=q.device, generator=generator)
+            if (group is not None
+                    and config.position_encoding_type != "t5"):
+                position_bias = _local_heads(group, position_bias)
         if position_bias is not None and config.use_full_bias_size:
             position_bias = position_bias.expand(b, h, m, n)
         if position_bias is not None and mask is not None and \
@@ -422,7 +478,8 @@ def _attention(config: FlashT5Config, params: Params,
                                   else config.attention_dropout_rate),
                        generator=generator)
     out = out.transpose(1, 2).reshape(b, m, h * dkv)
-    return _matmul(out, params["o"]), position_bias
+    return (_row_parallel_matmul(config, group, out, params["o"]),
+            position_bias)
 
 
 def _block_apply(config: FlashT5Config, block_params: Params,
@@ -533,25 +590,38 @@ def stack_apply(config: FlashT5Config, stack_params: Params,
 # Losses
 # ===========================================================================
 
+def loss_denominator(config: FlashT5Config,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """The count a loss sum is divided by: every row with
+    `use_fused_crossentropy`, else the non-ignored rows (f32, 0-d)."""
+    if config.use_fused_crossentropy:
+        return torch.tensor(float(labels.numel()), device=labels.device)
+    return (labels != -100).sum().float()
+
+
 def compute_loss(config: FlashT5Config, logits: torch.Tensor,
-                 labels: torch.Tensor) -> torch.Tensor:
+                 labels: torch.Tensor,
+                 denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CE + z-loss (reference: FlashT5CrossEntropyLoss, modeling:40-79).
 
     Keeps the reference's reduction quirk: the fused path means over ALL
     rows, ignored ones included (modeling:68); the plain path means over the
-    non-ignored rows only (modeling:74)."""
+    non-ignored rows only (modeling:74). A given `denominator` replaces
+    that count (the trainers across ranks pass the global one)."""
     z = config.z_loss or 0.0
     flat_logits = logits.reshape(-1, logits.shape[-1])
     flat_labels = labels.reshape(-1)
     if config.use_fused_crossentropy:
         losses, _ = cross_entropy_loss(flat_logits, flat_labels, z,
                                        config.label_smoothing)
-        return torch.mean(losses)
-    losses, _ = cross_entropy_loss_ref(
-        flat_logits, flat_labels, lse_square_scale=z,
-        label_smoothing=config.label_smoothing)
-    n_valid = torch.clamp(torch.sum(flat_labels != -100), min=1)
-    return torch.sum(losses) / n_valid
+    else:
+        losses, _ = cross_entropy_loss_ref(
+            flat_logits, flat_labels, lse_square_scale=z,
+            label_smoothing=config.label_smoothing)
+    if denominator is None:
+        denominator = torch.clamp(
+            loss_denominator(config, flat_labels), min=1.0)
+    return torch.sum(losses) / denominator
 
 
 # ===========================================================================
@@ -604,13 +674,22 @@ def forward(config: FlashT5Config, params: Params,
             labels: Optional[torch.Tensor] = None,
             encoder_hidden_states: Optional[torch.Tensor] = None, *,
             generator: Optional[torch.Generator] = None,
-            deterministic: bool = True) -> Dict[str, torch.Tensor]:
+            deterministic: bool = True,
+            loss_denominator: Optional[torch.Tensor] = None
+            ) -> Dict[str, torch.Tensor]:
     """Conditional-generation forward (reference: modeling:692-736).
 
     Returns Outputs(loss?, logits, encoder_hidden_states), a dict. With
     labels and `use_fused_lm_head_ce` (untied, plain lm_head) the loss comes
     from the fused lm_head+CE kernels and the logits only on demand.
-    Dropout (training, `deterministic=False`) draws from `generator`."""
+    Dropout (training, `deterministic=False`) draws from `generator`.
+    `loss_denominator` replaces the count the loss sum is divided by.
+
+    Under tensor parallelism (`config.tp_axis`, inside `use_mesh`) the
+    parameters are this rank's shards (`parallel.sharding`): the logits
+    are this rank's slice of the vocabulary, and with an untied lm_head
+    the loss is `vocab_parallel_loss` (JAX t5.py:748-751); the fused
+    lm_head+CE stays off, as in the JAX model."""
     if encoder_hidden_states is None:
         encoder_hidden_states = encode(config, params, input_ids,
                                        attention_mask, generator=generator,
@@ -623,12 +702,14 @@ def forward(config: FlashT5Config, params: Params,
                       encoder_hidden_states=encoder_hidden_states,
                       encoder_attention_mask=attention_mask,
                       generator=generator, deterministic=deterministic)
+    group = _tp_group(config)
     if config.tie_word_embeddings:
         head = params["shared"]["embedding"].t()
     else:
         head = params["lm_head"]
+        dec = _to_columns(group, dec)
     if (labels is not None and config.use_fused_lm_head_ce
-            and not config.tie_word_embeddings
+            and not config.tie_word_embeddings and group is None
             and isinstance(head, torch.Tensor)):
         # lm_head + CE in one kernel, straight from the decoder's hidden
         # states; the same reduction as compute_loss's fused path: the mean
@@ -636,13 +717,22 @@ def forward(config: FlashT5Config, params: Params,
         losses, _ = fused_linear_cross_entropy(
             dec.reshape(-1, dec.shape[-1]), head, labels.reshape(-1),
             config.z_loss or 0.0, config.label_smoothing)
-        return Outputs(lambda: _matmul(dec, head), loss=torch.mean(losses),
+        loss = (torch.mean(losses) if loss_denominator is None
+                else torch.sum(losses) / loss_denominator)
+        return Outputs(lambda: _matmul(dec, head), loss=loss,
                        encoder_hidden_states=encoder_hidden_states)
     lm_logits = _matmul(dec, head)
     out = Outputs(None, logits=lm_logits,
                   encoder_hidden_states=encoder_hidden_states)
-    if labels is not None:
-        out["loss"] = compute_loss(config, lm_logits, labels)
+    if labels is not None and group is not None \
+            and not config.tie_word_embeddings:
+        from flasht5_tpu_torch.parallel.vocab_parallel import (
+            vocab_parallel_loss)
+        out["loss"] = vocab_parallel_loss(config, lm_logits, labels, group,
+                                          loss_denominator)
+    elif labels is not None:
+        out["loss"] = compute_loss(config, lm_logits, labels,
+                                   loss_denominator)
     return out
 
 

@@ -115,7 +115,7 @@ def _triton_kernels():
     import triton.language as tl
 
     @triton.jit
-    def fwd(logits_ptr, lse_ptr, sum_ptr, n_rows, n_cols, logit_scale,
+    def ce_fwd_kernel(logits_ptr, lse_ptr, sum_ptr, n_rows, n_cols, logit_scale,
             ROWS: tl.constexpr, BLOCK_V: tl.constexpr, SMOOTH: tl.constexpr):
         rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
         rmask = rows < n_rows
@@ -140,7 +140,7 @@ def _triton_kernels():
             tl.store(sum_ptr + rows, sl, mask=rmask)
 
     @triton.jit
-    def bwd(logits_ptr, labels_ptr, lse_ptr, dloss_ptr, dz_ptr, dlogits_ptr,
+    def ce_bwd_kernel(logits_ptr, labels_ptr, lse_ptr, dloss_ptr, dz_ptr, dlogits_ptr,
             n_rows, n_cols, logit_scale, lse_square_scale, smoothing,
             ignore_index, class_start_idx, total_classes,
             ROWS: tl.constexpr, BLOCK_V: tl.constexpr, SMOOTH: tl.constexpr):
@@ -171,7 +171,7 @@ def _triton_kernels():
         tl.store(dlogits_ptr + offs, grad.to(dlogits_ptr.dtype.element_ty),
                  mask=mask)
 
-    return triton, fwd, bwd
+    return triton, ce_fwd_kernel, ce_bwd_kernel
 
 
 def _check(name: str, logits: torch.Tensor, *rows_tensors) -> None:

@@ -21,8 +21,15 @@ per-leaf loop. The per-leaf scale stays on the device (no host sync), as a
 multiply by a list of 0-d tensors, which PyTorch runs one launch per leaf:
 a FAT5-small step costs ~370 launches in all (PERF.md).
 
-The sharded statistics (`stat_axes`, `stat_batch_dims`) come with the
-`parallel/` port and raise until then.
+The sharded statistics are options of a parameter group (JAX :58-68,
+:101-112), as torch optimizers take per-group options:
+- `stat_axes`: a process group (or None) over which a split leaf's sum of
+  squares and element count are summed before the rms, so that the scale
+  is the unsplit leaf's (the tensor group for the tensor-split leaves);
+- `stat_batch_dims`: the number of leading axes along which a leaf is
+  taken as separate parameters, each with its own rms (1 for the
+  pipeline's stacked layers).
+The constructor's values are the defaults of groups that name none.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import math
 from typing import Callable, Iterable, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 _NO_DECAY_SUBSTRINGS = ("bias", "layer_norm", "layernorm", "LayerNorm", "ln")
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -52,12 +60,21 @@ class AdamWScale(torch.optim.Optimizer):
                  betas=(0.9, 0.999), eps: float = 1e-6,
                  weight_decay: float = 0.0, kahan_sum: bool = False,
                  state_dtype: Optional[torch.dtype] = None,
-                 stat_axes=None, stat_batch_dims=None):
-        if stat_axes is not None or stat_batch_dims is not None:
-            raise NotImplementedError(
-                "stat_axes / stat_batch_dims come with parallel/, not "
-                "ported yet")
-        super().__init__(params, dict(weight_decay=weight_decay))
+                 stat_axes=None, stat_batch_dims: int = 0):
+        super().__init__(params, dict(weight_decay=weight_decay,
+                                      stat_axes=stat_axes,
+                                      stat_batch_dims=stat_batch_dims))
+        for group in self.param_groups:
+            axes = group["stat_axes"]
+            if axes is not None and not isinstance(axes, dist.ProcessGroup):
+                raise TypeError(f"stat_axes {axes!r}: a process group (the "
+                                f"mesh dimension's, `mesh.get_group`) or "
+                                f"None")
+            bd = group["stat_batch_dims"]
+            if not isinstance(bd, int) or bd < 0 or any(
+                    p.dim() < bd for p in group["params"]):
+                raise ValueError(f"stat_batch_dims {bd!r}: an int from 0 "
+                                 f"to each leaf's number of dimensions")
         self.lr = lr
         self.betas = betas
         self.eps = eps
@@ -119,11 +136,12 @@ class AdamWScale(torch.optim.Optimizer):
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
             states = [self._state(p) for p in params]
-            self._update(gi, params, grads, states, b1, b2, step_size,
+            self._update(gi, group, grads, states, b1, b2, step_size,
                          1.0 - lr * group["weight_decay"])
         return loss
 
-    def _update(self, gi, params, grads, states, b1, b2, step_size, decay):
+    def _update(self, gi, group, grads, states, b1, b2, step_size, decay):
+        params = group["params"]
         g32 = [g.float() for g in grads]
         m_st = [s["exp_avg"] for s in states]
         v_st = [s["exp_avg_sq"] for s in states]
@@ -139,13 +157,25 @@ class AdamWScale(torch.optim.Optimizer):
         upd = torch._foreach_div(m32, denom)
 
         # step size per leaf: step_size * max(1e-3, rms(p))
-        if gi not in self._sqrt_numel:
-            self._sqrt_numel[gi] = torch.tensor(
-                [math.sqrt(p.numel()) for p in params], dtype=torch.float32,
-                device=params[0].device)
-        norms = torch.stack(torch._foreach_norm([p.float() for p in params]))
-        scale = torch.clamp(norms / self._sqrt_numel[gi], min=1e-3) * step_size
-        torch._foreach_mul_(upd, list(scale.unbind(0)))
+        axes, bd = group["stat_axes"], group["stat_batch_dims"]
+        count = 1 if axes is None else dist.get_world_size(axes)
+        if bd:
+            for p, u in zip(params, upd):
+                u.mul_(self._batched_scale(p, bd, axes, count) * step_size)
+        else:
+            if gi not in self._sqrt_numel:
+                self._sqrt_numel[gi] = torch.tensor(
+                    [math.sqrt(p.numel() * count) for p in params],
+                    dtype=torch.float32, device=params[0].device)
+            norms = torch.stack(torch._foreach_norm(
+                [p.float() for p in params]))
+            if axes is not None:
+                sq = norms * norms
+                dist.all_reduce(sq, group=axes)
+                norms = torch.sqrt(sq)
+            scale = torch.clamp(norms / self._sqrt_numel[gi],
+                                min=1e-3) * step_size
+            torch._foreach_mul_(upd, list(scale.unbind(0)))
 
         full = [i for i, p in enumerate(params) if p.dtype == torch.float32]
         if full:
@@ -162,6 +192,19 @@ class AdamWScale(torch.optim.Optimizer):
             for st, new in ((m_st, m32), (v_st, v32)):
                 torch._foreach_copy_([st[i] for i in low],
                                      [new[i] for i in low])
+
+    @staticmethod
+    def _batched_scale(p, bd, axes, count):
+        """max(1e-3, rms) over all but the first `bd` axes of p, shaped to
+        broadcast against p."""
+        dims = tuple(range(bd, p.dim()))
+        sq = torch.sum(p.float() ** 2, dim=dims, keepdim=True)
+        if axes is not None:
+            dist.all_reduce(sq, group=axes)
+        n = count
+        for d in dims:
+            n *= p.shape[d]
+        return torch.clamp(torch.sqrt(sq / n), min=1e-3)
 
     @staticmethod
     def _low_precision_update(p, upd, kc, decay):

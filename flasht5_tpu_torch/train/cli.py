@@ -15,11 +15,24 @@ Runs on the card unless `--device cpu`, and raises where there is none. As
 `train.py` does, a resumed run starts its batch iterator (and the
 collator's random stream) from the seed again, so it sees the first batches
 again.
+
+Across ranks, the YAML's training_args `data_parallel`,
+`tensor_parallel`, `pipeline_parallel` and `pp_microbatches` lay them out
+(as `train.py:93-95` reads them), one process a card:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m flasht5_tpu_torch.train.cli <config.yaml> [--device cpu]
+
+`main` then joins the process group (`parallel.distributed.
+initialize_multihost`: NCCL on the cards, gloo with `--device cpu`). Every
+rank collates the same global batch of `per_device_train_batch_size` rows
+and takes its "data" slice of it; rank 0 prints and writes the files.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -148,7 +161,8 @@ def run(run_cfg: dict, tokenizer, train_set, eval_set=None, *, device=None,
                       device=device)
     resume = Trainer.latest_checkpoint(tcfg.output_dir)
     if resume:
-        log_fn(f"resuming from {resume}")
+        if trainer.rank0:
+            log_fn(f"resuming from {resume}")
         trainer.restore_checkpoint(resume)
 
     train_iter = batch_iterator(train_set, collator, collator.batch_size,
@@ -159,13 +173,18 @@ def run(run_cfg: dict, tokenizer, train_set, eval_set=None, *, device=None,
                                    seed=tcfg.seed + 1, epochs=1)
     result = trainer.train(train_iter, eval_iter, log_fn=log_fn)
     trainer.save_checkpoint(trainer.step_num)
-    log_fn(f"done: {result['final_step']} steps")
+    if trainer.rank0:
+        log_fn(f"done: {result['final_step']} steps")
     return trainer, result
 
 
 def main(config_path: str, device: Optional[str] = None):
     """`train.py`'s `main`: the YAML, the tokenizer and the datasets, then
     `run`."""
+    if "WORLD_SIZE" in os.environ:
+        from flasht5_tpu_torch.parallel.distributed import (
+            initialize_multihost)
+        initialize_multihost(device=device)
     run_cfg = load_run_config(config_path)
     targs = run_cfg["training_args"]
     from transformers import AutoTokenizer

@@ -1638,3 +1638,103 @@ def test_timed_waits_for_the_card_when_fn_returns_no_tensor(dev):
     with_tensor = timed(lambda: x @ x, iters=5, warmup=1)
     without = timed(lambda: (x @ x, None)[1], iters=5, warmup=1)
     assert without >= 0.5 * with_tensor
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel loss (parallel/vocab_parallel.py) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_rank(dev, tmp_path):
+    """A one-rank NCCL process group, for the length of a test."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def _vp_inputs(dev, rows=2048, v=32768):
+    logits = (3 * torch.randn((rows, v), device=dev)).to(torch.bfloat16)
+    labels = torch.randint(0, v, (rows,), device=dev)
+    labels[::7] = -100
+    return logits, labels
+
+
+@pytest.mark.parametrize("fused,smoothing,z", [(True, 0.0, 1e-4),
+                                               (False, 0.1, 1e-3)])
+def test_vocab_parallel_loss_on_one_nccl_rank(dev, nccl_rank, monkeypatch,
+                                              fused, smoothing, z):
+    """`vocab_parallel_loss` on the CE kernels, over a one-rank NCCL group,
+    against the plain unsplit loss (cross_entropy_loss_ref, autograd) with
+    the same reduction: the loss to 1e-5 relative (f32 sums in another
+    order); dlogits of both losses times their row count (entries up to
+    about 1, as a row's own dloss of 1 gives) to 1e-2 + 1e-2 |entry|, the
+    CE kernels' bf16 test. The planted fault, the backward's one-hot one
+    class off (`class_start_idx` one too high), lands beyond that."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.parallel import vocab_parallel
+    logits, labels = _vp_inputs(dev)
+    cfg = FlashT5Config(vocab_size=logits.shape[1],
+                        use_fused_crossentropy=fused,
+                        label_smoothing=smoothing, z_loss=z)
+    den = labels.numel() if fused else int((labels != -100).sum())
+    want_in = logits.clone().requires_grad_()
+    losses, _ = cross_entropy.cross_entropy_loss_ref(
+        want_in, labels, lse_square_scale=z, label_smoothing=smoothing)
+    want = losses.sum() / den
+    (want * den).backward()
+    want_grad = want_in.grad.float()
+
+    def run():
+        got_in = logits.clone().requires_grad_()
+        got = vocab_parallel.vocab_parallel_loss(cfg, got_in, labels,
+                                                 nccl_rank)
+        (got * den).backward()
+        return got, got_in.grad.float()
+
+    got, got_grad = run()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    assert float(want_grad.abs().max()) > 0.5
+    torch.testing.assert_close(got_grad, want_grad, rtol=1e-2, atol=1e-2)
+    real = vocab_parallel.split_backward
+    monkeypatch.setattr(
+        vocab_parallel, "split_backward",
+        lambda *a, class_start_idx, **kw: real(
+            *a, class_start_idx=class_start_idx + 1, **kw))
+    _, bad_grad = run()
+    assert bool(((bad_grad - want_grad).abs()
+                 > 1e-2 + 1e-2 * want_grad.abs()).any())
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_split_backward_takes_the_global_lse(dev, smoothing):
+    """Four shards' backward kernels (`vocab_parallel.split_backward`, what
+    each of four tensor ranks runs) with the global lse give the unsplit
+    gradient's columns (1e-2, the CE kernels' bf16 limit); the planted
+    fault, each shard's own lse, lands beyond that limit."""
+    from flasht5_tpu_torch.parallel.vocab_parallel import split_backward
+    logits, labels = _vp_inputs(dev)
+    rows, v = logits.shape
+    dloss = torch.ones((rows,), device=dev)
+    kw = dict(lse_square_scale=1e-4, label_smoothing=smoothing,
+              total_classes=v)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    want = cross_entropy.cross_entropy_bwd_plain(
+        logits, labels, lse, dloss, torch.zeros_like(lse),
+        lse_square_scale=1e-4, label_smoothing=smoothing).float()
+    scale = float(want.abs().max())
+    for fault in (False, True):
+        parts = []
+        for start in range(0, v, v // 4):
+            shard = logits[:, start:start + v // 4].contiguous()
+            shard_lse = (torch.logsumexp(shard.float(), dim=-1) if fault
+                         else lse)
+            parts.append(split_backward(shard, labels, shard_lse, dloss,
+                                        class_start_idx=start, **kw))
+        err = float((torch.cat(parts, dim=1).float() - want).abs().max())
+        if fault:
+            assert err > 1e-2 * scale + 1e-2, (err, scale)
+        else:
+            torch.testing.assert_close(torch.cat(parts, dim=1).float(), want,
+                                       rtol=1e-2, atol=1e-2)

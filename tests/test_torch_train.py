@@ -330,7 +330,9 @@ def test_adamw_scale_matches_jax(mode):
 
 
 def test_adamw_scale_refuses_sharded_statistics():
-    with pytest.raises(NotImplementedError):
+    """The statistics are ported (tests/test_torch_parallel*.py); a mesh
+    axis named as in the JAX package, not a process group, is refused."""
+    with pytest.raises(TypeError):
         AdamWScale([torch.zeros(3)], stat_axes="tensor")
 
 
@@ -390,13 +392,15 @@ def test_trainer_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(cfg, TrainerConfig())
+    # the degrees run across ranks now (tests/test_torch_parallel*.py), and
+    # raise without the process group they need
     for kw in (dict(data_parallel=2), dict(tensor_parallel=2),
                dict(pipeline_parallel=2)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="process group"):
             Trainer(cfg, TrainerConfig(**kw), device="cpu")
     # gradient accumulation runs now (tests/test_torch_pe_train.py)
     Trainer(cfg, TrainerConfig(gradient_accumulation_steps=2), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         Trainer(cfg.replace(tp_axis="model"), TrainerConfig(), device="cpu")
     with pytest.raises(ValueError):
         Trainer(cfg, TrainerConfig(), device="meta")

@@ -388,17 +388,18 @@ def test_training_wrappers_refuse_a_dtype_they_do_not_take():
 
 
 def test_unported_options_raise():
-    """What the training path still refuses: data, tensor and pipeline
-    parallelism (the CE's vocab-split form is ported, below)."""
+    """Data, tensor and pipeline parallelism run across ranks
+    (tests/test_torch_parallel*.py): without a process group, or outside a
+    mesh, they raise."""
     from flasht5_tpu_torch.config import FlashT5Config
     from flasht5_tpu_torch.models import t5
     from flasht5_tpu_torch.train import Trainer, TrainerConfig
     cfg = FlashT5Config(vocab_size=64, d_model=32, d_kv=8, num_heads=4,
                         d_ff=64, num_layers=1, dtype="float32")
     for name in ("data_parallel", "tensor_parallel", "pipeline_parallel"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="process group"):
             Trainer(cfg, TrainerConfig(**{name: 2}), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="mesh"):
         t5.check_supported(cfg.replace(tp_axis="tp"))
 
 
