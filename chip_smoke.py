@@ -27,10 +27,12 @@ of JAX. In order:
    reduction), the attention backward (the bucket one above; the keys
    rolled by one without a table; dq, dk and dv held to limits derived
    from the rounding points, `grad_limits`), the
-   cross-entropy backward (its small entries flushed or doubled; in the
-   vocab-split form, a shard of 8192 of the train step's logits, forward
-   and backward, and four shards combined against the unsplit loss,
-   `class_start_idx` one too high), the
+   cross-entropy forward (the loss in its epilogue; labels one column
+   off), the cross-entropy backward (its small entries flushed or
+   doubled; in the vocab-split form, a shard of 8192 of the train step's
+   logits, forward with the combine and backward, and four shards
+   combined against the unsplit loss, `class_start_idx` one too high;
+   the combine alone, a shard left out), the
    paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
    as well as the batch; also on ALiBi's asymmetric and FIRE's biases),
@@ -46,7 +48,9 @@ of JAX. In order:
    tokens the engine on the CPU (the plain versions) serves, and that two
    planted faults move its logits beyond the tolerance; and that the paged
    engine on the card serves exactly the CPU's tokens through each of its
-   three routes, and other tokens with two pages swapped in its table;
+   three routes and its two opt-ins, and other tokens with two pages
+   swapped in its table (or in the opt-ins' gather), and with a pool of
+   5 pages for 3 slots of 3 defers admissions and serves the same tokens;
 5. checks on a tiny model that one training step on the card gives the
    loss and every gradient the CPU gives, on `pallas_rpe` (with and
    without `use_fused_lm_head_ce`) and on `pallas` with `use_masking`, and
@@ -83,12 +87,23 @@ of JAX. In order:
    the decode kernel's, both engines' margins and logits there,
    teacher-forced along the common prefix; one window's launches and
    kernels (the profile held to the wrappers' counts);
-9. serves 16 requests of 512 random tokens and up to 256 new ones with the
+9. serves 16 requests of 512 random tokens and up to 128 new ones with the
    paged engine at full width (int8, pages of 64, sync 64): a warm run read
    window by window (wall, launches, one profiled window), then three runs
    interleaved with the slot engine at the same settings, each with the
    launch counts set to 0 just before and read just after; each paged-path
-   kernel must have launched in each paged run;
+   kernel must have launched in each paged run; then the opt-ins'
+   readers (`dense_read_max`, `window_stage_max_bytes`) against the paged
+   kernel at the serving shape (a length one short beyond the limit),
+   their engines' window walls beside the default's, and an oversubscribed
+   pool (24 of the 40 pages the 8 slots would take: admissions deferred,
+   the roomy pool's tokens);
+9a. serves across ranks (`run_serving_ranks`): one child process a card,
+   NCCL; tiny f32 models through `ShardedEngine` and `ShardedPagedEngine`
+   against the CPU's single-device engines, then FAT5-small through both
+   against the single-device engines on one card (the same tokens at mesh
+   (1, 1); logits within a bf16 limit across cards), each path kernel
+   launched, one profiled window with its NCCL kernels;
 10. generates at full width (FAT5-small, int8 weights, bf16 caches, 8
    inputs of 512 random tokens, max_length 64): greedy `generate` with
    every launch count set to 0 just before it and read just after (each
@@ -202,6 +217,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -461,9 +477,9 @@ def check_kernels(dev, run=True):
     # the slot engine's int8 caches and on generation's caches in the
     # activations' dtype (bf16 at FAT5-small; f32 on the tiny f32 model)
     def dec_case(L, lengths, with_bias, label, main=False, kv="int8",
-                 rows=None):
+                 rows=None, heads=8):
         """`rows(lens)`: the decode state's bias rows of each slot's
-        position (lens - 1), (8, 8, L) f32, in place of random ones."""
+        position (lens - 1), (8, heads, L) f32, in place of random ones."""
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         valid = (torch.arange(L, device=dev)[None, :]
                  < lens[:, None])[:, None, None, :]
@@ -472,22 +488,22 @@ def check_kernels(dev, run=True):
 
         def make():
             if kv == "int8":
-                kq, ks = quant.quantize_kv(randn(8, 8, L, 64,
+                kq, ks = quant.quantize_kv(randn(8, heads, L, 64,
                                                  dtype=torch.float32))
-                vq, vs = quant.quantize_kv(randn(8, 8, L, 64,
+                vq, vs = quant.quantize_kv(randn(8, heads, L, 64,
                                                  dtype=torch.float32))
                 k_lib = quant.dequantize_kv(kq, ks, torch.bfloat16)
                 v_lib = quant.dequantize_kv(vq, vs, torch.bfloat16)
             else:
-                kq, vq = randn(8, 8, L, 64, dtype=kv), randn(8, 8, L, 64,
-                                                              dtype=kv)
+                kq, vq = (randn(8, heads, L, 64, dtype=kv)
+                          for _ in range(2))
                 ks = vs = None
                 k_lib, v_lib = kq, vq
-            bias = (randn(8, 8, L, dtype=torch.float32) if with_bias
+            bias = (randn(8, heads, L, dtype=torch.float32) if with_bias
                     else None)
             if rows is not None:
                 bias = rows(lens)
-            q = randn(8, 8, 64, dtype=q_dtype)
+            q = randn(8, heads, 64, dtype=q_dtype)
             # the library call: SDPA over the same cache in the cache's
             # float type, with the lengths and the bias folded into one
             # additive mask
@@ -498,13 +514,13 @@ def check_kernels(dev, run=True):
             return (q, kq, vq, ks, vs, lens, bias), lib
         (q, kq, vq, ks, vs, _, bias), lib = make()
         used = sum(min(n, L) for n in lengths)     # positions read
-        per_pos = 8 * (2 * 64 * kq.element_size()
+        per_pos = heads * (2 * 64 * kq.element_size()
                        + (2 * 4 if ks is not None else 0)
                        + (4 if with_bias else 0))
         # the last cluster rank of the plan that holds positions
-        warps = decode_attention.decode_plan(8, 8, L)[1]
+        warps = decode_attention.decode_plan(8, heads, L)[1]
         first = max(a for a, _ in decode_attention.decode_pieces(
-            8, 8, L)[::warps] if a < L)
+            8, heads, L)[::warps] if a < L)
 
         def last_split_zeroed(q, kq, vq, ks, vs, lens, bias):
             v = vq.clone()
@@ -524,7 +540,7 @@ def check_kernels(dev, run=True):
         cases.append(dict(
             name="decode_attention", label=label, make=make,
             faults=faults,
-            extra=dict(plan=decode_attention.decode_plan(8, 8, L)),
+            extra=dict(plan=decode_attention.decode_plan(8, heads, L)),
             in_bytes=nbytes(kq, vq, ks, vs, bias, *lib),
             kernel=lambda q, kq, vq, ks, vs, lens, bias:
                 decode_attention.decode_attention(
@@ -536,7 +552,7 @@ def check_kernels(dev, run=True):
                 q, k, v, attn_mask=mask, scale=1.0),
             atol=1e-4 if f32 else 4e-3, rtol=1e-4 if f32 else BF16_ULP,
             bytes=used * per_pos + nbytes(q, lens) + nbytes(q),
-            ops=4 * 8 * used * 64, ops_type="f32" if f32 else "bf16",
+            ops=4 * heads * used * 64, ops_type="f32" if f32 else "bf16",
             main=main,
             why=("f32 throughout: sums in another order and another exp"
                  if f32 else "bf16 output: one bf16 ulp, and P from "
@@ -548,6 +564,11 @@ def check_kernels(dev, run=True):
     dec_case(66, [1, 9, 17, 25, 33, 41, 49, 57], True,
              "decode self-attention q (8, 8, 64) bf16, int8 K/V "
              "(8, 8, 66, 64), bias, lengths 1..57")
+    # a tensor rank's heads of FAT5-small across four cards (8 / 4)
+    dec_case(512, [512] * 8, False,
+             "decode cross-attention, 2 heads (a rank's at t = 4): q "
+             "(8, 2, 64) bf16, int8 K/V (8, 2, 512, 64), lengths 512",
+             heads=2)
     # generation (`inference.generate` at max_length 64: a self cache of 64
     # positions)
     dec_case(512, [512] * 8, False,
@@ -627,7 +648,7 @@ def check_paged_kernels(dev):
             bias=bias, return_state=True)
 
     def paged_case(slots, page, maxp, lengths, table, with_bias, label,
-                   main=False):
+                   main=False, h=h):
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         table = torch.as_tensor(table, dtype=torch.int32, device=dev)
         max_len = maxp * page
@@ -698,6 +719,12 @@ def check_paged_kernels(dev):
                perm.reshape(8, 5), True,
                "serving q (8, 8, 64) f32, int8 fused pool (41, 2, 8, 64, 64), "
                "table (8, 5), lengths 1..320, bias, state", main=True)
+    # a tensor rank's heads of FAT5-small across four cards (8 / 4)
+    paged_case(8, 64, 5, [1, 40, 64, 65, 130, 200, 257, 320],
+               perm.reshape(8, 5), True,
+               "serving, 2 heads (a rank's at t = 4): q (8, 2, 64) f32, int8 "
+               "fused pool (41, 2, 2, 64, 64), table (8, 5), lengths 1..320, "
+               "bias, state", h=2)
     # (b) the roofline shape: tables round-robin over the pool
     slots, page, maxp = PAGED_ROOFLINE
     rr = [[j * slots + s for j in range(maxp)] for s in range(slots)]
@@ -828,6 +855,18 @@ def run_checks(cases):
             _require_kernels(
                 _kernels_by_name(lambda: c["kernel"](*arg_sets[0])),
                 c["require"], f"{c['name']} ({c['label']})")
+        launches_a_call = None
+        if c.get("count_launches"):
+            # the port's kernels one call launches, by their wrappers'
+            # counts (a profile here would precede the fused CE's profiled
+            # gates, and profiles taken in a row lose records: --profile-
+            # probe; `--ce-probe` counts every kernel in one profile)
+            from flasht5_tpu_torch import ops
+            ops.reset_launch_counts()
+            c["kernel"](*arg_sets[0])
+            torch.cuda.synchronize()
+            launches_a_call = {k: v for k, v in ops.launch_counts().items()
+                               if v}
         # a case of many small launches sets its own count, so that the
         # launches of one timing fit the launch queue
         iters = c.get("iters", 200 if c["bytes"] < 64 * 2 ** 20 else 50)
@@ -851,6 +890,8 @@ def run_checks(cases):
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=c["bytes"], ops=c["ops"], **unfused,
+                   **({} if launches_a_call is None
+                      else dict(launches_a_call=launches_a_call)),
                    **c.get("extra", {}))
         print("kernel-check " + json.dumps(row), flush=True)
         results.append(row)
@@ -1055,15 +1096,26 @@ def check_small_paged(dev, d_kv=32):
     ids = [rng.integers(2, 512, size=(n,)).astype(np.int32)
            for n in (12, 30, 7, 25, 16)]
 
-    def serve(params, device, kernel):
+    # a route: the engine config's kernel and opt-in
+    routes = {"chunked": {}, "ragged": dict(kernel="ragged"),
+              "dense": dict(kernel="dense"),
+              "dense_read_max 24": dict(dense_read_max=24),
+              "window_stage_max_bytes 1 MB": dict(
+                  window_stage_max_bytes=1 << 20)}
+
+    def serve(params, device, route, num_pages=12, engine_out=None):
         eng = paged_engine.PagedInferenceEngine(
             cfg, params, paged_engine.PagedEngineConfig(
-                max_slots=3, page_size=8, num_pages=12, max_pages_per_slot=3,
-                max_encode_len=32, encode_buckets=(16, 32), kv_dtype="int8",
-                kernel=kernel, steps_per_sync=3), device=device)
-        return [r.result.tolist() for r in eng.run(
+                max_slots=3, page_size=8, num_pages=num_pages,
+                max_pages_per_slot=3, max_encode_len=32,
+                encode_buckets=(16, 32), kv_dtype="int8", steps_per_sync=3,
+                **routes[route]), device=device)
+        out = [r.result.tolist() for r in eng.run(
             [engine.Request(uid=i, input_ids=x, max_new_tokens=17)
              for i, x in enumerate(ids)])]
+        if engine_out is not None:
+            engine_out.append(eng)
+        return out
 
     margins = []
     real_argmax = torch.argmax
@@ -1074,27 +1126,42 @@ def check_small_paged(dev, d_kv=32):
         return real_argmax(x, dim=dim, keepdim=keepdim)
 
     real_paged = paged_kv.paged_attention
+    real_gather = paged_kv.gather_pool_dense
 
-    def swapped_pages(q, k, v, ks, vs, table, *args, **kw):
+    def swapped(table):
         t = table.clone()
         t[:, [0, 1]] = table[:, [1, 0]]
-        return real_paged(q, k, v, ks, vs, t, *args, **kw)
+        return t
 
-    for kernel in ("chunked", "ragged", "dense"):
+    def swapped_pages(q, k, v, ks, vs, table, *args, **kw):
+        return real_paged(q, k, v, ks, vs, swapped(table), *args, **kw)
+
+    def swapped_gather(pages_kv, scales_kv, table, **kw):
+        return real_gather(pages_kv, scales_kv, swapped(table), **kw)
+
+    for route in routes:
+        # the opt-ins read the committed pages through a gather, the
+        # window's newest tokens and the other routes through the kernel
+        opt_in = route not in ("chunked", "ragged", "dense")
         margins.clear()
         with _patched(torch, "argmax", recording_argmax):
-            want = serve(cpu_params, "cpu", kernel)
+            want = serve(cpu_params, "cpu", route)
         ops_before = paged_kv.paged_attention.launches
-        got = serve(gpu_params, dev, kernel)
+        got = serve(gpu_params, dev, route)
         launched = paged_kv.paged_attention.launches - ops_before
-        if got != want or not launched:
-            raise AssertionError(f"tiny paged engine ({kernel}): card "
+        if got != want or (not opt_in and not launched):
+            raise AssertionError(f"tiny paged engine ({route}): card "
                                  f"{got} != cpu {want} ({launched} "
                                  f"launches)")
-        with _patched(paged_kv, "paged_attention", swapped_pages):
-            faulty = serve(gpu_params, dev, kernel)
+        if opt_in and launched:
+            raise AssertionError(f"tiny paged engine ({route}): the paged "
+                                 f"kernel ran ({launched} launches)")
+        with _patched(paged_kv, "gather_pool_dense" if opt_in
+                      else "paged_attention",
+                      swapped_gather if opt_in else swapped_pages):
+            faulty = serve(gpu_params, dev, route)
         moved = sum(a != b for a, b in zip(faulty, want))
-        print(f"small-paged ({kernel}, d_kv {d_kv}): card tokens == cpu "
+        print(f"small-paged ({route}, d_kv {d_kv}): card tokens == cpu "
               f"tokens for "
               f"{len(ids)} requests ({sum(map(len, want))} tokens, "
               f"{launched} paged kernel launches); smallest top-two margin "
@@ -1102,8 +1169,22 @@ def check_small_paged(dev, d_kv=32):
               f"{moved} of {len(ids)} requests served other tokens",
               flush=True)
         if not moved:
-            raise AssertionError(f"planted page swap ({kernel}) left the "
+            raise AssertionError(f"planted page swap ({route}) left the "
                                  f"served tokens unchanged")
+        if route == "chunked":
+            roomy = want
+    # an oversubscribed pool: 5 pages where each request needs 3 (18
+    # tokens of KV in pages of 8), so one request at a time
+    engines = []
+    tight = serve(gpu_params, dev, "chunked", num_pages=5,
+                  engine_out=engines)
+    deferrals = engines[0].deferrals
+    print(f"small-paged oversubscribed (d_kv {d_kv}): 5 pages of 8 for 3 "
+          f"slots of 3: {deferrals} admissions deferred; tokens == the "
+          f"12-page pool's on the CPU: {tight == roomy}", flush=True)
+    if tight != roomy or deferrals < 1:
+        raise AssertionError(f"tiny oversubscribed paged engine: "
+                             f"{deferrals} deferrals, {tight} != {roomy}")
 
 
 def run_engine(dev):
@@ -1445,6 +1526,7 @@ def run_spec_engine(dev, cfg, params, ecfg, inputs, kernel_tokens,
 
 
 PAGED_REQUESTS = 16   # tools/serving_paged_ab.py serves 32: halved for time
+PAGED_MAX_NEW = 128   # its 256: halved for time (3 pages of 64 a request)
 
 
 def _check_results(done, cfg, max_new):
@@ -1465,12 +1547,13 @@ def run_paged_engine(dev):
     """The paged path: `PagedInferenceEngine.run` at full FAT5-small width
     (int8 weights and KV; 8 slots, pages of 64, 40 pages, 5 a slot, encode
     512, sync 64: tools/serving_paged_ab.py:39-59), 16 requests of 512
-    random tokens and up to 256 new ones. One warm run reads each decode
-    window's wall time and launches and profiles one window with committed
-    pages (device time, kernels by name); then three timed runs, each
+    random tokens and up to PAGED_MAX_NEW new ones. One warm run reads each
+    decode window's wall time and launches and profiles one window with
+    committed pages (device time, kernels by name); then three timed runs,
+    each
     beside a run of the slot engine at the same settings
-    (max_decode_len 258), every launch count set to 0 just before each and
-    read just after."""
+    (max_decode_len PAGED_MAX_NEW + 2), every launch count set to 0 just
+    before each and read just after; then `run_paged_options`."""
     from flasht5_tpu_torch import flagship_config, ops
     from flasht5_tpu_torch.inference import engine, paged_engine
     from flasht5_tpu_torch.models import t5
@@ -1480,7 +1563,7 @@ def run_paged_engine(dev):
     cfg = flagship_config()
     t0 = time.perf_counter()
     params = quantize_params(t5.init_params(cfg, seed=0, device=dev), "int8")
-    slots, enc_len, max_new, sync = 8, 512, 256, 64
+    slots, enc_len, max_new, sync = 8, 512, PAGED_MAX_NEW, 64
     paged = paged_engine.PagedInferenceEngine(
         cfg, params, paged_engine.PagedEngineConfig(
             max_slots=slots, page_size=64, num_pages=40, max_pages_per_slot=5,
@@ -1511,14 +1594,15 @@ def run_paged_engine(dev):
     windows, kernels = [], {}
     real_window = paged._window
 
-    def timed_window(released, committed):
+    def timed_window(released, mask):
         ops.reset_launch_counts()
+        committed = bool(mask.any())
         profile = committed and not kernels
         t1 = time.perf_counter()
         if profile:
             with torch.profiler.profile(activities=[
                     ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                out = real_window(released, committed)
+                out = real_window(released, mask)
             for e in prof.events():
                 if e.device_type == torch.autograd.DeviceType.CUDA:
                     t, n = kernels.get(e.name, (0.0, 0))
@@ -1532,7 +1616,7 @@ def run_paged_engine(dev):
                 print("profile-empty " + json.dumps(EMPTY_PROFILES[-1]),
                       flush=True)
         else:
-            out = real_window(released, committed)
+            out = real_window(released, mask)
         windows.append(dict(wall_ms=(time.perf_counter() - t1) * 1e3,
                             committed=committed, profiled=profile,
                             launches=ops.launch_counts()))
@@ -1610,7 +1694,135 @@ def run_paged_engine(dev):
         self_kv_bytes=kv_bytes)
     print(f"paged / slot tokens/s (medians of 3, interleaved): "
           f"{result['paged_over_slot']}", flush=True)
+    result.update(run_paged_options(dev, cfg, params, paged, inputs))
     return median["paged"]["launches"], result
+
+
+PAGED_OPT_IN_MAX_NEW = 64   # the opt-ins' and the oversubscribed runs
+PAGED_OPT_IN_SYNC = 32      # their windows: 2 a request
+
+
+def _paged_window_walls(eng, requests):
+    """Serve `requests`, reading each window's wall (ms; windows with
+    committed pages); returns (results, walls)."""
+    real, walls = eng._window, []
+
+    def timed(released, committed):
+        t1 = time.perf_counter()
+        out = real(released, committed)
+        if committed.any():
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return out
+    eng._window = timed
+    try:
+        done = eng.run(requests)
+    finally:
+        del eng._window
+    return done, walls
+
+
+def run_paged_options(dev, cfg, params, paged, inputs):
+    """The paged engine's opt-ins and an oversubscribed pool at full width
+    (`paged`: run_paged_engine's engine, 40 pages of 64, 5 a slot):
+    - the readers at the serving shape (8 slots, 8 heads of 64, int8
+      pages of 64, 5 a slot, lengths 1..320, a random f32 bias): the
+      chunked kernel's (out, m, l) against `dense_small_pool_attention`'s
+      and the window-staged read's (`gather_pool_dense(..., dequant=False)`
+      then `dense_cache_attention`), each entry within PAGED_TOL +
+      PAGED_TOL x |entry| (f32 sums of up to 320 terms in another order,
+      exp by another implementation), a length one short beyond it;
+    - four engines at windows of PAGED_OPT_IN_SYNC steps serving the same
+      16 requests of 512 tokens, PAGED_OPT_IN_MAX_NEW new each (65 tokens
+      of KV, 2 pages): the kernel, `dense_read_max` 320 and
+      `window_stage_max_bytes` 8 MB on the 40-page pool (the median window
+      with committed pages, its wall beside the kernel's; the share of
+      requests whose tokens equal the kernel engine's, printed: bf16), and
+      an oversubscribed pool of 8 pages for the 16 the 8 slots would take
+      at once (at least one admission deferred, every request served, the
+      kernel engine's tokens: the same arithmetic in other slots)."""
+    from flasht5_tpu_torch.inference import engine, paged_engine, paged_kv
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, h, d, page, per_slot, n_pages = 8, 8, 64, 64, 5, 40
+    vals = torch.randint(-127, 128, (n_pages + 1, 2, h, page, d),
+                         generator=gen, device=dev, dtype=torch.int8)
+    scales = torch.rand((n_pages + 1, 2, h, page), generator=gen,
+                        device=dev) * 0.02
+    table = torch.randperm(n_pages, generator=gen, device=dev)[
+        :b * per_slot].reshape(b, per_slot).to(torch.int32)
+    lengths = torch.randint(1, page * per_slot + 1, (b,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    bias = torch.randn((b, h, page * per_slot), generator=gen, device=dev)
+    kw = dict(sm_scale=1.0, bias=bias, return_state=True)
+    want = paged_kv.paged_decode_attention_chunked_packed(
+        q, vals, scales, table, lengths, **kw)
+
+    def staged(lens):
+        (kv, ks), (vv, vs) = paged_kv.gather_pool_dense(vals, scales, table,
+                                                        dequant=False)
+        return paged_kv.dense_cache_attention(
+            q, paged_engine._stage_read(kv, ks),
+            paged_engine._stage_read(vv, vs), lens, **kw)
+
+    def worst(got):
+        return max(float(((g - w).abs() / (PAGED_TOL + PAGED_TOL
+                                            * w.abs())).max())
+                   for g, w in zip(got, want))
+    readers = {}
+    for name, fn in (("dense_small_pool_attention", lambda lens: paged_kv
+                      .dense_small_pool_attention(q, vals, scales, table,
+                                                  lens, **kw)),
+                     ("window-staged", staged)):
+        readers[name] = dict(worst_share=worst(fn(lengths)),
+                             fault_share=worst(fn(lengths - 1)))
+        print(f"paged reader {name} against the chunked kernel at the "
+              f"serving shape (out, m, l): " + json.dumps(readers[name]),
+              flush=True)
+        if not (readers[name]["worst_share"] <= 1.0
+                < readers[name]["fault_share"]):
+            raise AssertionError(f"paged reader {name}: {readers[name]}")
+
+    smi = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader").splitlines()[0]
+    rows = {}
+    for name, change in (("kernel", {}),
+                         ("dense_read_max 320", dict(dense_read_max=320)),
+                         ("window_stage_max_bytes 8 MB",
+                          dict(window_stage_max_bytes=8 << 20)),
+                         ("oversubscribed, 8 pages", dict(num_pages=8))):
+        eng = paged_engine.PagedInferenceEngine(
+            cfg, params, dataclasses.replace(
+                paged.ecfg, steps_per_sync=PAGED_OPT_IN_SYNC, **change),
+            device=dev)
+        eng.warmup()
+        done, walls = _paged_window_walls(eng, [
+            engine.Request(uid=i, input_ids=x,
+                           max_new_tokens=PAGED_OPT_IN_MAX_NEW)
+            for i, x in enumerate(inputs)])
+        _check_results(done, cfg, PAGED_OPT_IN_MAX_NEW)
+        served = {r.uid: r.result.tolist() for r in done}
+        base = rows.get("kernel", {}).get("served", served)
+        rows[name] = dict(
+            served=served, window_wall_ms=sorted(walls)[len(walls) // 2],
+            windows_with_committed_pages=len(walls),
+            dense_read=eng._dense_read, window_stage=eng._window_stage,
+            deferrals=eng.deferrals,
+            same_tokens_as_kernel=sum(served[u] == base[u] for u in base))
+        del eng
+    for row in rows.values():
+        del row["served"]
+    print(f"paged opt-ins and an oversubscribed pool ({smi}; 16 requests, "
+          f"{PAGED_OPT_IN_MAX_NEW} new, windows of {PAGED_OPT_IN_SYNC} "
+          f"steps, the median wall of the windows with committed pages): "
+          + json.dumps(rows), flush=True)
+    over = rows["oversubscribed, 8 pages"]
+    if not (rows["dense_read_max 320"]["dense_read"]
+            and rows["window_stage_max_bytes 8 MB"]["window_stage"]):
+        raise AssertionError("an opt-in engine did not take its reader")
+    if over["deferrals"] < 1 or over["same_tokens_as_kernel"] != len(inputs):
+        raise AssertionError(f"oversubscribed paged pool: {over}")
+    torch.cuda.empty_cache()
+    return dict(readers=readers, engines=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -2528,17 +2740,29 @@ def check_training_kernels(dev, rope_generator=True, run=True):
         return ((logits, labels, lse, dloss, dz),
                 (logits, labels, loss, ll, dloss))
     (logits, labels, lse, dloss, dz), _ = make_ce()
+
+    def ce_fwd(plain=False, shift=0):
+        """The forward's (loss, lse, z-loss) rows, z-loss 1e-4; `shift`
+        moves every label by that many columns (a planted fault)."""
+        fn = (cross_entropy.cross_entropy_fwd_plain if plain
+              else cross_entropy.cross_entropy_fwd)
+        return lambda x, labels, *rest: tuple(fn(
+            x, (labels + shift) % vocab if shift else labels,
+            lse_square_scale=1e-4))
     cases.append(dict(
-        name="cross_entropy_fwd", label="logits (2048, 32768) bf16",
-        make=make_ce, in_bytes=2 * nbytes(logits),
-        kernel=lambda x, *rest: cross_entropy.cross_entropy_fwd(x),
-        plain=lambda x, *rest: cross_entropy.cross_entropy_fwd_plain(x),
+        name="cross_entropy_fwd", label="logits (2048, 32768) bf16, z-loss "
+        "1e-4: (loss, lse, z-loss), the loss in the kernel's epilogue",
+        make=make_ce, in_bytes=2 * nbytes(logits), outputs=3,
+        kernel=ce_fwd(), plain=ce_fwd(plain=True),
+        faults=[("labels one column off", ce_fwd(shift=1))],
         library=lambda x, labels, *rest: F.cross_entropy(
             x, labels, reduction="none"),
         library_note="F.cross_entropy forward (no z-loss)",
-        atol=1e-4, rtol=1e-5, bytes=nbytes(logits) + rows * 4,
+        atol=1e-4, rtol=1e-5, bytes=nbytes(logits, labels) + 3 * rows * 4,
         ops=4 * rows * vocab, ops_type="f32", main=True,
-        why="fp32 log-sum-exp over 32768 values in another order"))
+        why="fp32 log-sum-exp over 32768 values in another order; the "
+            "label's logit read alike",
+        count_launches=True))
     def ce_bwd(x, labels, lse, dloss, dz):
         return cross_entropy.cross_entropy_bwd(x, labels, lse, dloss, dz,
                                                lse_square_scale=1e-4)
@@ -2591,18 +2815,20 @@ def check_training_kernels(dev, rope_generator=True, run=True):
         return ((shard, labels, lse, dloss, dz),
                 (shard, local, loss, ll, dloss))
 
-    def split_fwd(start):
-        def fn(shard, labels, *rest):
-            return cross_entropy.cross_entropy_loss(
-                shard, labels, class_start_idx=start, split=True, **split_kw)
-        return fn
+    def split_loss(start, plain=False):
+        """The split loss at one rank: the forward kernel's split form on
+        the shard, then the combine over the one shard's (partial, lse)
+        rows: (loss, lse, z-loss)."""
+        fwd, comb = ((cross_entropy.cross_entropy_fwd_plain,
+                      cross_entropy.cross_entropy_combine_plain) if plain
+                     else (cross_entropy.cross_entropy_fwd,
+                           cross_entropy.cross_entropy_combine))
 
-    def split_fwd_plain(shard, labels, *rest):
-        lse, total = cross_entropy.cross_entropy_fwd_plain(
-            shard, label_smoothing=0.1)
-        return cross_entropy.cross_entropy_assemble(
-            shard, labels, lse, total, class_start_idx=sv, split=True,
-            **split_kw)
+        def fn(shard, labels, *rest):
+            out = fwd(shard, labels, class_start_idx=start, split=True,
+                      **split_kw)
+            return tuple(comb(out[None, :2], labels, lse_square_scale=1e-4))
+        return fn
 
     def split_bwd(start, plain=False):
         fn = (cross_entropy.cross_entropy_bwd_plain if plain
@@ -2617,19 +2843,22 @@ def check_training_kernels(dev, rope_generator=True, run=True):
     shard_label = (f"shard 2 of 4: logits (2048, {sv}) of {vocab} bf16, "
                    f"class_start_idx {sv}, smoothing 0.1 over {vocab}")
     cases.append(dict(
-        name="cross_entropy_fwd", label=shard_label + ", split: (loss, z)",
-        make=make_shard, in_bytes=2 * nbytes(shard), outputs=2,
-        kernel=split_fwd(sv), plain=split_fwd_plain,
-        faults=[(off_by_one, split_fwd(sv + 1))],
+        name="cross_entropy_fwd", label=shard_label + ", z-loss 1e-4, "
+        "split: the kernel, then cross_entropy_combine over the one shard: "
+        "(loss, lse, z-loss)",
+        make=make_shard, in_bytes=2 * nbytes(shard), outputs=3,
+        kernel=split_loss(sv), plain=split_loss(sv, plain=True),
+        faults=[(off_by_one, split_loss(sv + 1))],
         library=lambda x, labels, *rest: F.cross_entropy(
             x, labels, reduction="none"),
         library_note="F.cross_entropy forward on the shard, labels of other "
                      "shards ignored (a yardstick: no call computes the "
                      "partial loss)",
-        atol=1e-4, rtol=1e-5, bytes=nbytes(shard) + rows * 16,
-        ops=4 * rows * sv, ops_type="f32", main=False, iters=16,
+        atol=1e-4, rtol=1e-5, bytes=nbytes(shard, labels) + rows * 36,
+        ops=4 * rows * sv, ops_type="f32", main=False,
         why="fp32 log-sum-exp and row sum over 8192 values in another "
-            "order; the label's logit gathered alike"))
+            "order; the label's logit read alike",
+        count_launches=True))
     cases.append(dict(
         name="cross_entropy_bwd", label=shard_label + ", z-loss 1e-4",
         make=make_shard, in_bytes=2 * nbytes(shard),
@@ -2652,44 +2881,63 @@ def check_training_kernels(dev, rope_generator=True, run=True):
         return (logits, labels, *shards), (logits, labels)
 
     def combined(bad=None):
-        """The shards' partial losses combined as tensor parallelism
-        would: the global lse by logsumexp of the shard lses, the
-        partials summed, the global lse and its z-loss added."""
+        """The shards' split forwards combined as tensor parallelism
+        combines them: their (partial, lse) rows stacked, then
+        `cross_entropy_combine`: (loss, lse, z-loss)."""
         def fn(logits, labels, *shards):
-            partial, lses = 0.0, []
-            for i, shard in enumerate(shards):
-                start = i * sv + (1 if i == bad else 0)
-                lse, total = cross_entropy.cross_entropy_fwd(
-                    shard, label_smoothing=0.1)
-                loss, _ = cross_entropy.cross_entropy_assemble(
-                    shard, labels, lse, total, class_start_idx=start,
-                    split=True, **split_kw)
-                partial = partial + loss
-                lses.append(lse)
-            lse = torch.logsumexp(torch.stack(lses), dim=0)
-            z = 1e-4 * lse * lse
-            valid = labels != -100
-            return (torch.where(valid, partial + lse + z, 0.0),
-                    torch.where(valid, z, 0.0))
+            parts = torch.stack([cross_entropy.cross_entropy_fwd(
+                shard, labels, class_start_idx=i * sv + (i == bad),
+                split=True, **split_kw)[:2]
+                for i, shard in enumerate(shards)])
+            return tuple(cross_entropy.cross_entropy_combine(
+                parts, labels, lse_square_scale=1e-4))
         return fn
     (logits, labels, *shards), _ = make_shards()
     cases.append(dict(
         name="cross_entropy_fwd", label=f"4 shards of (2048, {sv}) combined "
         f"against the unsplit (2048, {vocab}) bf16 loss, smoothing 0.1, "
-        f"z-loss 1e-4", make=make_shards, in_bytes=2 * nbytes(logits),
-        outputs=2, kernel=combined(),
-        plain=lambda logits, labels, *rest: cross_entropy.cross_entropy_loss(
-            logits, labels, 1e-4, 0.1),
+        f"z-loss 1e-4: (loss, lse, z-loss)", make=make_shards,
+        in_bytes=2 * nbytes(logits), outputs=3, kernel=combined(),
+        plain=lambda logits, labels, *rest: tuple(
+            cross_entropy.cross_entropy_fwd_plain(
+                logits, labels, lse_square_scale=1e-4,
+                label_smoothing=0.1)),
         faults=[("shard 3's " + off_by_one, combined(bad=2))],
         library=lambda logits, labels: F.cross_entropy(
             logits, labels, reduction="none", label_smoothing=0.1),
         library_note="F.cross_entropy forward on the whole logits, "
                      "smoothing 0.1 (no z-loss)",
-        atol=2e-4, rtol=1e-5, bytes=nbytes(logits) + rows * 16,
-        ops=4 * rows * vocab, ops_type="f32", main=False, iters=4,
+        atol=2e-4, rtol=1e-5, bytes=nbytes(logits, labels) + rows * 36,
+        ops=4 * rows * vocab, ops_type="f32", main=False,
         why="the global lse by logsumexp of four shard lses against one "
-            "streaming pass, row sums in another order"))
-    del logits, shards, shard
+            "streaming pass, row sums in another order",
+        count_launches=True))
+
+    # -- the combine alone: four shards' (partial, lse) rows --------------
+    def make_parts():
+        parts = torch.randn((n_shards, 2, rows), generator=gen, device=dev)
+        parts[:, 1] = 10.0 + parts[:, 1]
+        labels = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        labels[::7] = -100
+        return (parts, labels), (parts, labels)
+    (parts, labels), _ = make_parts()
+    cases.append(dict(
+        name="cross_entropy_combine", label=f"parts ({n_shards}, 2, "
+        f"{rows}) f32 (partials and shard lses drawn from a seeded normal), "
+        "z-loss 1e-4: (loss, lse, z-loss)", make=make_parts,
+        in_bytes=nbytes(parts, labels), outputs=3,
+        kernel=lambda p, y: tuple(cross_entropy.cross_entropy_combine(
+            p, y, lse_square_scale=1e-4)),
+        plain=lambda p, y: tuple(cross_entropy.cross_entropy_combine_plain(
+            p, y, lse_square_scale=1e-4)),
+        faults=[("shard 0 left out", lambda p, y: tuple(
+            cross_entropy.cross_entropy_combine(p[1:], y,
+                                                lse_square_scale=1e-4)))],
+        library=None, atol=1e-5, rtol=1e-6,
+        bytes=nbytes(parts, labels) + 3 * rows * 4, ops=6 * n_shards * rows,
+        ops_type="f32", main=True,
+        why="the same log-sum-exp over four values, in another order"))
+    del logits, shards, shard, parts
     return run_checks(cases) if run else cases
 
 
@@ -3449,6 +3697,7 @@ RMS_BWD_BODY = "rms_bwd_warp_kernel"
 # and the vocab-split form alike
 CE_FWD_BODY = "ce_fwd_kernel"
 CE_BWD_BODY = "ce_bwd_kernel"
+CE_COMBINE_BODY = "ce_combine_kernel"
 
 
 def _require_kernels(by_name, bodies, what):
@@ -4042,7 +4291,10 @@ def parallel_rank(rank: int, world: int, work: str) -> int:
         counted = _sum_over_ranks(ops.launch_counts(), dev)
         # each kind's first layout spans every card
         launches.setdefault(f"{kind}_training", counted)
-        missing = [k for k in TRAINING if counted[k] <= 0]
+        # the tensor-parallel loss is the split form: forward, combine
+        missing = [k for k in TRAINING + (("cross_entropy_combine",)
+                                          if kind == "tp" else ())
+                   if counted[k] <= 0]
         if missing:
             raise AssertionError(f"{tag}: kernels not launched {missing}")
         expect = None
@@ -4053,6 +4305,7 @@ def parallel_rank(rank: int, world: int, work: str) -> int:
                       "rms_norm": (RMS_FWD_BODY,),
                       "rms_norm_bwd": (RMS_BWD_BODY,),
                       "cross_entropy_fwd": (CE_FWD_BODY,),
+                      "cross_entropy_combine": (CE_COMBINE_BODY,),
                       "cross_entropy_bwd": (CE_BWD_BODY,)}
         # a profile retaken on one rank would leave the others a step
         # behind in the collectives: one try where there are several
@@ -4061,7 +4314,8 @@ def parallel_rank(rank: int, world: int, work: str) -> int:
         if kind == "tp" and rank == 0:
             _require_kernels(by_name, wgmma_bodies(TABLE, NO_BIAS)
                              + (RMS_FWD_BODY, RMS_BWD_BODY, CE_FWD_BODY,
-                                CE_BWD_BODY), f"one {tag} train step")
+                                CE_COMBINE_BODY, CE_BWD_BODY),
+                             f"one {tag} train step")
         nccl = {name: v for name, v in by_name.items()
                 if "nccl" in name.lower()}
         # NCCL's kernels also wait for the other ranks: their time apart
@@ -4173,6 +4427,352 @@ def run_parallel(dev):
     launches = out.pop("launches")
     print(f"parallel phase: {n} card(s), {out['wall_s']:.3f} s", flush=True)
     return launches, out
+
+
+SERVE_TIMEOUT_S = 420       # the serving ranks' join, then they are killed
+SERVE_MAX_NEW = 32          # the full-width runs' new tokens a request
+# the slot engine's probe logits across cards against one card's: bf16
+# activations whose row-split sums round in another order, so a few bf16
+# ulps of the largest logit (a wrong shard moves them by the logits' size)
+SERVE_PROBE_ULPS = 16
+
+
+def _serve_layouts(n):
+    """The serving meshes at n cards: (1, n), (n, 1) and, at four, (2, 2);
+    each with the collective matmul off and, where t > 1, on."""
+    shapes = list(dict.fromkeys([(1, n), (n, 1)] + ([(2, 2)] if n == 4
+                                                    else [])))
+    return [(shape, cm) for shape in shapes
+            for cm in ((False, True) if shape[1] > 1 else (False,))]
+
+
+def _serve_small_config():
+    from flasht5_tpu_torch.config import FlashT5Config
+    return FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+                         d_ff=256, num_layers=4, num_decoder_layers=4,
+                         dropout_rate=0.0, attention_scale=1.0,
+                         dtype="float32", attention_type="pallas_rpe",
+                         use_fused_layernorm=True)
+
+
+def _served(done) -> dict:
+    return {r.uid: r.result.tolist() for r in done}
+
+
+def serving_rank(rank: int, world: int, work: str) -> int:
+    """One rank of `run_serving_ranks` (`chip_smoke.py --serving-rank R N
+    DIR`): the kernels the parent built, NCCL over the cards."""
+    import torch.distributed as dist
+
+    from flasht5_tpu_torch import flagship_config, ops, runtime
+    from flasht5_tpu_torch.inference import engine, paged_engine
+    from flasht5_tpu_torch.inference.sharded_engine import (
+        ShardedEngine, make_serving_mesh)
+    from flasht5_tpu_torch.inference.sharded_paged_engine import (
+        ShardedPagedEngine)
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.parallel.distributed import initialize_multihost
+    from flasht5_tpu_torch.parallel.mesh import use_mesh
+    from flasht5_tpu_torch.quantize import quantize_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in runtime.kernel_sources()
+               if not runtime._lib_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"the parent built no {missing}")
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    info = initialize_multihost(device="cuda")
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    out = {"world": info, "small": {}, "full": {}}
+    layouts = _serve_layouts(world)
+    meshes = {shape: make_serving_mesh(*shape)
+              for shape in dict.fromkeys(s for s, _ in layouts)}
+
+    # ---- tiny f32 models: both sharded engines against the CPU's ----
+    # f32 weights and KV: card and CPU differ in summation order alone.
+    # (int8 KV rounds K/V values an f32 ulp apart to int8 steps of 1/127
+    # of a row's absmax, which parts tokens at this random model's
+    # near-ties: top-two margins down to 8e-4; with int8 KV one of six
+    # requests parted at (1, 1).)
+    cfg = _serve_small_config()
+    cpu_params = t5.init_params(cfg, seed=7, device="cpu")
+    gpu_params = _to(cpu_params, dev)
+    rng = np.random.default_rng(2)
+    ids = [rng.integers(2, 512, size=(n,)).astype(np.int32)
+           for n in (12, 30, 7, 25, 16, 9)]
+    kinds = {
+        "slot": (ShardedEngine, engine.InferenceEngine, engine.EngineConfig(
+            max_slots=4, max_decode_len=20, max_encode_len=32,
+            encode_buckets=(16, 32), steps_per_sync=4,
+            use_decode_kernel=True)),
+        "paged": (ShardedPagedEngine, paged_engine.PagedInferenceEngine,
+                  paged_engine.PagedEngineConfig(
+                      max_slots=4, page_size=8, num_pages=12,
+                      max_pages_per_slot=3, max_encode_len=32,
+                      encode_buckets=(16, 32), steps_per_sync=3))}
+
+    def small_requests():
+        return [engine.Request(uid=i, input_ids=x, max_new_tokens=17)
+                for i, x in enumerate(ids)]
+    want = ({kind: _served(single(cfg, cpu_params, ecfg, device="cpu").run(
+        small_requests())) for kind, (_, single, ecfg) in kinds.items()}
+        if rank == 0 else None)
+    for (shape, cm), kind in [(lay, kind) for lay in layouts
+                              for kind in kinds]:
+        sharded, _, ecfg = kinds[kind]
+        eng = sharded(cfg.replace(use_collective_matmul=cm), gpu_params,
+                      ecfg, meshes[shape], device=dev)
+        got = _served(eng.run(small_requests()))
+        tag = f"{kind} {shape}{' ring' if cm else ''}"
+        if rank == 0:
+            same = sum(got[u] == want[kind][u] for u in want[kind])
+            out["small"][tag] = same
+            print(f"serving-ranks small {tag}: {same} of {len(ids)} "
+                  f"requests served the CPU's single-device tokens",
+                  flush=True)
+            if same != len(ids):
+                raise AssertionError(f"tiny sharded {tag}: {got} != "
+                                     f"{want[kind]}")
+        del eng
+
+    # ---- full width: FAT5-small, int8 weights and KV ----
+    cfg = flagship_config()
+    params = quantize_params(t5.init_params(cfg, seed=0, device=dev), "int8")
+    enc_len, max_new = 512, SERVE_MAX_NEW
+    rng = np.random.default_rng(0)
+    inputs = [rng.integers(2, cfg.vocab_size, size=(enc_len,)).astype(
+        np.int32) for _ in range(16)]
+
+    def requests():
+        return [engine.Request(uid=i, input_ids=x, max_new_tokens=max_new)
+                for i, x in enumerate(inputs)]
+    kinds = {
+        "slot": (ShardedEngine, engine.InferenceEngine, engine.EngineConfig(
+            max_slots=8, max_decode_len=max_new + 2, max_encode_len=enc_len,
+            encode_buckets=(enc_len,), kv_dtype="int8", steps_per_sync=8,
+            use_decode_kernel=True), ("decode_attention",),
+            (QMM_DECODE_BODY, DECODE_ATTN_BODY, RMS_FWD_BODY)),
+        "paged": (ShardedPagedEngine, paged_engine.PagedInferenceEngine,
+                  paged_engine.PagedEngineConfig(
+                      max_slots=8, page_size=64, num_pages=8,
+                      max_pages_per_slot=1, max_encode_len=enc_len,
+                      encode_buckets=(enc_len,), kv_dtype="int8",
+                      steps_per_sync=16), ("paged_decode_attention",),
+                  (QMM_DECODE_BODY, PAGED_ATTN_BODY, RMS_FWD_BODY))}
+    launches = {}
+    for kind, (sharded, single, ecfg, own, bodies) in kinds.items():
+        ref = {}
+        if rank == 0:
+            eng = single(cfg, params, ecfg, device=dev)
+            eng.warmup()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref["tokens"] = _served(eng.run(requests()))
+            torch.cuda.synchronize()
+            ref["seconds"] = time.perf_counter() - t1
+            if kind == "slot":
+                for i, r in enumerate(requests()[:ecfg.max_slots]):
+                    eng.admit_request(r, i)
+                ref["logits"] = eng.probe_step()[1]
+                ref["step_host_ms"] = host_us(
+                    lambda: eng._step(eng.state.cur_token), (), 20) / 1e3
+            del eng
+            torch.cuda.empty_cache()
+        dist.barrier()
+        for shape, cm in layouts:
+            tag = f"{kind} {shape}{' ring' if cm else ''}"
+            eng = sharded(cfg.replace(use_collective_matmul=cm), params,
+                          ecfg, meshes[shape], device=dev)
+            eng.warmup()
+            real, windows = eng._window, []
+
+            def counted_window(*args):
+                windows.append(1)
+                return real(*args)
+            eng._window = counted_window
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            done = eng.run(requests())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            del eng._window
+            counted = _sum_over_ranks(ops.launch_counts(), dev)
+            tokens = _check_results(done, cfg, max_new)
+            got = _served(done)
+            launches.setdefault(f"sharded_{kind}_serving", counted)
+            need = ("rms_norm", "flash_attention_rpe", "quant_matmul") + own
+            not_run = [k for k in need if counted[k] <= 0]
+            if not_run:
+                raise AssertionError(f"{tag}: kernels not launched "
+                                     f"{not_run}")
+            # one window profiled, every slot live (the slot engine's
+            # pool filled through admit_request; the paged engine's
+            # through a run that stops after its first window)
+            with use_mesh(eng.mesh):
+                if kind == "slot":
+                    def setup():
+                        for i, r in enumerate(requests()[:ecfg.max_slots]):
+                            eng.admit_request(r, i)
+                    by_name = _kernels_by_name(
+                        lambda: eng._window()[1].synchronize(), setup=setup,
+                        tries=3 if world == 1 else 1)
+                else:
+                    by_name = _kernels_by_name(
+                        lambda: eng._window(
+                            np.zeros(ecfg.max_slots, bool),
+                            np.ones(ecfg.max_slots, bool)),
+                        tries=3 if world == 1 else 1)
+            nccl = {n: v for n, v in by_name.items() if "nccl" in n.lower()}
+            row = dict(
+                tokens=tokens, seconds=wall, tokens_per_s=tokens / wall,
+                windows=len(windows), window_wall_ms=wall * 1e3
+                / len(windows), steps_per_window=ecfg.steps_per_sync,
+                window_device_ms=sum(t for n, (t, _) in by_name.items()
+                                     if n not in nccl),
+                window_kernels=sum(n for _, n in by_name.values()),
+                window_nccl_kernels=sum(n for _, n in nccl.values()),
+                window_nccl_ms=sum(t for t, _ in nccl.values()),
+                launches={k: v for k, v in counted.items() if v})
+            row["idle_share"] = (1.0 - row["window_device_ms"]
+                                 / row["window_wall_ms"])
+            if kind == "slot":
+                # the host's time of one decode step, the launches queued
+                # behind a sleep (host_us), beside the one-card engine's
+                with use_mesh(eng.mesh):
+                    row["step_host_ms"] = host_us(
+                        lambda: eng._step(eng.state.cur_token), (), 20) / 1e3
+            if rank == 0:
+                _require_kernels(by_name, bodies, f"one {tag} window")
+                same = sum(got[u] == ref["tokens"][u] for u in got)
+                row["same_tokens_as_one_card"] = same
+                row["one_card_tokens_per_s"] = tokens / ref["seconds"]
+                if kind == "slot":
+                    row["one_card_step_host_ms"] = ref["step_host_ms"]
+                    for i, r in enumerate(requests()[:ecfg.max_slots]):
+                        eng.admit_request(r, i)
+                    logits = eng.probe_step()[1]
+                    row["probe_max_abs_err"] = float(
+                        np.abs(logits - ref["logits"]).max())
+                    row["probe_limit"] = SERVE_PROBE_ULPS * _bf16_ulp(
+                        float(np.abs(ref["logits"]).max()))
+                print(f"serving-ranks {tag}: " + json.dumps(
+                    {k: v for k, v in row.items() if k != "launches"}),
+                    flush=True)
+                # one card: the one-rank collectives are the identity, so
+                # every token is the single-device engine's; across cards
+                # the row-split sums round in another order (bf16
+                # near-ties part tokens; the logits are held instead)
+                if world == 1 and same != len(got):
+                    raise AssertionError(f"{tag}: {same} of {len(got)} "
+                                         f"requests served the one-card "
+                                         f"engine's tokens")
+                if (row.get("probe_max_abs_err", 0.0)
+                        > row.get("probe_limit", 0.0)):
+                    raise AssertionError(f"{tag}: probe logits "
+                                         f"{row['probe_max_abs_err']} from "
+                                         f"the one-card engine's")
+            elif kind == "slot":
+                for i, r in enumerate(requests()[:ecfg.max_slots]):
+                    eng.admit_request(r, i)
+                eng.probe_step()
+            out["full"][tag] = row
+            del eng
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    dist.barrier()
+    if rank == 0:
+        with open(os.path.join(work, "rank0.json"), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(flag: str, timeout_s: float) -> dict:
+    """One child process a card (`chip_smoke.py FLAG R N DIR`), NCCL over a
+    TCP rendezvous on localhost; the first failure, or the time limit,
+    ends them all. Returns rank 0's JSON."""
+    import socket
+    import tempfile
+
+    n = torch.cuda.device_count()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="ranks-") as work:
+        procs = []
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, str(r),
+                 str(n), work], env=env))
+        t0 = time.perf_counter()
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() - t0 < timeout_s):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            raise AssertionError(f"{flag} ranks exited with {codes} (killed "
+                                 f"at {timeout_s} s or after another "
+                                 f"rank's failure)")
+        with open(os.path.join(work, "rank0.json")) as f:
+            out = json.load(f)
+    out["cards"] = n
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_serving_ranks(dev):
+    """Serving across ranks (`inference/sharded_engine.py`,
+    `sharded_paged_engine.py`): one child process a card, NCCL. Each
+    serves, on every layout of `_serve_layouts` (one card: mesh (1,
+    1)):
+    - tiny f32 models (4 + 4 layers, f32 KV): both sharded engines'
+      tokens equal to the CPU's single-device engines', request by request;
+    - FAT5-small (int8 weights and KV; 16 requests of 512 random tokens,
+      SERVE_MAX_NEW new; the slot engine's 8 slots on the decode kernel,
+      the paged engine's 8 pages of 64 a data rank): `ShardedEngine` and
+      `ShardedPagedEngine` against `InferenceEngine` and
+      `PagedInferenceEngine` on one card, every launch count set to 0
+      just before and read just after (each path kernel must launch), one
+      profiled window (device ms, NCCL kernels); at one card every token
+      must be the single-device engine's; across cards the slot engine's
+      `probe_step` logits must lie within SERVE_PROBE_ULPS bf16 ulps of
+      the one-card engine's largest logit and the tokens' agreement is
+      printed."""
+    del dev
+    out = _spawn_ranks("--serving-rank", SERVE_TIMEOUT_S)
+    launches = out.pop("launches")
+    print(f"serving-ranks phase: {out['cards']} card(s), "
+          f"{out['wall_s']:.3f} s", flush=True)
+    return launches, out
+
+
+def serving_ranks_only() -> int:
+    """`python3 chip_smoke.py --serving-ranks`: the kernels' build, then
+    `run_serving_ranks` alone (a call with several cards)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from flasht5_tpu_torch import runtime
+    smi = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    print(f"cards: {smi}", flush=True)
+    runtime.build_kernels()
+    launches, out = run_serving_ranks(torch.device("cuda", 0))
+    print(json.dumps({"serving_ranks": out, "launches": launches}))
+    print(smi.splitlines()[0])
+    return 0
 
 
 def parallel_only() -> int:
@@ -4854,6 +5454,10 @@ KERNELS = {
                           "flasht5_tpu/ops/cross_entropy.py:352"),
     "cross_entropy_bwd": ("triton", "flasht5_tpu_torch/ops/cross_entropy.py",
                           "flasht5_tpu/ops/cross_entropy.py:417"),
+    # the split form's combine over the shards (its forward: :352)
+    "cross_entropy_combine": ("triton",
+                              "flasht5_tpu_torch/ops/cross_entropy.py",
+                              "flasht5_tpu/ops/cross_entropy.py:352"),
     "quant_matmul": ("cuda", "flasht5_tpu_torch/csrc/quant_matmul.cu",
                      "flasht5_tpu/ops/quant.py:196"),
     "decode_attention": ("cuda", "flasht5_tpu_torch/csrc/decode_attention.cu",
@@ -4957,6 +5561,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     encoding_launches, encodings = run_encodings(dev)
     torch.cuda.empty_cache()
+    serving_ranks_launches, serving_ranks = run_serving_ranks(dev)
+    torch.cuda.empty_cache()
     trained_launches, fused_launches, trained = run_training(dev)
     torch.cuda.empty_cache()
     parallel_launches, parallel = run_parallel(dev)
@@ -4992,7 +5598,8 @@ def main() -> int:
             by_path["scoring_flan_base"] = wide_launches[name]
         if name in FUSED_TRAINING:
             by_path["fused_training"] = fused_launches[name]
-        for path, counted in parallel_launches.items():
+        for path, counted in (*parallel_launches.items(),
+                              *serving_ranks_launches.items()):
             if counted[name]:
                 by_path[path] = counted[name]
         if name in FINETUNE:
@@ -5023,6 +5630,7 @@ def main() -> int:
             library_ms=main_case["library_ms"], shape=main_case["shape"]))
     print(json.dumps({"engine": served}))
     print(json.dumps({"paged_engine": paged}))
+    print(json.dumps({"serving_ranks": serving_ranks}))
     print(json.dumps({"generation": generated}))
     print(json.dumps({"training": trained}))
     print(json.dumps({"parallel": parallel}))
@@ -5441,6 +6049,163 @@ def spec_probe(dev) -> int:
     return 0
 
 
+CE_PROBE_CONFIGS = ([(r, bv, w, 3) for r in (1, 2, 4)
+                     for bv in (1024, 2048, 4096, 8192) for w in (4, 8, 16)
+                     if r * bv <= 16384]
+                    + [(r, bv, 4, st) for r, bv in ((1, 2048), (1, 4096),
+                                                    (2, 2048))
+                       for st in (1, 2, 4)])
+
+
+def ce_probe(dev) -> int:
+    """`python3 chip_smoke.py --ce-probe [ROOT]`: the CE loss forward of
+    `flasht5_tpu_torch` as imported (ROOT: the checkout to import it from,
+    so parent and change run in turns in one call), as the smoke times
+    kernels, with launches counted over one call:
+    - "ce-loss" lines: `cross_entropy_loss` at the split shard (2048,
+      8192) of 32768, class_start_idx 8192, smoothing 0.1, z-loss 1e-4,
+      and unsplit at (2048, 32768) z-loss 1e-4; and the vocab-parallel
+      loss's forward (`vocab_parallel_loss`, one NCCL rank) on the
+      (2048, 32768) logits, smoothing 0.1 - each beside F.cross_entropy,
+      its bound (the logits read once) and the kernels one call launches
+      (one profile);
+    - "ce-loss" lines for the split form's parts, where the package has
+      the fused epilogue: the forward kernel alone, with the combine, and
+      four shards combined (the shards sliced out of the whole logits, so
+      each is copied first);
+    - "ce-tile" lines: the forward kernel at every (rows, vocabulary
+      tile, warps, pipeline stages) of CE_PROBE_CONFIGS, the split shard's
+      kernel plus `cross_entropy_combine` and the unsplit kernel, each
+      checked against its plain version."""
+    import socket
+
+    import torch.distributed as dist
+
+    from flasht5_tpu_torch import flagship_config, ops
+    from flasht5_tpu_torch.ops import cross_entropy as ce
+    from flasht5_tpu_torch.parallel.vocab_parallel import vocab_parallel_loss
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows, vocab, sv = 2048, 32768, 8192
+    split_kw = dict(total_classes=vocab, class_start_idx=sv, split=True)
+
+    def make(width):
+        def fn():
+            x = (3.0 * torch.randn((rows, width), generator=gen,
+                                   device=dev)).to(torch.bfloat16)
+            labels = torch.randint(0, vocab, (rows,), generator=gen,
+                                   device=dev)
+            labels[::7] = -100
+            # the library's labels: other shards' ignored
+            return x, labels, torch.where(labels < width, labels, -100)
+        return fn
+
+    def launches(fn, args):
+        ops.reset_launch_counts()
+        fn(*args)
+        torch.cuda.synchronize()
+        return {k: v for k, v in ops.launch_counts().items() if v}
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    group = dist.new_group([0])
+    cfg = flagship_config().replace(label_smoothing=0.1)
+    rows_ = [
+        ("split shard (2048, 8192) of 32768, smoothing 0.1",
+         make(sv), lambda x, y, _: ce.cross_entropy_loss(
+             x, y, 1e-4, 0.1, **split_kw), 0.1),
+        ("unsplit (2048, 32768), z-loss 1e-4", make(vocab),
+         lambda x, y, _: ce.cross_entropy_loss(x, y, 1e-4, 0.0), 0.0),
+        ("vocab_parallel_loss forward, one NCCL rank, (2048, 32768), "
+         "smoothing 0.1", make(vocab),
+         lambda x, y, _: vocab_parallel_loss(cfg, x, y, group), 0.1)]
+    with torch.no_grad():
+        for label, mk, fn, smoothing in rows_:
+            sets = copies_for(mk, rows * mk()[0].shape[1] * 2)
+            print("ce-loss " + json.dumps(dict(
+                shape=label, ms=device_ms(fn, sets, 16),
+                kernels_a_call=sum(n for _, n in _kernels_by_name(
+                    lambda: fn(*sets[0])).values()),
+                library_ms=device_ms(
+                    lambda x, _, y: F.cross_entropy(
+                        x, y, reduction="none", label_smoothing=smoothing),
+                    sets, 16),
+                bound_ms=nbytes(sets[0][0]) / HBM_BYTES_PER_S * 1e3,
+                launches=launches(fn, sets[0]))), flush=True)
+            del sets
+        if not hasattr(ce, "cross_entropy_combine"):
+            dist.destroy_process_group()
+            return 0
+
+        def split_loss(x, y, _):
+            out = ce.cross_entropy_fwd(x, y, lse_square_scale=1e-4,
+                                       label_smoothing=0.1, **split_kw)
+            return ce.cross_entropy_combine(out[None, :2], y,
+                                            lse_square_scale=1e-4)
+
+        def split_plain(x, y, _):
+            out = ce.cross_entropy_fwd_plain(
+                x, y, lse_square_scale=1e-4, label_smoothing=0.1, **split_kw)
+            return ce.cross_entropy_combine_plain(out[None, :2], y,
+                                                  lse_square_scale=1e-4)
+
+        def unsplit(x, y, _):
+            return ce.cross_entropy_fwd(x, y, lse_square_scale=1e-4)
+
+        def unsplit_plain(x, y, _):
+            return ce.cross_entropy_fwd_plain(x, y, lse_square_scale=1e-4)
+        def shards4(x, y, _):
+            parts = torch.stack([ce.cross_entropy_fwd(
+                x[:, i * sv:(i + 1) * sv], y, lse_square_scale=1e-4,
+                label_smoothing=0.1, total_classes=vocab,
+                class_start_idx=i * sv, split=True)[:2] for i in range(4)])
+            return ce.cross_entropy_combine(parts, y, lse_square_scale=1e-4)
+        for label, mk, fn in (
+                ("split shard: the forward kernel alone", make(sv),
+                 lambda x, y, _: ce.cross_entropy_fwd(
+                     x, y, lse_square_scale=1e-4, label_smoothing=0.1,
+                     **split_kw)),
+                ("split shard: kernel + combine", make(sv), split_loss),
+                ("4 shards of (2048, 8192) combined, smoothing 0.1 "
+                 "(the shards cut from one (2048, 32768))", make(vocab),
+                 shards4)):
+            sets = copies_for(mk, rows * mk()[0].shape[1] * 2)
+            print("ce-loss " + json.dumps(dict(
+                shape=label, ms=device_ms(fn, sets, 16),
+                kernels_a_call=sum(n for _, n in _kernels_by_name(
+                    lambda: fn(*sets[0])).values()),
+                bound_ms=nbytes(sets[0][0]) / HBM_BYTES_PER_S * 1e3,
+                launches=launches(fn, sets[0]))), flush=True)
+            del sets
+        saved = (ce._FWD_ROWS, ce._FWD_BLOCK_V, ce._FWD_WARPS,
+                 ce._FWD_STAGES)
+        cases = [("split shard kernel + combine", make(sv), split_loss,
+                  split_plain),
+                 ("unsplit (2048, 32768)", make(vocab), unsplit,
+                  unsplit_plain)]
+        for label, mk, fn, plain in cases:
+            sets = copies_for(mk, rows * mk()[0].shape[1] * 2)
+            want = plain(*sets[0])
+            bound = nbytes(sets[0][0]) / HBM_BYTES_PER_S * 1e3
+            for r, bv, w, st in CE_PROBE_CONFIGS:
+                (ce._FWD_ROWS, ce._FWD_BLOCK_V, ce._FWD_WARPS,
+                 ce._FWD_STAGES) = r, bv, w, st
+                err = float((fn(*sets[0]) - want).abs().max())
+                ms = device_ms(fn, sets, 64)
+                print("ce-tile " + json.dumps(dict(
+                    shape=label, rows=r, block_v=bv, warps=w, stages=st,
+                    ms=ms,
+                    bound_ms=bound, share_of_bound=bound / ms,
+                    max_abs_err=err)), flush=True)
+            (ce._FWD_ROWS, ce._FWD_BLOCK_V, ce._FWD_WARPS,
+             ce._FWD_STAGES) = saved
+            del sets
+    dist.destroy_process_group()
+    return 0
+
+
 def profile_probe(dev, tries: int) -> int:
     """`python3 chip_smoke.py --profile-probe N`: N rounds of the smoke's
     order around its first kernel gate (a profile of SDPA's forward on a
@@ -5483,6 +6248,11 @@ if __name__ == "__main__":
                                sys.argv[4]))
     if sys.argv[1:2] == ["--parallel"]:
         sys.exit(parallel_only())
+    if sys.argv[1:2] == ["--serving-rank"]:
+        sys.exit(serving_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
+    if sys.argv[1:2] == ["--serving-ranks"]:
+        sys.exit(serving_ranks_only())
     if sys.argv[1:2] == ["--probe"]:
         if len(sys.argv) > 2:
             sys.path.insert(0, os.path.abspath(sys.argv[2]))
@@ -5511,6 +6281,14 @@ if __name__ == "__main__":
         print(sh("nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader").splitlines()[0], flush=True)
         sys.exit(spec_probe(torch.device("cuda", 0)))
+    if sys.argv[1:2] == ["--ce-probe"]:
+        if len(sys.argv) > 2:
+            sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        print(sh("nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader").splitlines()[0], flush=True)
+        sys.exit(ce_probe(torch.device("cuda", 0)))
     if sys.argv[1:2] == ["--profile-probe"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")

@@ -25,7 +25,17 @@ self-attention and the bucket for cross-attention; results end in EOS
 Each step picks its tokens by argmax, or with `temperature > 0` draws them
 (`inference.sampling.sample_token`: temperature, top-k, top-p) with Gumbel
 noise from one `torch.Generator` on the engine's device, seeded by
-`sample_seed`. Tensor parallelism is not ported yet.
+`sample_seed`.
+
+The device work is shard-oblivious, as the JAX engine's step is: the slot
+count comes from the state (this rank's slots under a data-split pool),
+the head count from the (possibly tensor-split) projections, the
+o-projections of a block go through the model's row-parallel product (an
+all-reduce over the tensor group, or the ring under
+`use_collective_matmul`) and, with an untied lm_head, the next token comes
+from the vocab-parallel argmax; the hooks `_encode`, `_gather_slots`,
+`_gather_vocab`, `_visible` and `_prefill_batch` are the identity here
+and carry the collectives in `sharded_engine.ShardedEngine`.
 
 Speculative windows (`spec_window` = Q >= 2, greedy only, the plain
 attention path), as in the JAX engine (`_make_spec_step`): each step of a
@@ -177,13 +187,39 @@ def encode_cross(config: FlashT5Config, params, ids: np.ndarray,
     return outs
 
 
+def local_heads(config: FlashT5Config, params) -> int:
+    """The heads this rank holds: the decoder's query projection's columns
+    over d_kv (all of them without tensor parallelism)."""
+    block = params["decoder"]["block"][0]
+    return (block["self_attention_layer"]["self_attention"]["Wq"].shape[1]
+            // config.d_kv)
+
+
+def next_token(config: FlashT5Config, group, logits: torch.Tensor,
+               generator: torch.Generator, ecfg) -> torch.Tensor:
+    """Each slot's next token from its logits (B, V), or under tensor
+    parallelism with an untied lm_head from this rank's (B, V/t) slice by
+    the vocab-parallel argmax or draw (JAX engine.py:408-416)."""
+    if group is not None and not config.tie_word_embeddings:
+        from flasht5_tpu_torch.parallel.vocab_parallel import (
+            vocab_parallel_next_token)
+        return vocab_parallel_next_token(
+            logits, group, generator=generator,
+            temperature=ecfg.temperature, top_k=ecfg.top_k, top_p=ecfg.top_p)
+    return sampling.sample_token(logits, generator=generator,
+                                 temperature=ecfg.temperature,
+                                 top_k=ecfg.top_k, top_p=ecfg.top_p)
+
+
 class BatchState:
     """Device-side slot pool: KV caches (written in place) and per-slot
-    scalars."""
+    scalars, for `slots` slots (all of them, or a data rank's) and the
+    heads the parameters hold."""
 
     def __init__(self, config: FlashT5Config, params, ecfg: EngineConfig,
-                 device: torch.device):
-        b, h, dkv = ecfg.max_slots, config.num_heads, config.d_kv
+                 device: torch.device, slots: Optional[int] = None):
+        b, h, dkv = (slots or ecfg.max_slots, local_heads(config, params),
+                     config.d_kv)
         quant = ecfg.kv_dtype == "int8"
         dt = torch.int8 if quant else runtime.torch_dtype(config.dtype)
 
@@ -219,16 +255,17 @@ class InferenceEngine:
         done = engine.run(requests)   # each request's .result is set
 
     Runs on `device` (default `cuda`; raises without a GPU unless
-    device='cpu'), where `params` must already lie.
+    device='cpu'), where `params` must already lie. With `config.tp_axis`
+    the model's collectives need a current mesh (`parallel.mesh.use_mesh`):
+    `sharded_engine.ShardedEngine` sets one up.
     """
+
+    # data ranks the slots split over, and this rank's index among them
+    # (set by the sharded subclass before this constructor runs)
+    _data, _data_rank = 1, 0
 
     def __init__(self, config: FlashT5Config, params, ecfg: EngineConfig,
                  device=None):
-        if config.tp_axis is not None:
-            raise NotImplementedError(
-                "serving across tensor ranks (tp_axis) is the sharded "
-                "engines' (the JAX package's inference/sharded_engine.py "
-                "and sharded_paged_engine.py), not ported yet")
         t5.check_supported(config)
         if config.position_encoding_type != "t5":
             # the JAX package's engine builds only the T5 bias
@@ -254,9 +291,11 @@ class InferenceEngine:
         self.config = config
         self.params = params
         self.ecfg = ecfg
-        self.state = BatchState(config, params, ecfg, self.device)
+        self._group = t5._tp_group(config)
+        self._b = ecfg.max_slots // self._data      # this rank's slots
+        self.state = BatchState(config, params, ecfg, self.device, self._b)
         L = ecfg.max_decode_len
-        self._slots = torch.arange(ecfg.max_slots, device=self.device)
+        self._slots = torch.arange(self._b, device=self.device)
         self._kpos = torch.arange(L, device=self.device)
         self._cpos = torch.arange(ecfg.max_encode_len, device=self.device)
         # bucket of every self-attention offset k - pos, pos in [0, L]
@@ -280,16 +319,33 @@ class InferenceEngine:
                 device=self.device)
             self._qrange = torch.arange(q, device=self.device)
             # each slot's draft source, written at admission
-            self._draft = torch.zeros((ecfg.max_slots, ecfg.max_encode_len),
+            self._draft = torch.zeros((self._b, ecfg.max_encode_len),
                                       dtype=torch.int64, device=self.device)
             self.spec_stats = {"windows": 0, "tokens": 0, "slot_windows": 0}
 
     # -- prefill -----------------------------------------------------------
 
+    def _prefill_batch(self, n: int) -> int:
+        """The rows of a prefill batch of n requests."""
+        return prefill_batch(n, self.ecfg.max_slots)
+
+    def _encode(self, ids: np.ndarray):
+        """Each decoder layer's cross K/V of a prefill batch (nb, bucket)."""
+        return encode_cross(self.config, self.params, ids, self.device)
+
+    def _local_slot(self, slot: int) -> Optional[int]:
+        """Slot `slot`'s index in this rank's pool, None where another
+        data rank owns it."""
+        local = slot - self._data_rank * self._b
+        return local if 0 <= local < self._b else None
+
     def _insert(self, cross, row: int, slot: int, true_len: int,
                 max_new: int) -> None:
         """Write row `row` of a batched prefill into slot `slot` and reset
-        the slot (in place)."""
+        the slot (in place), on the data rank that owns it."""
+        slot = self._local_slot(slot)
+        if slot is None:
+            return
         st, ecfg = self.state, self.ecfg
         quant = ecfg.kv_dtype == "int8"
 
@@ -332,7 +388,7 @@ class InferenceEngine:
         their outputs are masked). Updates the state; returns (next token,
         finished flags, logits), all on the device."""
         config, ecfg, st, params = self.config, self.ecfg, self.state, self.params
-        b, dkv = ecfg.max_slots, config.d_kv
+        b, dkv, group = self._b, config.d_kv, self._group
         L = ecfg.max_decode_len
         scale = config.softmax_scale
         emb = params["shared"]["embedding"]
@@ -372,7 +428,9 @@ class InferenceEngine:
                     q[:, :, 0], _kv_read(cache.self_k),
                     _kv_read(cache.self_v), self_bias,
                     self._kpos[None, :] <= pos[:, None], scale, x.dtype)
-            x = x + t5._matmul(attn.reshape(b, 1, h * dkv), sa["o"])
+            x = x + t5._row_parallel_matmul(config, group,
+                                            attn.reshape(b, 1, h * dkv),
+                                            sa["o"])
 
             ca = blk["cross_attention_layer"]["cross_attention"]
             normed = t5._layer_norm(
@@ -390,7 +448,9 @@ class InferenceEngine:
                     qc, _kv_read(cache.cross_k), _kv_read(cache.cross_v),
                     None, self._cpos[None, :] < st.enc_len[:, None], scale,
                     x.dtype)
-            x = x + t5._matmul(attn.reshape(b, 1, h * dkv), ca["o"])
+            x = x + t5._row_parallel_matmul(config, group,
+                                            attn.reshape(b, 1, h * dkv),
+                                            ca["o"])
             x = t5._ff(config, blk["ff_layer"], x)
 
         x = t5._layer_norm(config, params["decoder"]["final_layer_norm"]["weight"],
@@ -399,9 +459,7 @@ class InferenceEngine:
             logits = torch.matmul(x, emb.T.to(x.dtype))[:, 0]
         else:
             logits = t5._matmul(x, params["lm_head"])[:, 0]
-        nxt = sampling.sample_token(
-            logits, generator=self._sample_gen,
-            temperature=ecfg.temperature, top_k=ecfg.top_k, top_p=ecfg.top_p)
+        nxt = next_token(config, group, logits, self._sample_gen, ecfg)
 
         active = st.active
         st.budget = torch.where(active, st.budget - 1, st.budget)
@@ -455,7 +513,7 @@ class InferenceEngine:
         argmax tokens (B, Q), tokens emitted (B,), finished flags), on the
         device."""
         config, ecfg, st, params = self.config, self.ecfg, self.state, self.params
-        b, dkv, q_len = ecfg.max_slots, config.d_kv, ecfg.spec_window
+        b, dkv, q_len = self._b, config.d_kv, ecfg.spec_window
         L = ecfg.max_decode_len
         scale = config.softmax_scale
         emb = params["shared"]["embedding"]
@@ -541,13 +599,37 @@ class InferenceEngine:
     def probe_step(self, token_override=None):
         """One decode step that also returns the (B, V) logits; optionally
         overrides cur_token first (teacher forcing). Mutates the state like
-        a normal step. Returns numpy (next tokens, fp32 logits)."""
+        a normal step. Returns numpy (next tokens, fp32 logits) of every
+        slot."""
         cur = self.state.cur_token
         if token_override is not None:
-            cur = torch.as_tensor(np.array(token_override), dtype=torch.int64,
-                                  device=self.device)
+            lo = self._data_rank * self._b
+            cur = torch.as_tensor(np.array(token_override)[lo:lo + self._b],
+                                  dtype=torch.int64, device=self.device)
         nxt, _, logits = self._step(cur)
-        return nxt.cpu().numpy(), logits.float().cpu().numpy()
+        logits = self._gather_slots(self._gather_vocab(logits.float()))
+        return (self._gather_slots(nxt).cpu().numpy(),
+                logits.cpu().numpy())
+
+    # -- collective hooks (the identity on one rank) -----------------------
+
+    def _gather_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """x with every data rank's slots along its last slot dimension
+        (dim 0 of a per-slot vector or matrix, the last of a window's
+        (rows, k, B) outputs)."""
+        return x
+
+    def _gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B, V) logits from this rank's (B, V/t) slice."""
+        return logits
+
+    def _visible(self, waiting: List[Request], t: float) -> int:
+        """How many of the waiting requests (by arrival) have arrived at
+        time t."""
+        n = 0
+        while n < len(waiting) and waiting[n].arrival_s <= t:
+            n += 1
+        return n
 
     def _window(self):
         """`steps_per_sync` decode steps (speculative windows with
@@ -566,7 +648,7 @@ class InferenceEngine:
                 nxt, finished, _ = self._step(self.state.cur_token)
                 rows.append(torch.stack([nxt, finished.long(),
                                          was_active.long()]))
-        out = torch.stack(rows, dim=1)
+        out = self._gather_slots(torch.stack(rows, dim=1))
         if self.device.type != "cuda":
             return out, None
         if not self._host_bufs:
@@ -585,13 +667,11 @@ class InferenceEngine:
         compilation happen before serving; leaves the pool idle."""
         st = self.state
         for bucket in buckets or self.ecfg.encode_buckets:
-            nb = 1
+            nb = self._prefill_batch(1)
             while True:
-                cross = encode_cross(self.config, self.params,
-                                     np.zeros((nb, bucket), np.int32),
-                                     self.device)
-                self._insert(cross, 0, 0, bucket, 1)
-                if nb >= self.ecfg.max_slots:
+                self._insert(self._encode(np.zeros((nb, bucket), np.int32)),
+                             0, 0, bucket, 1)
+                if nb >= self._prefill_batch(self.ecfg.max_slots):
                     break
                 nb *= 2
         host, event = self._window()
@@ -604,10 +684,9 @@ class InferenceEngine:
         scheduler loop (pairs with probe_step)."""
         L = min(len(req.input_ids), self.ecfg.max_encode_len)
         bucket = bucket_for(self.ecfg.encode_buckets, L)
-        padded = np.zeros((1, bucket), np.int32)
+        padded = np.zeros((self._prefill_batch(1), bucket), np.int32)
         padded[0, :L] = req.input_ids[:L]
-        self._insert(encode_cross(self.config, self.params, padded,
-                                  self.device), 0, slot, bucket,
+        self._insert(self._encode(padded), 0, slot, bucket,
                      min(req.max_new_tokens, self.ecfg.max_decode_len - 1))
 
     # -- host-side scheduler ----------------------------------------------
@@ -643,9 +722,10 @@ class InferenceEngine:
                                                else 1)
 
         def refresh_queue():
-            t = now() - t0
-            while waiting and waiting[0].arrival_s <= t:
-                queue.append(waiting.pop(0))
+            if waiting:
+                n = self._visible(waiting, now() - t0)
+                queue.extend(waiting[:n])
+                del waiting[:n]
 
         def admit():
             refresh_queue()
@@ -661,12 +741,11 @@ class InferenceEngine:
                                      []).append((req, L))
             for bucket, items in by_bucket.items():
                 # ONE batched encode for every same-bucket waiting request
-                nb = prefill_batch(len(items), ecfg.max_slots)
+                nb = self._prefill_batch(len(items))
                 padded = np.zeros((nb, bucket), np.int32)
                 for j, (req, L) in enumerate(items):
                     padded[j, :L] = req.input_ids[:L]
-                cross = encode_cross(self.config, self.params, padded,
-                                     self.device)
+                cross = self._encode(padded)
                 for j, (req, L) in enumerate(items):
                     i = free.pop(0)
                     # the cross length is the padded bucket (no mask), as

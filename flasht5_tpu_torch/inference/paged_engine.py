@@ -26,6 +26,26 @@ Every route keeps each layer's pool as fused K/V page records and reaches
 the one paged kernel; the three names are kept so that JAX configurations
 carry over, and choose only between the window and the per-step path.
 
+The JAX engine's two opt-ins (off by default; measured slower than the
+kernel on a TPU) read the committed pages without the kernel, in plain
+PyTorch as they are plain XLA there; each is chosen at construction, as
+JAX chooses it at trace time:
+- `dense_read_max`: where a slot's pool (max_pages_per_slot x page_size
+  tokens) is at most this many tokens, `paged_kv.dense_small_pool_attention`
+  gathers the slots' pages through the table and attends over them
+  (both paths, kernel="chunked");
+- `window_stage_max_bytes`: where the window's staged caches fit in this
+  many bytes, each layer's committed pages are gathered once a window into
+  slot-dense caches in the pool's dtype (`gather_pool_dense(...,
+  dequant=False)`) and each step reads them with `dense_cache_attention`
+  (the window path).
+
+The device work is shard-oblivious, as the slot engine's is (engine.py):
+this rank's slots and heads, the o-projections through the model's
+row-parallel product, the next token from the vocab-parallel argmax under
+tensor parallelism; `sharded_paged_engine.ShardedPagedEngine` gives each
+data rank a pool of its own.
+
 Where the JAX engine donates its state, this one writes the pools, the
 cross caches and the side buffers in place. Every write of a token that is
 not live (an inactive slot's step, the unused columns of a window) goes to a
@@ -51,7 +71,8 @@ from flasht5_tpu_torch.config import FlashT5Config
 from flasht5_tpu_torch.inference import kv_cache, paged_kv
 from flasht5_tpu_torch.inference.engine import (KVTensor, Request, _kv_make,
                                                 _kv_read, bucket_for,
-                                                encode_cross, prefill_batch)
+                                                encode_cross, local_heads,
+                                                prefill_batch)
 from flasht5_tpu_torch.models import t5
 
 _NEG_INF = -1e30
@@ -74,20 +95,26 @@ class PagedEngineConfig:
     # the width (in pages) of a TPU work item of the chunked kernel; kept so
     # that JAX configurations carry over, unused by the card's kernel
     pages_per_item: int = 8
-    # JAX opt-ins, default off there and measured slower on the TPU; not
-    # ported (> 0 raises)
+    # the JAX opt-ins, off by default (module docstring): read the
+    # committed pages with one gather where a slot's pool holds at most
+    # this many tokens; stage them once a window where the staged caches
+    # take at most this many bytes
     dense_read_max: int = 0
     window_appends: bool = True
     window_stage_max_bytes: int = 0
 
 
 class PagedState:
-    """Device pools, cross caches and per-slot scalars; the host allocator
-    and its page table (`pages`)."""
+    """Device pools, cross caches and per-slot scalars of `slots` slots (all
+    of them, or a data rank's) and the heads the parameters hold; the host
+    allocator and its page table (`pages`) of every slot, with a free list
+    for each of `shards` data ranks' pools."""
 
     def __init__(self, config: FlashT5Config, params, ecfg: PagedEngineConfig,
-                 device: torch.device):
-        b, h, dkv = ecfg.max_slots, config.num_heads, config.d_kv
+                 device: torch.device, slots: Optional[int] = None,
+                 shards: int = 1):
+        b, h, dkv = (slots or ecfg.max_slots, local_heads(config, params),
+                     config.d_kv)
         P = ecfg.page_size
         quant = ecfg.kv_dtype == "int8"
         dt = torch.int8 if quant else runtime.torch_dtype(config.dtype)
@@ -111,8 +138,8 @@ class PagedState:
                                 "pages_kv": pages_kv,
                                 "planes": _planes(pages_kv)})
         # the allocator writes its host table, each window ships it
-        self.pages = paged_kv.PageAllocator(ecfg.num_pages, b,
-                                            ecfg.max_pages_per_slot)
+        self.pages = paged_kv.PageAllocator(ecfg.num_pages, ecfg.max_slots,
+                                            ecfg.max_pages_per_slot, shards)
 
         def slots(dtype):
             return zeros((b,), dtype)
@@ -132,6 +159,14 @@ def _planes(pages_kv: KVTensor) -> Tuple[KVTensor, KVTensor]:
                  for i in (0, 1))
 
 
+def _stage_read(values: torch.Tensor,
+                scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """One staged cache plane (values in the pool's dtype, scales or None)
+    in f32 (JAX paged_engine.py:42)."""
+    x = values.float()
+    return x if scales is None else x * scales
+
+
 def _write_tokens(plane: KVTensor, pids, offsets, values, scales) -> None:
     """plane[pids, :, offsets] = values (..., H, D) and its scales (..., H),
     in place."""
@@ -147,16 +182,17 @@ class PagedInferenceEngine:
         done = engine.run(requests)   # each request's .result is set
 
     Runs on `device` (default `cuda`; raises without a GPU unless
-    device='cpu'), where `params` must already lie.
+    device='cpu'), where `params` must already lie. With `config.tp_axis`
+    the model's collectives need a current mesh (`parallel.mesh.use_mesh`):
+    `sharded_paged_engine.ShardedPagedEngine` sets one up.
     """
+
+    # data ranks the slots split over, and this rank's index among them
+    # (set by the sharded subclass before this constructor runs)
+    _data, _data_rank = 1, 0
 
     def __init__(self, config: FlashT5Config, params, ecfg: PagedEngineConfig,
                  device=None):
-        if config.tp_axis is not None:
-            raise NotImplementedError(
-                "serving across tensor ranks (tp_axis) is the sharded "
-                "engines' (the JAX package's inference/sharded_engine.py "
-                "and sharded_paged_engine.py), not ported yet")
         t5.check_supported(config)
         if config.position_encoding_type != "t5":
             # the JAX package's engine builds only the T5 bias
@@ -165,9 +201,6 @@ class PagedInferenceEngine:
             raise NotImplementedError(
                 f"PagedInferenceEngine serves the T5 relative bias only, not "
                 f"{config.position_encoding_type}")
-        if ecfg.dense_read_max > 0 or ecfg.window_stage_max_bytes > 0:
-            raise NotImplementedError(
-                "dense_read_max and window_stage_max_bytes are not ported")
         if ecfg.kernel not in ("chunked", "ragged", "dense"):
             raise ValueError(f"unknown kernel {ecfg.kernel!r}")
         if ecfg.kv_dtype not in ("native", "int8"):
@@ -180,12 +213,26 @@ class PagedInferenceEngine:
         self.config = config
         self.params = params
         self.ecfg = ecfg
-        self.state = PagedState(config, params, ecfg, self.device)
+        self._group = t5._tp_group(config)
+        self._b = ecfg.max_slots // self._data      # this rank's slots
+        self.state = PagedState(config, params, ecfg, self.device, self._b,
+                                self._data)
         self._windowed = ecfg.kernel == "chunked" and ecfg.window_appends
         dev = self.device
         k = ecfg.steps_per_sync
         self._max_len = maxL = ecfg.max_pages_per_slot * ecfg.page_size
-        self._slots = torch.arange(ecfg.max_slots, device=dev)
+        h, dkv = local_heads(config, params), config.d_kv
+        # the opt-ins' readers, chosen here as JAX chooses them at trace
+        # time (JAX paged_engine.py:262-278; its staged bytes count 2 a
+        # value for any native dtype)
+        self._dense_read = (ecfg.kernel == "chunked"
+                            and 0 < ecfg.dense_read_max
+                            and maxL <= ecfg.dense_read_max)
+        staged = (ecfg.max_slots * config.num_heads * maxL
+                  * (dkv * (1 if ecfg.kv_dtype == "int8" else 2) + 4) * 2)
+        self._window_stage = (self._windowed
+                              and 0 < staged <= ecfg.window_stage_max_bytes)
+        self._slots = torch.arange(self._b, device=dev)
         self._kpos = torch.arange(maxL, device=dev)
         self._cpos = torch.arange(ecfg.max_encode_len, device=dev)
         self._steps = torch.arange(k, device=dev)
@@ -205,8 +252,7 @@ class PagedInferenceEngine:
         self._side_bias = [
             self._bias_table[side_lut[k - 1 - t:].long()].T[None].contiguous()
             for t in range(k)]
-        h, dkv = config.num_heads, config.d_kv
-        b = ecfg.max_slots
+        b = self._b
         self._empty_state = (
             torch.zeros((b, h, dkv), device=dev),
             torch.full((b, h), _NEG_INF, device=dev),
@@ -226,10 +272,25 @@ class PagedInferenceEngine:
 
     # -- prefill -----------------------------------------------------------
 
+    def _prefill_batch(self, n: int) -> int:
+        """The rows of a prefill batch of n requests."""
+        return prefill_batch(n, self.ecfg.max_slots)
+
+    def _encode(self, ids: np.ndarray):
+        """Each decoder layer's cross K/V of a prefill batch (nb, bucket)."""
+        return encode_cross(self.config, self.params, ids, self.device)
+
+    def _gather_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """A window's (3, k, B) outputs with every data rank's slots."""
+        return x
+
     def _insert(self, cross, row: int, slot: int, bucket_len: int,
                 max_new: int) -> None:
         """Write row `row` of a batched prefill into slot `slot` and reset
-        the slot (in place)."""
+        the slot (in place), on the data rank that owns it."""
+        slot -= self._data_rank * self._b
+        if not 0 <= slot < self._b:
+            return
         st, ecfg = self.state, self.ecfg
         quant = ecfg.kv_dtype == "int8"
         for layer, kvs in zip(st.layers, cross):
@@ -251,13 +312,11 @@ class PagedInferenceEngine:
         bucket) once, through slot 0; leaves the pool idle."""
         st = self.state
         for bucket in buckets or self.ecfg.encode_buckets:
-            nb = 1
+            nb = self._prefill_batch(1)
             while True:
-                cross = encode_cross(self.config, self.params,
-                                     np.zeros((nb, bucket), np.int32),
-                                     self.device)
-                self._insert(cross, 0, 0, bucket, 1)
-                if nb >= self.ecfg.max_slots:
+                self._insert(self._encode(np.zeros((nb, bucket), np.int32)),
+                             0, 0, bucket, 1)
+                if nb >= self._prefill_batch(self.ecfg.max_slots):
                     break
                 nb *= 2
         st.active.zero_()
@@ -278,8 +337,8 @@ class PagedInferenceEngine:
         gives layer li's (B, H, D) self-attention from q (B, H, D) f32 and
         stores the step's K/V. Updates the state; returns (3, B) int64:
         next token, finished flag, was-active flag."""
-        config, ecfg, st, params = self.config, self.ecfg, self.state, self.params
-        b, dkv = ecfg.max_slots, config.d_kv
+        config, st, params = self.config, self.state, self.params
+        b, dkv, group = self._b, config.d_kv, self._group
         scale = config.softmax_scale
         emb = params["shared"]["embedding"]
         x = emb[st.cur_token].to(runtime.torch_dtype(config.dtype))[:, None, :]
@@ -296,8 +355,9 @@ class PagedInferenceEngine:
                 kv_cache._proj_heads(normed, sa[w], h, dkv)[:, :, 0]
                 for w in ("Wq", "Wk", "Wv"))
             attn = self_attention(li, q.float(), k_new, v_new)
-            x = x + t5._matmul(attn.to(x.dtype).reshape(b, 1, h * dkv),
-                               sa["o"])
+            x = x + t5._row_parallel_matmul(
+                config, group, attn.to(x.dtype).reshape(b, 1, h * dkv),
+                sa["o"])
 
             ca = blk["cross_attention_layer"]["cross_attention"]
             normed = t5._layer_norm(
@@ -309,8 +369,9 @@ class PagedInferenceEngine:
             s = torch.where(cross_valid, s, _NEG_INF)
             attn = torch.einsum("bhqn,bhnd->bhqd", torch.softmax(s, -1),
                                 _kv_read(layer["cross_v"])).to(x.dtype)
-            x = x + t5._matmul(attn.transpose(1, 2).reshape(b, 1, h * dkv),
-                               ca["o"])
+            x = x + t5._row_parallel_matmul(
+                config, group, attn.transpose(1, 2).reshape(b, 1, h * dkv),
+                ca["o"])
             x = t5._ff(config, blk["ff_layer"], x)
 
         x = t5._layer_norm(config, params["decoder"]["final_layer_norm"]["weight"],
@@ -319,7 +380,12 @@ class PagedInferenceEngine:
             logits = torch.matmul(x, emb.T.to(x.dtype))[:, 0]
         else:
             logits = t5._matmul(x, params["lm_head"])[:, 0]
-        nxt = torch.argmax(logits, dim=-1)
+        if group is not None and not config.tie_word_embeddings:
+            from flasht5_tpu_torch.parallel.vocab_parallel import (
+                vocab_parallel_next_token)
+            nxt = vocab_parallel_next_token(logits, group)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
 
         active, pos = st.active, st.pos
         st.budget = torch.where(active, st.budget - 1, st.budget)
@@ -352,18 +418,21 @@ class PagedInferenceEngine:
                 _write_tokens(plane, pids, offset, newq.values,
                               None if newq.scales is None
                               else newq.scales[..., 0])
-            return paged_kv.paged_decode_attention_chunked_packed(
-                q, *layer["pages_kv"], page_table, lengths,
-                sm_scale=self.config.softmax_scale, bias=bias)
+            read = (paged_kv.dense_small_pool_attention if self._dense_read
+                    else paged_kv.paged_decode_attention_chunked_packed)
+            return read(q, *layer["pages_kv"], page_table, lengths,
+                        sm_scale=self.config.softmax_scale, bias=bias)
 
         return self._step(self_attention)
 
     def _window_step(self, t: int, page_table: torch.Tensor,
-                     base: torch.Tensor, committed: bool) -> torch.Tensor:
+                     base: torch.Tensor, committed: bool,
+                     staged=None) -> torch.Tensor:
         """Step t of a window: new K/V to side-buffer column t; attention =
-        the paged kernel over the committed pages (lengths `base`, skipped
-        when `committed` is False), LSE-merged with attention over side
-        columns 0..t."""
+        the paged kernel over the committed pages (lengths `base`; skipped
+        when `committed` is False, as its empty state gives the same
+        merge), or the opt-ins' reader (`staged`: each layer's staged
+        caches), LSE-merged with attention over side columns 0..t."""
         ecfg, st = self.ecfg, self.state
         scale = self.config.softmax_scale
         quant = ecfg.kv_dtype == "int8"
@@ -377,9 +446,17 @@ class PagedInferenceEngine:
                 side.values[:, :, t] = newq.values.to(side.values.dtype)
                 if quant:
                     side.scales[:, :, t] = newq.scales
-            if committed:
+            if committed and staged is not None:
+                (kv_, ks), (vv, vs) = staged[li]
+                out_p, m_p, l_p = paged_kv.dense_cache_attention(
+                    q, _stage_read(kv_, ks), _stage_read(vv, vs), base,
+                    sm_scale=scale, bias=bias, return_state=True)
+            elif committed:
                 layer = st.layers[li]
-                out_p, m_p, l_p = paged_kv.paged_decode_attention_chunked_packed(
+                read = (paged_kv.dense_small_pool_attention
+                        if self._dense_read
+                        else paged_kv.paged_decode_attention_chunked_packed)
+                out_p, m_p, l_p = read(
                     q, layer["pages_kv"].values, layer["pages_kv"].scales,
                     page_table, base, sm_scale=scale, bias=bias,
                     return_state=True)
@@ -424,33 +501,49 @@ class PagedInferenceEngine:
                               None if side.scales is None
                               else side.scales[..., 0].transpose(1, 2))
 
-    def _window(self, released, committed: bool) -> np.ndarray:
+    def _window(self, released: np.ndarray,
+                committed: np.ndarray) -> np.ndarray:
         """`steps_per_sync` decode steps. `released`: host mask of slots
-        whose device pos is zeroed first; `committed`: whether any slot has
-        tokens in the pages (else the window runs no paged kernel). Returns
-        host (3, k, B) int64 tokens / finished / was-active."""
+        whose device pos is zeroed first; `committed`: host mask of slots
+        with tokens in the pages (where none of this rank's has, the window
+        reads no pages). Both, and the page table, are of every slot; this
+        rank takes its own slots' rows. Returns host (3, k, B) int64 tokens
+        / finished / was-active of every slot."""
         st = self.state
         dev = self.device
-        st.pos = torch.where(torch.as_tensor(released, device=dev), 0,
+        lo = self._data_rank * self._b
+        mine = slice(lo, lo + self._b)
+        st.pos = torch.where(torch.as_tensor(released[mine], device=dev), 0,
                              st.pos)
-        page_table = torch.from_numpy(st.pages.table).to(dev)
+        page_table = torch.from_numpy(st.pages.table[mine]).to(dev)
         if self._windowed:
+            committed = bool(committed[mine].any())
             base = st.pos
             base32 = base.to(torch.int32)
-            rows = [self._window_step(t, page_table, base32, committed)
+            staged = None
+            if committed and self._window_stage:
+                staged = [paged_kv.gather_pool_dense(
+                    *layer["pages_kv"], page_table, dequant=False)
+                    for layer in st.layers]
+            rows = [self._window_step(t, page_table, base32, committed,
+                                      staged)
                     for t in range(self.ecfg.steps_per_sync)]
             self._flush(page_table, base)
         else:
             rows = [self._paged_step(page_table)
                     for _ in range(self.ecfg.steps_per_sync)]
-        return torch.stack(rows, dim=1).cpu().numpy()
+        return self._gather_slots(torch.stack(rows, dim=1)).cpu().numpy()
 
     # -- host scheduler ----------------------------------------------------
 
     def run(self, requests: List[Request]) -> List[Request]:
         """Serve all requests to completion; returns them with .result set
-        (tokens WITHOUT the leading start token, EOS-terminated)."""
+        (tokens WITHOUT the leading start token, EOS-terminated).
+        `deferrals` counts the admissions this run put off because the
+        head of the queue did not fit the free pages while a slot was
+        free."""
         ecfg = self.ecfg
+        self.deferrals = 0
         queue = list(requests)
         slots: List[Optional[Request]] = [None] * ecfg.max_slots
         emitted: List[List[int]] = [[] for _ in range(ecfg.max_slots)]
@@ -480,6 +573,7 @@ class PagedInferenceEngine:
                             "request %r needs %d tokens of KV but the "
                             "whole pool is %d pages x %d" %
                             (req.uid, max_new + 1, ecfg.num_pages, P))
+                    self.deferrals += 1
                     break
                 queue.pop(0)
                 st.pages.ensure_capacity(i, max_new + 1, P)
@@ -491,12 +585,11 @@ class PagedInferenceEngine:
                 bucket = bucket_for(ecfg.encode_buckets, L)
                 by_bucket.setdefault(bucket, []).append((req, i, max_new, L))
             for bucket, items in by_bucket.items():
-                nb = prefill_batch(len(items), ecfg.max_slots)
+                nb = self._prefill_batch(len(items))
                 padded = np.zeros((nb, bucket), np.int32)
                 for j, (req, i, max_new, L) in enumerate(items):
                     padded[j, :L] = req.input_ids[:L]
-                cross = encode_cross(self.config, self.params, padded,
-                                     self.device)
+                cross = self._encode(padded)
                 for j, (req, i, max_new, L) in enumerate(items):
                     self._insert(cross, j, i, bucket, max_new)
                     slots[i] = req
@@ -506,8 +599,8 @@ class PagedInferenceEngine:
         while any(s is not None for s in slots):
             released = np.array([s is None for s in slots])
             # a live slot's committed tokens are the tokens it has emitted
-            committed = any(emitted[i] for i, s in enumerate(slots)
-                            if s is not None)
+            committed = np.array([s is not None and bool(emitted[i])
+                                  for i, s in enumerate(slots)])
             toks_h, fins_h, act_h = self._window(released, committed)
             finished_now = [False] * len(slots)
             for t in range(toks_h.shape[0]):

@@ -48,22 +48,44 @@ class PageAllocator:
     """Host free-list allocator over a host page table (max_slots,
     max_pages_per_slot) int32: a slot takes pages from the free list as it
     grows and gives them all back when released. A released slot's row
-    keeps its old page ids; readers bound it by the slot's length."""
+    keeps its old page ids; readers bound it by the slot's length.
+
+    With `shards` data ranks (the sharded paged engine, JAX
+    `sharded_paged_engine.py:58-104`) each rank's slots take LOCAL page
+    ids 0..num_pages-1 of that rank's own pool from its own free list;
+    every rank keeps all the lists, so their decisions agree."""
 
     def __init__(self, num_pages: int, max_slots: int,
-                 max_pages_per_slot: int):
+                 max_pages_per_slot: int, shards: int = 1):
         self.table = np.zeros((max_slots, max_pages_per_slot), np.int32)
-        self.free: List[int] = list(range(num_pages))
+        self.free_lists: List[List[int]] = [list(range(num_pages))
+                                            for _ in range(shards)]
         self.owned: List[List[int]] = [[] for _ in range(max_slots)]
+        self._slots_per_shard = max_slots // shards
+
+    @property
+    def free(self) -> List[int]:
+        """The free list (of shard 0, the only one without sharding)."""
+        return self.free_lists[0]
+
+    @free.setter
+    def free(self, pages: List[int]) -> None:
+        self.free_lists[0] = pages
+
+    def shard_of(self, slot: int) -> int:
+        return slot // self._slots_per_shard
 
     def can_allocate(self, slot: int, tokens: int, page_size: int) -> bool:
         need = -(-tokens // page_size) - len(self.owned[slot])
-        return need <= len(self.free)
+        return need <= len(self.free_lists[self.shard_of(slot)])
 
     def alloc_page(self, slot: int) -> int:
-        if not self.free:
-            raise RuntimeError("KV page pool exhausted")
-        page = self.free.pop()
+        free = self.free_lists[self.shard_of(slot)]
+        if not free:
+            raise RuntimeError("KV page pool exhausted"
+                               + (f" (shard {self.shard_of(slot)})"
+                                  if len(self.free_lists) > 1 else ""))
+        page = free.pop()
         self.table[slot, len(self.owned[slot])] = page
         self.owned[slot].append(page)
         return page
@@ -73,7 +95,7 @@ class PageAllocator:
             self.alloc_page(slot)
 
     def release(self, slot: int):
-        self.free.extend(self.owned[slot])
+        self.free_lists[self.shard_of(slot)].extend(self.owned[slot])
         self.owned[slot] = []
 
 
@@ -202,6 +224,20 @@ def dense_cache_attention(q, kf, vf, lengths, *, sm_scale=1.0, bias=None,
     if not return_state:
         return out
     return out, torch.where(l > 0, m_safe, _NEG_INF), l
+
+
+def dense_small_pool_attention(q, pages_kv, scales_kv, page_table, lengths,
+                               *, sm_scale: float = 1.0, bias=None,
+                               return_state: bool = False):
+    """Single-query attention over a fused page pool read with one gather
+    instead of the paged kernel (JAX paged_kv.py:652, the paged engine's
+    `dense_read_max` opt-in): `gather_pool_dense`, then
+    `dense_cache_attention`; the same (out[, m, l]) contract as
+    `paged_decode_attention_chunked_packed`. Plain PyTorch, as it is plain
+    XLA in the JAX package."""
+    kf, vf = gather_pool_dense(pages_kv, scales_kv, page_table)
+    return dense_cache_attention(q, kf, vf, lengths, sm_scale=sm_scale,
+                                 bias=bias, return_state=return_state)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ version for CPU tensors, and counts its launches in a `.launches` integer.
 - flash_attention:     attention with an additive bias tensor (the
                        materialized T5 bias), forward, dK/dV + dbias and dQ
                        (CUDA); without a bias, the RPE kernels given no table
-- cross_entropy:       cross-entropy with z-loss, forward and backward (Triton)
+- cross_entropy:       cross-entropy with z-loss, forward (the loss in its
+                       epilogue) and backward, and the vocab-split form's
+                       combine over shards (Triton)
 - fused_linear_ce:     the lm_head matmul fused with cross-entropy, forward
                        (split vocab + merge) and backward (dx, dW) (CUDA)
 - quant:               INT8/FP8 weight-only dequant matmul (CUDA)
@@ -35,6 +37,7 @@ KERNELS = {
     "flash_attention_bias_dq": flash_attention.flash_attention_bias_dq,
     "cross_entropy_fwd": cross_entropy.cross_entropy_fwd,
     "cross_entropy_bwd": cross_entropy.cross_entropy_bwd,
+    "cross_entropy_combine": cross_entropy.cross_entropy_combine,
     "fused_linear_ce_fwd": fused_linear_ce.fused_linear_ce_fwd,
     "fused_linear_ce_bwd": fused_linear_ce.fused_linear_ce_bwd,
     "quant_matmul": quant.quant_matmul,

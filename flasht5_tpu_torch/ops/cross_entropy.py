@@ -5,25 +5,34 @@ differentiable op.
 Replaces the Pallas kernels of `flasht5_tpu/ops/cross_entropy.py`: the
 vocab-tiled pair `_fwd_kernel_tiled` / `_bwd_kernel_tiled` (the default) and
 the whole-row pair `_fwd_kernel` / `_bwd_kernel`, which compute the same
-function. As in the JAX package's tiled path, the forward kernel is a pure
-streaming log-sum-exp (plus the row sum of the logits when smoothing is on);
-the label-logit gather and the loss assembly on (rows,) vectors stay plain
-PyTorch. The backward kernel is one elementwise pass over (rows, V).
+function. The forward kernel streams a block of rows through the
+vocabulary in tiles, keeping each row's running maximum, sum of
+exponentials and (under smoothing) sum of logits in registers, and in its
+epilogue reads each row's label logit with one scalar load and writes the
+row's loss and z-loss: the label gather and the loss assembly that the JAX
+package does outside its kernel, on (rows,) vectors, happen there, so the
+loss is one launch. The backward kernel is one elementwise pass over
+(rows, V).
 
 Bound on the H100: bytes. At the FAT5-small train step (2048 rows, vocab
 32768, bf16 logits) the forward reads the 134 MB of logits once and the
 backward reads them and writes dlogits once, against a few operations per
-element. Each forward program streams a block of rows through the
-vocabulary in tiles, keeping the running maximum and sum of exponentials of
-each row in registers; the vocabulary need not be a multiple of the tile.
+element; the vocabulary need not be a multiple of the tile.
 
 The vocab-split form (the JAX op's `total_classes`, `class_start_idx` and
 `split`, a shard of the vocabulary in each call) runs through the same two
 kernels: labels are shifted by `class_start_idx`, a label owned by another
 shard keeps only the smoothing part, smoothing is spread over
 `total_classes`, and `split=True` leaves the lse term and the z-loss out of
-the shard's partial loss (the caller adds the global lse). As in the JAX
-package, the backward reads the shard's own lse whatever `split` says.
+the shard's partial loss. The forward writes one f32 (3, rows) buffer,
+each row's (loss, lse, z-loss), with `split` (partial loss, the shard's
+lse, 0); `cross_entropy_combine` (a second, small kernel) turns the first
+two rows of every shard's buffer, stacked, into the loss in the same
+layout: the global lse by log-sum-exp over the shards, the partials
+summed, the global lse and its z-loss added (`parallel/vocab_parallel.py`
+gathers them over the tensor group with one collective). As in the JAX package, the
+backward of the one-shard op reads the shard's own lse whatever `split`
+says.
 """
 
 from __future__ import annotations
@@ -35,7 +44,11 @@ import torch
 
 _IGNORE = -100
 _FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
-_FWD_ROWS, _FWD_BLOCK_V = 4, 1024
+# the forward's row tile, vocabulary tile, warps and pipeline stages a
+# program, chosen by `chip_smoke.py --ce-probe` at the split shard (2048,
+# 8192) and the unsplit (2048, 32768) logits (PERF.md)
+_FWD_ROWS, _FWD_BLOCK_V, _FWD_WARPS, _FWD_STAGES = 1, 4096, 4, 3
+_COMBINE_BLOCK = 1024
 _BWD_ROWS, _BWD_BLOCK_V = 4, 1024
 
 
@@ -67,15 +80,42 @@ def cross_entropy_loss_ref(logits: torch.Tensor, labels: torch.Tensor, *,
 # plain versions of the kernels
 # ---------------------------------------------------------------------------
 
-def cross_entropy_fwd_plain(logits: torch.Tensor, *, logit_scale: float = 1.0,
-                            label_smoothing: float = 0.0):
-    """(fp32 lse, fp32 row sum of the scaled logits or None without
-    smoothing) per row: the forward kernel's function."""
+def cross_entropy_fwd_plain(logits: torch.Tensor, labels: torch.Tensor, *,
+                            lse_square_scale: float = 0.0,
+                            label_smoothing: float = 0.0,
+                            logit_scale: float = 1.0,
+                            ignore_index: int = _IGNORE,
+                            total_classes: Optional[int] = None,
+                            class_start_idx: int = 0, split: bool = False):
+    """The forward kernel's function: f32 (3, rows), each row's (loss,
+    lse, z-loss), or with `split` the shard's (partial loss, lse, 0). The
+    lse of the scaled logits, then `cross_entropy_assemble`."""
     x = logits.float()
     if logit_scale != 1.0:
         x = x * logit_scale
     lse = torch.logsumexp(x, dim=-1)
-    return lse, (x.sum(dim=-1) if label_smoothing > 0.0 else None)
+    total = x.sum(dim=-1) if label_smoothing > 0.0 else None
+    loss, z = cross_entropy_assemble(
+        logits, labels, lse, total, lse_square_scale=lse_square_scale,
+        label_smoothing=label_smoothing, logit_scale=logit_scale,
+        ignore_index=ignore_index, total_classes=total_classes,
+        class_start_idx=class_start_idx, split=split)
+    return torch.stack([loss, lse, z])
+
+
+def cross_entropy_combine_plain(parts: torch.Tensor, labels: torch.Tensor, *,
+                                lse_square_scale: float = 0.0,
+                                ignore_index: int = _IGNORE):
+    """The combine kernel's function: parts (shards, 2, rows), the first two
+    rows of each shard's split forward (partial loss, lse) -> f32 (3,
+    rows): each row's (loss, global lse, z-loss), loss and z-loss 0 on
+    ignored rows."""
+    lse = torch.logsumexp(parts[:, 1], dim=0)
+    z = lse_square_scale * lse * lse
+    loss = parts[:, 0].sum(dim=0) + lse + z
+    ignored = labels == ignore_index
+    return torch.stack([torch.where(ignored, 0.0, loss), lse,
+                        torch.where(ignored, 0.0, z)])
 
 
 def cross_entropy_bwd_plain(logits, labels, lse, dloss, dz, *,
@@ -115,11 +155,15 @@ def _triton_kernels():
     import triton.language as tl
 
     @triton.jit
-    def ce_fwd_kernel(logits_ptr, lse_ptr, sum_ptr, n_rows, n_cols, logit_scale,
-            ROWS: tl.constexpr, BLOCK_V: tl.constexpr, SMOOTH: tl.constexpr):
+    def ce_fwd_kernel(logits_ptr, labels_ptr, out_ptr, n_rows, n_cols,
+            logit_scale, lse_square_scale, smoothing, ignore_index,
+            class_start_idx, total_classes,
+            ROWS: tl.constexpr, BLOCK_V: tl.constexpr, SMOOTH: tl.constexpr,
+            SPLIT: tl.constexpr):
         rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
         rmask = rows < n_rows
-        base = rows[:, None].to(tl.int64) * n_cols
+        row0 = rows.to(tl.int64) * n_cols
+        base = row0[:, None]
         m = tl.full((ROWS,), -1e30, tl.float32)
         se = tl.zeros((ROWS,), tl.float32)
         sl = tl.zeros((ROWS,), tl.float32)
@@ -135,9 +179,59 @@ def _triton_kernels():
             m = m_new
             if SMOOTH:
                 sl += tl.sum(tl.where(mask, x, 0.0), axis=1)
-        tl.store(lse_ptr + rows, tl.log(se) + m, mask=rmask)
+        lse = tl.log(se) + m
+        # the epilogue: the label's logit (one load, where the label lies in
+        # this shard), then the row's loss
+        labels = tl.load(labels_ptr + rows, mask=rmask, other=ignore_index)
+        local = labels - class_start_idx
+        in_shard = (local >= 0) & (local < n_cols)
+        ll = tl.load(logits_ptr + row0 + local, mask=rmask & in_shard,
+                     other=0.0).to(tl.float32) * logit_scale
+        if SPLIT:
+            lse_term = tl.zeros((ROWS,), tl.float32)
+        else:
+            lse_term = lse
         if SMOOTH:
-            tl.store(sum_ptr + rows, sl, mask=rmask)
+            loss = tl.where(in_shard,
+                            lse_term - smoothing * sl / total_classes
+                            - (1.0 - smoothing) * ll,
+                            smoothing * (lse_term - sl / total_classes))
+        else:
+            loss = tl.where(in_shard, lse_term - ll, 0.0)
+        ignored = labels == ignore_index
+        if SPLIT:
+            z = tl.zeros((ROWS,), tl.float32)
+        else:
+            z = tl.where(ignored, 0.0, lse_square_scale * lse * lse)
+        tl.store(out_ptr + rows, tl.where(ignored, 0.0, loss + z),
+                 mask=rmask)
+        tl.store(out_ptr + n_rows + rows, lse, mask=rmask)
+        tl.store(out_ptr + 2 * n_rows + rows, z, mask=rmask)
+
+    @triton.jit
+    def ce_combine_kernel(parts_ptr, labels_ptr, out_ptr, n_rows, n_parts,
+            lse_square_scale, ignore_index, BLOCK: tl.constexpr):
+        rows = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        rmask = rows < n_rows
+        m = tl.full((BLOCK,), -1e30, tl.float32)
+        for r in range(0, n_parts):
+            m = tl.maximum(m, tl.load(parts_ptr + (2 * r + 1) * n_rows + rows,
+                                      mask=rmask, other=0.0))
+        se = tl.zeros((BLOCK,), tl.float32)
+        part = tl.zeros((BLOCK,), tl.float32)
+        for r in range(0, n_parts):
+            at = parts_ptr + 2 * r * n_rows + rows
+            part += tl.load(at, mask=rmask, other=0.0)
+            se += tl.exp(tl.load(at + n_rows, mask=rmask, other=0.0) - m)
+        lse = m + tl.log(se)
+        z = lse_square_scale * lse * lse
+        labels = tl.load(labels_ptr + rows, mask=rmask, other=ignore_index)
+        ignored = labels == ignore_index
+        tl.store(out_ptr + rows, tl.where(ignored, 0.0, part + lse + z),
+                 mask=rmask)
+        tl.store(out_ptr + n_rows + rows, lse, mask=rmask)
+        tl.store(out_ptr + 2 * n_rows + rows, tl.where(ignored, 0.0, z),
+                 mask=rmask)
 
     @triton.jit
     def ce_bwd_kernel(logits_ptr, labels_ptr, lse_ptr, dloss_ptr, dz_ptr, dlogits_ptr,
@@ -171,7 +265,7 @@ def _triton_kernels():
         tl.store(dlogits_ptr + offs, grad.to(dlogits_ptr.dtype.element_ty),
                  mask=mask)
 
-    return triton, ce_fwd_kernel, ce_bwd_kernel
+    return triton, ce_fwd_kernel, ce_bwd_kernel, ce_combine_kernel
 
 
 def _check(name: str, logits: torch.Tensor, *rows_tensors) -> None:
@@ -187,29 +281,77 @@ def _check(name: str, logits: torch.Tensor, *rows_tensors) -> None:
                          f"{logits.shape[0]} rows")
 
 
-def cross_entropy_fwd(logits: torch.Tensor, *, logit_scale: float = 1.0,
-                      label_smoothing: float = 0.0):
-    """(fp32 lse, fp32 row sum of the scaled logits or None) per row.
-    A CUDA tensor goes to the Triton kernel, a CPU tensor to
-    `cross_entropy_fwd_plain`; anything else raises."""
+def cross_entropy_fwd(logits: torch.Tensor, labels: torch.Tensor, *,
+                      lse_square_scale: float = 0.0,
+                      label_smoothing: float = 0.0,
+                      logit_scale: float = 1.0, ignore_index: int = _IGNORE,
+                      total_classes: Optional[int] = None,
+                      class_start_idx: int = 0, split: bool = False):
+    """f32 (3, rows): each row's (loss, lse, z-loss), or with `split` the
+    shard's (partial loss, lse, 0). A CUDA tensor goes to the Triton
+    kernel, a CPU tensor to `cross_entropy_fwd_plain`; anything else
+    raises."""
+    kw = dict(lse_square_scale=lse_square_scale,
+              label_smoothing=label_smoothing, logit_scale=logit_scale,
+              ignore_index=ignore_index, total_classes=total_classes,
+              class_start_idx=class_start_idx, split=split)
     if logits.device.type == "cpu":
-        return cross_entropy_fwd_plain(logits, logit_scale=logit_scale,
-                                       label_smoothing=label_smoothing)
-    _check("cross_entropy_fwd", logits)
-    triton, kernel, _ = _triton_kernels()
+        return cross_entropy_fwd_plain(logits, labels, **kw)
+    _check("cross_entropy_fwd", logits, labels)
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"cross_entropy_fwd: labels {labels.dtype}")
+    triton, kernel, _, _ = _triton_kernels()
     logits = logits.contiguous()
+    labels = labels.contiguous()
     rows, v = logits.shape
-    smooth = label_smoothing > 0.0
-    lse = torch.empty((rows,), dtype=torch.float32, device=logits.device)
-    total = torch.empty_like(lse) if smooth else lse
+    out = torch.empty((3, rows), dtype=torch.float32, device=logits.device)
     kernel[(triton.cdiv(rows, _FWD_ROWS),)](
-        logits, lse, total, rows, v, float(logit_scale), ROWS=_FWD_ROWS,
-        BLOCK_V=_FWD_BLOCK_V, SMOOTH=smooth, num_warps=8)
+        logits, labels, out, rows, v, float(logit_scale),
+        float(lse_square_scale), float(label_smoothing), int(ignore_index),
+        int(class_start_idx), float(total_classes or v), ROWS=_FWD_ROWS,
+        BLOCK_V=_FWD_BLOCK_V, SMOOTH=label_smoothing > 0.0, SPLIT=split,
+        num_warps=_FWD_WARPS, num_stages=_FWD_STAGES)
     cross_entropy_fwd.launches += 1
-    return lse, (total if smooth else None)
+    return out
 
 
 cross_entropy_fwd.launches = 0
+
+
+def cross_entropy_combine(parts: torch.Tensor, labels: torch.Tensor, *,
+                          lse_square_scale: float = 0.0,
+                          ignore_index: int = _IGNORE):
+    """f32 (3, rows), each row's (loss, global lse, z-loss), from the
+    first two rows (partial loss, lse) of every shard's split forward,
+    stacked as parts (shards, 2, rows). A CUDA tensor goes to the Triton
+    kernel, a CPU tensor to `cross_entropy_combine_plain`; anything else
+    raises."""
+    if parts.device.type == "cpu":
+        return cross_entropy_combine_plain(parts, labels,
+                                           lse_square_scale=lse_square_scale,
+                                           ignore_index=ignore_index)
+    if (parts.dtype != torch.float32 or parts.dim() != 3
+            or parts.shape[1] != 2 or labels.shape != parts.shape[2:]
+            or labels.dtype not in (torch.int32, torch.int64)):
+        raise TypeError(f"cross_entropy_combine: parts {parts.dtype} "
+                        f"{tuple(parts.shape)}, labels {labels.dtype} "
+                        f"{tuple(labels.shape)}; f32 (shards, 2, rows) and "
+                        f"integer (rows,)")
+    if not parts.is_cuda or labels.device != parts.device:
+        raise ValueError("cross_entropy_combine: all inputs on one CUDA "
+                         "device")
+    triton, _, _, kernel = _triton_kernels()
+    parts = parts.contiguous()
+    n, _, rows = parts.shape
+    out = torch.empty((3, rows), dtype=torch.float32, device=parts.device)
+    kernel[(triton.cdiv(rows, _COMBINE_BLOCK),)](
+        parts, labels.contiguous(), out, rows, n, float(lse_square_scale),
+        int(ignore_index), BLOCK=_COMBINE_BLOCK, num_warps=4)
+    cross_entropy_combine.launches += 1
+    return out
+
+
+cross_entropy_combine.launches = 0
 
 
 def cross_entropy_bwd(logits, labels, lse, dloss, dz, *,
@@ -226,7 +368,7 @@ def cross_entropy_bwd(logits, labels, lse, dloss, dz, *,
     if logits.device.type == "cpu":
         return cross_entropy_bwd_plain(logits, labels, lse, dloss, dz, **kw)
     _check("cross_entropy_bwd", logits, labels, lse, dloss, dz)
-    triton, _, kernel = _triton_kernels()
+    triton, _, kernel, _ = _triton_kernels()
     logits = logits.contiguous()
     rows, v = logits.shape
     dlogits = torch.empty_like(logits)
@@ -250,9 +392,9 @@ def cross_entropy_assemble(logits, labels, lse, total, *,
                            logit_scale=1.0, ignore_index=_IGNORE,
                            total_classes=None, class_start_idx=0,
                            split=False):
-    """Per-row (loss, z) from the forward kernel's lse (and row sum), as
-    the JAX package's `_ce_fwd_tiled` assembles them outside its kernel;
-    the CPU path and the card's share it."""
+    """Per-row (loss, z) from the lse (and the row sum of the scaled
+    logits), as the JAX package's `_ce_fwd_tiled` assembles them outside
+    its kernel: the plain version of the forward kernel's epilogue."""
     v = logits.shape[1]
     tc = total_classes or v
     local = labels.long() - class_start_idx
@@ -280,14 +422,10 @@ def cross_entropy_assemble(logits, labels, lse, total, *,
 class _CrossEntropyFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, kw, split):
-        lse, total = cross_entropy_fwd(
-            logits, logit_scale=kw["logit_scale"],
-            label_smoothing=kw["label_smoothing"])
-        loss, z = cross_entropy_assemble(logits, labels, lse, total,
-                                         split=split, **kw)
-        ctx.save_for_backward(logits, labels, lse)
+        out = cross_entropy_fwd(logits, labels, split=split, **kw)
+        ctx.save_for_backward(logits, labels, out[1])
         ctx.kw = kw
-        return loss, z
+        return out[0], out[2]
 
     @staticmethod
     def backward(ctx, dloss, dz):

@@ -5,12 +5,13 @@ The counterpart of `flasht5_tpu/parallel/vocab_parallel.py`. Each tensor
 rank holds the logits of its contiguous slice of the vocabulary (rows,
 V/t). `vocab_parallel_loss` is one autograd function:
 
-- forward: the CE forward kernel (`ops/cross_entropy.py::
-  cross_entropy_fwd`) gives each shard's lse (and row sum under
-  smoothing); the global lse is their max plus the log of the summed
-  exponentials over the group; `cross_entropy_assemble(..., split=True)`
-  gives each shard's label and smoothing terms, summed over the group;
-  the loss adds the global lse and the z-loss on it;
+- forward: the CE forward kernel's split form (`ops/cross_entropy.py::
+  cross_entropy_fwd(..., split=True)`) gives each shard's (partial loss,
+  lse) per row, label and smoothing terms included; one all-gather brings
+  every shard's pair of rows to every rank, and the combine kernel
+  (`cross_entropy_combine`) gives the global lse (a log-sum-exp over the
+  shards), the summed partials plus the global lse and its z-loss, and
+  the ignore mask;
 - backward: the CE backward kernel on the shard, with the GLOBAL lse,
   `class_start_idx` and `total_classes`, so that each shard's dlogits are
   its columns of the unsplit gradient. The shard's own lse would give a
@@ -30,8 +31,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from flasht5_tpu_torch.ops.cross_entropy import (cross_entropy_assemble,
-                                                 cross_entropy_bwd,
+from flasht5_tpu_torch.ops.cross_entropy import (cross_entropy_bwd,
+                                                 cross_entropy_combine,
                                                  cross_entropy_fwd)
 
 _IGNORE = -100
@@ -44,19 +45,14 @@ class _VocabParallelLoss(torch.autograd.Function):
         v_local = logits.shape[1]
         total_classes = v_local * t
         start = dist.get_rank(group) * v_local
-        lse_local, row_sum = cross_entropy_fwd(logits,
-                                               label_smoothing=smoothing)
-        gmax = lse_local.clone()
-        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
-        sumexp = torch.exp(lse_local - gmax)
-        dist.all_reduce(sumexp, group=group)
-        lse = gmax + torch.log(sumexp)
-        part, _ = cross_entropy_assemble(
-            logits, labels, lse_local, row_sum, label_smoothing=smoothing,
-            total_classes=total_classes, class_start_idx=start, split=True)
-        dist.all_reduce(part, group=group)
-        loss = part + lse + z * lse * lse
-        loss = torch.where(labels == _IGNORE, 0.0, loss)
+        pair = cross_entropy_fwd(
+            logits, labels, label_smoothing=smoothing,
+            total_classes=total_classes, class_start_idx=start,
+            split=True)[:2]
+        parts = pair.new_empty((t * 2, pair.shape[1]))
+        dist.all_gather_into_tensor(parts, pair, group=group)
+        loss, lse, _ = cross_entropy_combine(parts.view(t, 2, -1), labels,
+                                             lse_square_scale=z)
         ctx.save_for_backward(logits, labels, lse, denominator)
         ctx.kw = dict(lse_square_scale=z, label_smoothing=smoothing,
                       total_classes=total_classes, class_start_idx=start)

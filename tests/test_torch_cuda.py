@@ -788,13 +788,17 @@ def test_cross_entropy_kernels(dev, rows, v, dtype, smoothing):
     logits = (3 * torch.randn((rows, v), device=dev)).to(dtype)
     labels = torch.randint(0, v, (rows,), device=dev)
     labels[::7] = -100
-    lse, total = cross_entropy.cross_entropy_fwd(
-        logits, label_smoothing=smoothing)
-    lse0, total0 = cross_entropy.cross_entropy_fwd_plain(
-        logits, label_smoothing=smoothing)
-    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-5)
-    if smoothing:
-        torch.testing.assert_close(total, total0, rtol=1e-4, atol=1e-2)
+    out = cross_entropy.cross_entropy_fwd(logits, labels,
+                                          lse_square_scale=1e-4,
+                                          label_smoothing=smoothing)
+    out0 = cross_entropy.cross_entropy_fwd_plain(logits, labels,
+                                                 lse_square_scale=1e-4,
+                                                 label_smoothing=smoothing)
+    # lse as before; the loss and z-loss (the epilogue's) to 1e-4 absolute
+    torch.testing.assert_close(out[1], out0[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out[0::2], out0[0::2], rtol=1e-5, atol=1e-4)
+    assert torch.all(out[0, ::7] == 0) and torch.all(out[2, ::7] == 0)
+    lse = out[1]
     dloss, dz = torch.randn(rows, device=dev), torch.randn(rows, device=dev)
     kw = dict(lse_square_scale=1e-4, label_smoothing=smoothing)
     got = cross_entropy.cross_entropy_bwd(logits, labels, lse, dloss, dz,
@@ -825,7 +829,8 @@ def test_cross_entropy_split_kernels(dev, rows, v, shards, smoothing):
         shard = logits[:, start:start + w].contiguous()
         kw = dict(lse_square_scale=1e-4, label_smoothing=smoothing,
                   total_classes=v, class_start_idx=start)
-        lse, _ = cross_entropy.cross_entropy_fwd(shard)
+        lse = cross_entropy.cross_entropy_fwd(shard, labels, **kw,
+                                              split=True)[1]
         got = cross_entropy.cross_entropy_bwd(shard, labels, lse, dloss, dz,
                                               **kw)
         want = cross_entropy.cross_entropy_bwd_plain(shard, labels, lse,
@@ -844,6 +849,42 @@ def test_cross_entropy_split_kernels(dev, rows, v, shards, smoothing):
     whole, _ = cross_entropy.cross_entropy_loss(logits, labels, 1e-4,
                                                 smoothing)
     torch.testing.assert_close(combined, whole, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["unsplit", "split"])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_cross_entropy_epilogue_and_combine(dev, split, smoothing):
+    """The forward kernel's (loss, lse, z-loss) rows, the loss written in
+    its epilogue, against its plain version on bf16 (2048, 32768) logits
+    (ignored rows among them), unsplit or as four shards whose split rows
+    `cross_entropy_combine` joins; a label one column off (each shard's
+    `class_start_idx` one too high) must land beyond the limit."""
+    rows, v, shards = 2048, 32768, 4
+    logits = (3 * torch.randn((rows, v), device=dev)).to(torch.bfloat16)
+    labels = torch.randint(0, v, (rows,), device=dev)
+    labels[::7] = -100
+    kw = dict(lse_square_scale=1e-4, label_smoothing=smoothing)
+
+    def loss(plain=False, off=0):
+        fwd, comb = ((cross_entropy.cross_entropy_fwd_plain,
+                      cross_entropy.cross_entropy_combine_plain) if plain
+                     else (cross_entropy.cross_entropy_fwd,
+                           cross_entropy.cross_entropy_combine))
+        if not split:
+            return fwd(logits, torch.where(labels >= 0, (labels + off) % v,
+                                           labels), **kw)
+        w = v // shards
+        parts = torch.stack([fwd(
+            logits[:, i * w:(i + 1) * w].contiguous(), labels,
+            total_classes=v, class_start_idx=i * w + off, split=True,
+            **kw)[:2] for i in range(shards)])
+        return comb(parts, labels, lse_square_scale=1e-4)
+    want = loss(plain=True)
+    lim = 2e-4 + 1e-5 * want.abs()
+    assert torch.all((loss() - want).abs() <= lim)
+    assert not torch.all((loss(off=1) - want).abs() <= lim)
+    whole = cross_entropy.cross_entropy_fwd_plain(logits, labels, **kw)
+    torch.testing.assert_close(want, whole, rtol=1e-5, atol=2e-4)
 
 
 # bias shapes: per head, per batch and head, one for all, per batch, and a
@@ -1738,3 +1779,53 @@ def test_split_backward_takes_the_global_lse(dev, smoothing):
         else:
             torch.testing.assert_close(torch.cat(parts, dim=1).float(), want,
                                        rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# serving across ranks (inference/sharded_engine.py, sharded_paged_engine.py)
+# at one NCCL rank
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_sharded_engines_on_one_nccl_rank(dev, nccl_rank, paged):
+    """Both sharded engines at mesh (1, 1) serve the single-device engines'
+    tokens on the card, request by request (a one-rank all-reduce and
+    all-gather are the identity): a tiny f32 model with int8 weights and
+    KV, the slot engine on the decode kernel."""
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.inference import engine, paged_engine
+    from flasht5_tpu_torch.inference.sharded_engine import (
+        ShardedEngine, make_serving_mesh)
+    from flasht5_tpu_torch.inference.sharded_paged_engine import (
+        ShardedPagedEngine)
+    from flasht5_tpu_torch.models import t5
+    from flasht5_tpu_torch.quantize import quantize_params
+    cfg = FlashT5Config(vocab_size=512, d_model=128, d_kv=32, num_heads=4,
+                        d_ff=256, num_layers=2, num_decoder_layers=2,
+                        dropout_rate=0.0, attention_scale=1.0,
+                        dtype="float32", attention_type="pallas_rpe",
+                        use_fused_layernorm=True)
+    params = quantize_params(t5.init_params(cfg, seed=3, device=dev), "int8")
+    if paged:
+        single, sharded = (paged_engine.PagedInferenceEngine,
+                           ShardedPagedEngine)
+        ecfg = paged_engine.PagedEngineConfig(
+            max_slots=3, page_size=8, num_pages=12, max_pages_per_slot=3,
+            max_encode_len=32, encode_buckets=(16, 32), kv_dtype="int8",
+            steps_per_sync=3)
+    else:
+        single, sharded = engine.InferenceEngine, ShardedEngine
+        ecfg = engine.EngineConfig(
+            max_slots=3, max_decode_len=20, max_encode_len=32,
+            encode_buckets=(16, 32), kv_dtype="int8", steps_per_sync=4,
+            use_decode_kernel=True)
+    def requests():
+        g = torch.Generator().manual_seed(5)
+        return [engine.Request(uid=i, input_ids=torch.randint(
+            2, 512, (n,), generator=g).numpy().astype("int32"),
+            max_new_tokens=17) for i, n in enumerate((12, 30, 7, 25, 16))]
+    want = {r.uid: r.result.tolist()
+            for r in single(cfg, params, ecfg, device=dev).run(requests())}
+    eng = sharded(cfg, params, ecfg, make_serving_mesh(1, 1), device=dev)
+    got = {r.uid: r.result.tolist() for r in eng.run(requests())}
+    assert got == want

@@ -142,8 +142,10 @@ def test_engine_refuses_what_is_not_ported(models, change):
 
 
 def test_engine_refuses_tensor_parallel(models):
+    """Outside a mesh: the sharded engines (tests/test_torch_sharded_
+    engine.py) serve across tensor ranks inside one."""
     *_, cfg, params = models
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="mesh"):
         engine.InferenceEngine(
             cfg.replace(tp_axis="tensor"), params,
             engine.EngineConfig(**_engine_kw("int8", True)), device="cpu")

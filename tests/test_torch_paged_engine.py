@@ -17,10 +17,12 @@ bf16 before each int8 matmul at the same points, and the paged attention
 differs only in summation order; the arg-max margins of this model and
 these inputs (tests/test_torch_engine.py) are far wider than that.
 
-A JAX engine run costs ~15-20 s here, nearly all of it compilation, so it
-runs three times, cached per module: the default window path with int8 and with native KV, and
-`kernel="dense"` with int8. The port's other routes (`ragged`, the per-step
-path of `window_appends=False`) are held to the port's own window path.
+A JAX engine run costs ~15-20 s here, nearly all of it compilation, so each
+configuration runs once, cached per module: the default window path with
+int8 and with native KV, `kernel="dense"` with int8, and each opt-in
+(`dense_read_max`, `window_stage_max_bytes`) with int8 and native KV. The
+port's other routes (`ragged`, the per-step path of `window_appends=False`)
+are held to the port's own window path.
 """
 
 import functools
@@ -84,10 +86,10 @@ def jax_tokens(models):
     jcfg, jparams, *_ = models
 
     @functools.lru_cache(maxsize=None)
-    def served(kv_dtype, kernel, buckets):
+    def served(kv_dtype, kernel, buckets, opt_in=()):
         eng = jpaged.PagedInferenceEngine(
             jcfg, jparams, _config(jpaged, kv_dtype, kernel=kernel,
-                                   encode_buckets=buckets))
+                                   encode_buckets=buckets, **dict(opt_in)))
         return tuple(r.result for r in eng.run(_requests(JaxRequest)))
     return served
 
@@ -116,6 +118,28 @@ def test_paged_engine_tokens_match_jax(models, jax_tokens, kv_dtype, kernel,
     again = [r.result for r in eng.run(_requests(engine.Request))]
     for g, w in zip(again, want):
         np.testing.assert_array_equal(g, w)
+
+
+# the opt-ins: a slot's pool is 3 pages of 8 = 24 tokens, within 32; the
+# window's staged caches take ~0.1 MB, within 1 MB
+OPT_INS = {"dense_read": (("dense_read_max", 32),),
+           "window_stage": (("window_stage_max_bytes", 1 << 20),)}
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "native"])
+@pytest.mark.parametrize("opt_in", list(OPT_INS))
+def test_paged_opt_ins_match_jax(models, jax_tokens, opt_in, kv_dtype):
+    """`dense_read_max` and `window_stage_max_bytes` against the JAX engine
+    with the same opt-in: the committed pages read by a gather (or staged
+    once a window) and plain attention, not the kernel."""
+    want = jax_tokens(kv_dtype, "chunked", (32,), OPT_INS[opt_in])
+    eng, got = _serve(models, kv_dtype=kv_dtype, encode_buckets=(32,),
+                      **dict(OPT_INS[opt_in]))
+    assert eng._dense_read == (opt_in == "dense_read")
+    assert eng._window_stage == (opt_in == "window_stage")
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g is not None
+        np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
 
 
 @pytest.mark.parametrize("kw", [dict(kernel="ragged"),
@@ -176,15 +200,21 @@ def test_warmup_leaves_the_pool_idle(models):
     assert all(r.result is not None for r in done)
 
 
-@pytest.mark.parametrize("change", [dict(dense_read_max=512),
-                                    dict(window_stage_max_bytes=1 << 25),
+@pytest.mark.parametrize("change", [dict(kernel="flash"),
+                                    dict(kv_dtype="fp8"),
                                     dict(tp_axis="tensor")])
 def test_paged_engine_refuses_what_is_not_ported(models, change):
+    """What the engine does not take: an unknown kernel or KV dtype, and
+    tensor parallelism outside a mesh (the sharded paged engine serves it
+    inside one, tests/test_torch_sharded_paged_engine.py). The opt-ins run
+    now (`test_paged_opt_ins_match_jax`)."""
     *_, cfg, params = models
     ecfg_change = {k: v for k, v in change.items() if k != "tp_axis"}
+    err = ValueError
     if "tp_axis" in change:
         cfg = cfg.replace(tp_axis=change["tp_axis"])
-    with pytest.raises(NotImplementedError):
+        err = RuntimeError
+    with pytest.raises(err):
         paged_engine.PagedInferenceEngine(
             cfg, params, _config(paged_engine, **ecfg_change), device="cpu")
 

@@ -369,7 +369,7 @@ def test_training_wrappers_refuse_a_device_they_do_not_take():
             q, q, q, None, torch.zeros((1, 2, 8), **meta),
             torch.zeros((1, 2, 8), **meta), q)
     with pytest.raises(ValueError):
-        cross_entropy.cross_entropy_fwd(x)
+        cross_entropy.cross_entropy_fwd(x, r.long())
     with pytest.raises(ValueError):
         cross_entropy.cross_entropy_bwd(x, r.long(), r, r, r)
 
@@ -384,7 +384,7 @@ def test_training_wrappers_refuse_a_dtype_they_do_not_take():
     with pytest.raises(TypeError):
         flash_attention_rpe.flash_attention_bwd(q, q, q, None, lse, lse, q)
     with pytest.raises(TypeError):
-        cross_entropy.cross_entropy_fwd(x.to(torch.int32))
+        cross_entropy.cross_entropy_fwd(x.to(torch.int32), r.long())
 
 
 def test_unported_options_raise():
@@ -449,3 +449,64 @@ def test_cross_entropy_split_matches_jax(smoothing, z_scale):
     whole, _ = cross_entropy.cross_entropy_loss(
         _t(logits), torch.from_numpy(labels), z_scale, smoothing)
     np.testing.assert_allclose(combined.numpy(), whole.numpy(), **F32_TOL)
+
+
+# the forward kernel's epilogue and the combine over shards: plain versions
+_EPILOGUE_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["unsplit", "split"])
+@pytest.mark.parametrize("smoothing,z_scale", [(0.0, 0.0), (0.1, 1e-4)])
+def test_cross_entropy_epilogue_plain_matches_jax(split, smoothing, z_scale):
+    """`cross_entropy_fwd_plain` (the loss the forward kernel writes in its
+    epilogue, from its lse, row sum and label logit) against the JAX op's
+    forward: unsplit, each row's (loss, z-loss); split, each of four
+    shards' partial loss (labels in other shards, ignored rows), then
+    `cross_entropy_combine_plain` over the stacked (lse, partial) pairs
+    against JAX's shards combined and against the unsplit loss. f32 at
+    1e-6: sums of up to 256 terms in another order."""
+    rows, v = 29, _SPLIT_V
+    logits, labels, _, _ = _ce_inputs(rows, v, "float32", seed=17)
+    tl = torch.from_numpy(labels)
+
+    def jax_loss(x, **kw):
+        return jce.cross_entropy_loss(jnp.asarray(x), jnp.asarray(labels),
+                                      z_scale, smoothing, **kw)
+
+    kw = dict(lse_square_scale=z_scale, label_smoothing=smoothing)
+    if not split:
+        loss, lse, z = cross_entropy.cross_entropy_fwd_plain(_t(logits), tl,
+                                                             **kw)
+        loss_j, z_j = jax_loss(logits)
+        _close(loss, loss_j, _EPILOGUE_TOL)
+        _close(z, z_j, _EPILOGUE_TOL)
+        _close(lse, jax.nn.logsumexp(jnp.asarray(logits), axis=-1),
+               _EPILOGUE_TOL)
+        return
+    w = v // _SPLIT_SHARDS
+    pairs, partials_j, lses_j = [], [], []
+    for s in range(_SPLIT_SHARDS):
+        shard = np.ascontiguousarray(logits[:, s * w:(s + 1) * w])
+        out = cross_entropy.cross_entropy_fwd_plain(
+            _t(shard), tl, total_classes=v, class_start_idx=s * w,
+            split=True, **kw)
+        loss_j, _ = jax_loss(shard, total_classes=v, class_start_idx=s * w,
+                             split=True)
+        lse_j = jax.nn.logsumexp(jnp.asarray(shard), axis=-1)
+        _close(out[0], loss_j, _EPILOGUE_TOL)
+        _close(out[1], lse_j, _EPILOGUE_TOL)
+        assert not out[2].any()
+        pairs.append(out[:2])
+        partials_j.append(loss_j)
+        lses_j.append(lse_j)
+    loss, lse, z = cross_entropy.cross_entropy_combine_plain(
+        torch.stack(pairs), tl, lse_square_scale=z_scale)
+    lse_j = jax.nn.logsumexp(jnp.stack(lses_j), axis=0)
+    valid = jnp.asarray(labels) != -100
+    z_j = jnp.where(valid, z_scale * lse_j * lse_j, 0.0)
+    _close(lse, lse_j, _EPILOGUE_TOL)
+    _close(loss, jnp.where(valid, sum(partials_j) + lse_j, 0.0) + z_j,
+           _EPILOGUE_TOL)
+    _close(z, z_j, _EPILOGUE_TOL)
+    whole_j, _ = jax_loss(logits)
+    _close(loss, whole_j, F32_TOL)

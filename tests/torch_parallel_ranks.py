@@ -1,5 +1,6 @@
 """The rank side of the port's multi-process tests
-(`tests/test_torch_parallel_*.py`).
+(`tests/test_torch_parallel_multiproc.py`, `test_torch_sharded_engine.py`,
+`test_torch_sharded_paged_engine.py`).
 
 `spawn(suite, inputs, tmp_path)` starts four gloo ranks on the CPU, each
 `python tests/torch_parallel_ranks.py <suite> <rank> <world> <dir>` with one
@@ -283,12 +284,81 @@ def suite_trainer(inp, out_dir):
     return res
 
 
+class _Clock:
+    """A rank's own clock for `run(now=...)`: `step` seconds a reading."""
+
+    def __init__(self, step: float):
+        self.t, self.step = 0.0, step
+
+    def __call__(self) -> float:
+        self.t += self.step
+        return self.t
+
+
+def _serve_cases(inp, engine_cls, config_cls, with_probe):
+    """Each case of `inp["cases"]` on `engine_cls` over its mesh: the
+    served tokens by uid (and the deferred admissions), or probe steps."""
+    import torch.distributed as dist
+
+    from flasht5_tpu_torch.config import FlashT5Config
+    from flasht5_tpu_torch.convert import params_from_numpy
+    from flasht5_tpu_torch.inference.engine import Request
+    from flasht5_tpu_torch.inference.sharded_engine import make_serving_mesh
+
+    params = {k: params_from_numpy(v, device="cpu")
+              for k, v in inp["params"].items()}
+    meshes, res = {}, {}
+    for case in inp["cases"]:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_serving_mesh(*shape)
+        cfg = FlashT5Config(**{**inp["config"], **case.get("config", {})})
+        ecfg = config_cls(**{**inp["ecfg"], **case.get("ecfg", {})})
+        eng = engine_cls(cfg, params[case["params"]], ecfg, meshes[shape],
+                         device="cpu")
+        reqs = [Request(uid=u, input_ids=ids, max_new_tokens=m,
+                        arrival_s=a)
+                for u, ids, m, a in inp["requests"][case["requests"]]]
+        if with_probe and case.get("probe"):
+            for i, r in enumerate(reqs):
+                eng.admit_request(r, i)
+            res[case["name"]] = [eng.probe_step()
+                                 for _ in range(case["probe"])]
+            continue
+        kw = {}
+        if case.get("clock"):
+            # every rank reads its own clock, each at another rate
+            kw["now"] = _Clock(case["clock"] * (dist.get_rank() + 1))
+        done = eng.run(reqs, **kw)
+        res[case["name"]] = {
+            "tokens": {r.uid: r.result for r in done},
+            "deferrals": getattr(eng, "deferrals", None)}
+    return res
+
+
+def suite_serving(inp, out_dir):
+    """The sharded slot engine's cases (tests/test_torch_sharded_engine)."""
+    from flasht5_tpu_torch.inference.engine import EngineConfig
+    from flasht5_tpu_torch.inference.sharded_engine import ShardedEngine
+    return _serve_cases(inp, ShardedEngine, EngineConfig, True)
+
+
+def suite_paged_serving(inp, out_dir):
+    """The sharded paged engine's cases
+    (tests/test_torch_sharded_paged_engine)."""
+    from flasht5_tpu_torch.inference.paged_engine import PagedEngineConfig
+    from flasht5_tpu_torch.inference.sharded_paged_engine import (
+        ShardedPagedEngine)
+    return _serve_cases(inp, ShardedPagedEngine, PagedEngineConfig, False)
+
+
 def suite_all(inp, out_dir):
     return {**suite_ops(inp["ops"], out_dir),
             **suite_trainer(inp["trainer"], out_dir)}
 
 
-SUITES = {"ops": suite_ops, "trainer": suite_trainer, "all": suite_all}
+SUITES = {"ops": suite_ops, "trainer": suite_trainer, "all": suite_all,
+          "serving": suite_serving, "paged_serving": suite_paged_serving}
 
 
 def main(argv) -> None:
