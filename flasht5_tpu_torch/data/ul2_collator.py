@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from flasht5_tpu_torch import native
+from flasht5_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,6 +260,16 @@ class DataCollatorForUL2:
     # -- main --------------------------------------------------------------
 
     def __call__(self, examples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        """One batch, as a span `data.collate` (`rows`; `input_tokens`, the
+        input tokens that are not padding)."""
+        with span("data.collate") as sp:
+            batch = self._collate(examples)
+            if sp:
+                sp.set(rows=int(batch["input_ids"].shape[0]),
+                       input_tokens=int(batch["attention_mask"].sum()))
+        return batch
+
+    def _collate(self, examples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         examples = [self._normalize(x) for x in examples]
         examples = [x for x in examples if x["input_ids"].shape[1] > self.min_size_inputs]
 

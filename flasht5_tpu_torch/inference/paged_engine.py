@@ -60,7 +60,8 @@ launch without reading the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +75,7 @@ from flasht5_tpu_torch.inference.engine import (KVTensor, Request, _kv_make,
                                                 encode_cross, local_heads,
                                                 prefill_batch)
 from flasht5_tpu_torch.models import t5
+from flasht5_tpu_torch.utils.profiling import span
 
 _NEG_INF = -1e30
 
@@ -536,12 +538,27 @@ class PagedInferenceEngine:
 
     # -- host scheduler ----------------------------------------------------
 
-    def run(self, requests: List[Request]) -> List[Request]:
+    def run(self, requests: List[Request],
+            now: Callable[[], float] = None) -> List[Request]:
         """Serve all requests to completion; returns them with .result set
-        (tokens WITHOUT the leading start token, EOS-terminated).
-        `deferrals` counts the admissions this run put off because the
-        head of the queue did not fit the free pages while a slot was
-        free."""
+        (tokens WITHOUT the leading start token, EOS-terminated), and
+        admitted_at / first_token_at / finished_at stamped in seconds since
+        run() started on `now` (default `time.perf_counter`), as the slot
+        engine stamps them. `deferrals` counts the admissions this run put
+        off because the head of the queue did not fit the free pages while
+        a slot was free.
+
+        Spans (`utils/profiling.py`): `paged.run` around it all;
+        `paged.admit` with a `paged.encode` (`rows`, `bucket`) a prefill
+        batch and a `paged.insert` (`uid`) a request admitted;
+        `paged.window` (`steps`, `tokens`: the slot-steps that emitted a
+        token); `paged.schedule`, the harvest after each window."""
+        now = now or time.perf_counter
+        t0 = now()
+        with span("paged.run"):
+            return self._serve(requests, now, t0)
+
+    def _serve(self, requests: List[Request], now, t0: float) -> List[Request]:
         ecfg = self.ecfg
         self.deferrals = 0
         queue = list(requests)
@@ -552,48 +569,54 @@ class PagedInferenceEngine:
         eos = self.config.eos_token_id
 
         def admit():
-            # free every finished slot's pages BEFORE fitting new requests;
-            # a released slot's device pos is zeroed by the next window,
-            # from the host's `released` mask
-            for i in range(ecfg.max_slots):
-                if slots[i] is None:
-                    st.pages.release(i)
-            # FIFO, reserving pages as it goes: an oversubscribed pool
-            # defers at the first request that does not fit
-            take = []
-            for i in range(ecfg.max_slots):
-                if slots[i] is not None or not queue:
-                    continue
-                req = queue[0]
-                max_new = min(req.max_new_tokens,
-                              ecfg.max_pages_per_slot * P - 1)
-                if not st.pages.can_allocate(i, max_new + 1, P):
-                    if not any(s is not None for s in slots) and not take:
-                        raise RuntimeError(
-                            "request %r needs %d tokens of KV but the "
-                            "whole pool is %d pages x %d" %
-                            (req.uid, max_new + 1, ecfg.num_pages, P))
-                    self.deferrals += 1
-                    break
-                queue.pop(0)
-                st.pages.ensure_capacity(i, max_new + 1, P)
-                take.append((req, i, max_new))
-            # one batched encode per bucket for everything admitted now
-            by_bucket: Dict[int, list] = {}
-            for req, i, max_new in take:
-                L = min(len(req.input_ids), ecfg.max_encode_len)
-                bucket = bucket_for(ecfg.encode_buckets, L)
-                by_bucket.setdefault(bucket, []).append((req, i, max_new, L))
-            for bucket, items in by_bucket.items():
-                nb = self._prefill_batch(len(items))
-                padded = np.zeros((nb, bucket), np.int32)
-                for j, (req, i, max_new, L) in enumerate(items):
-                    padded[j, :L] = req.input_ids[:L]
-                cross = self._encode(padded)
-                for j, (req, i, max_new, L) in enumerate(items):
-                    self._insert(cross, j, i, bucket, max_new)
-                    slots[i] = req
-                    emitted[i] = []
+            with span("paged.admit"):
+                # free every finished slot's pages BEFORE fitting new
+                # requests; a released slot's device pos is zeroed by the
+                # next window, from the host's `released` mask
+                for i in range(ecfg.max_slots):
+                    if slots[i] is None:
+                        st.pages.release(i)
+                # FIFO, reserving pages as it goes: an oversubscribed pool
+                # defers at the first request that does not fit
+                take = []
+                for i in range(ecfg.max_slots):
+                    if slots[i] is not None or not queue:
+                        continue
+                    req = queue[0]
+                    max_new = min(req.max_new_tokens,
+                                  ecfg.max_pages_per_slot * P - 1)
+                    if not st.pages.can_allocate(i, max_new + 1, P):
+                        if not any(s is not None for s in slots) \
+                                and not take:
+                            raise RuntimeError(
+                                "request %r needs %d tokens of KV but the "
+                                "whole pool is %d pages x %d" %
+                                (req.uid, max_new + 1, ecfg.num_pages, P))
+                        self.deferrals += 1
+                        break
+                    queue.pop(0)
+                    st.pages.ensure_capacity(i, max_new + 1, P)
+                    take.append((req, i, max_new))
+                # one batched encode per bucket for everything admitted now
+                by_bucket: Dict[int, list] = {}
+                for req, i, max_new in take:
+                    L = min(len(req.input_ids), ecfg.max_encode_len)
+                    bucket = bucket_for(ecfg.encode_buckets, L)
+                    by_bucket.setdefault(bucket, []).append(
+                        (req, i, max_new, L))
+                for bucket, items in by_bucket.items():
+                    nb = self._prefill_batch(len(items))
+                    padded = np.zeros((nb, bucket), np.int32)
+                    for j, (req, i, max_new, L) in enumerate(items):
+                        padded[j, :L] = req.input_ids[:L]
+                    with span("paged.encode", rows=nb, bucket=bucket):
+                        cross = self._encode(padded)
+                    for j, (req, i, max_new, L) in enumerate(items):
+                        with span("paged.insert", uid=req.uid):
+                            self._insert(cross, j, i, bucket, max_new)
+                        slots[i] = req
+                        emitted[i] = []
+                        req.admitted_at = now() - t0
 
         admit()
         while any(s is not None for s in slots):
@@ -601,24 +624,33 @@ class PagedInferenceEngine:
             # a live slot's committed tokens are the tokens it has emitted
             committed = np.array([s is not None and bool(emitted[i])
                                   for i, s in enumerate(slots)])
-            toks_h, fins_h, act_h = self._window(released, committed)
-            finished_now = [False] * len(slots)
-            for t in range(toks_h.shape[0]):
+            with span("paged.window", steps=ecfg.steps_per_sync) as sp:
+                toks_h, fins_h, act_h = self._window(released, committed)
+                if sp:
+                    sp.set(tokens=int(act_h.sum()))
+            with span("paged.schedule"):
+                t_host = now() - t0
+                finished_now = [False] * len(slots)
+                for t in range(toks_h.shape[0]):
+                    for i, req in enumerate(slots):
+                        if req is None or finished_now[i] or \
+                                not act_h[t, i]:
+                            continue
+                        if not emitted[i]:
+                            req.first_token_at = t_host
+                        emitted[i].append(int(toks_h[t, i]))
+                        if fins_h[t, i]:
+                            finished_now[i] = True
                 for i, req in enumerate(slots):
-                    if req is None or finished_now[i] or not act_h[t, i]:
+                    if req is None or not finished_now[i]:
                         continue
-                    emitted[i].append(int(toks_h[t, i]))
-                    if fins_h[t, i]:
-                        finished_now[i] = True
-            for i, req in enumerate(slots):
-                if req is None or not finished_now[i]:
-                    continue
-                toks = list(emitted[i])
-                if eos in toks:
-                    toks = toks[:toks.index(eos) + 1]
-                else:
-                    toks[-1] = eos     # the boundary position is forced
-                req.result = np.asarray(toks, np.int32)
-                slots[i] = None
+                    toks = list(emitted[i])
+                    if eos in toks:
+                        toks = toks[:toks.index(eos) + 1]
+                    else:
+                        toks[-1] = eos     # the boundary position is forced
+                    req.result = np.asarray(toks, np.int32)
+                    req.finished_at = t_host
+                    slots[i] = None
             admit()
         return requests

@@ -64,6 +64,7 @@ from flasht5_tpu_torch.parallel.mesh import make_mesh, make_pp_mesh, use_mesh
 from flasht5_tpu_torch.parallel.sharding import (batch_slice, gather_tree,
                                                  param_pspecs, shard_tree)
 from flasht5_tpu_torch.quantize import _map_with_path
+from flasht5_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -104,6 +105,18 @@ def masked_accuracy(logits: np.ndarray, labels: np.ndarray) -> float:
 
 
 CHECKPOINT_FILE = "checkpoint.pt"
+_END = object()          # the end of a batch iterator
+
+
+def _fetched(train_iter: Iterable[Dict]):
+    """`train_iter`'s batches, each fetch a span `train.batch`."""
+    batches = iter(train_iter)
+    while True:
+        with span("train.batch"):
+            batch = next(batches, _END)
+        if batch is _END:
+            return
+        yield batch
 
 
 class Trainer:
@@ -248,59 +261,70 @@ class Trainer:
     def _loss_and_grads(self, batch):
         """Forward and backward; gradients summed over the ranks as the
         layout needs (`tp_step.grads_and_norm`, the step functions' path).
-        Returns (loss, grads, norm)."""
+        Returns (loss, grads, norm). On one card the spans `train.forward`
+        and `train.backward` (with `ensure_grads` and the norm) split it;
+        across ranks, where one call runs both, `train.backward` covers
+        the whole."""
         self.optimizer.zero_grad(set_to_none=True)
         if self.pp:
-            return tp_step.grads_and_norm(
-                lambda: pp_step.pp_batch_loss(self.config, self.mesh,
-                                              self.params, batch,
-                                              self.tcfg.pp_microbatches),
-                self._leaves, self._split, self.mesh)
+            with span("train.backward"):
+                return tp_step.grads_and_norm(
+                    lambda: pp_step.pp_batch_loss(self.config, self.mesh,
+                                                  self.params, batch,
+                                                  self.tcfg.pp_microbatches),
+                    self._leaves, self._split, self.mesh)
         if self.parallel:
-            return tp_step.grads_and_norm(
-                lambda: tp_step.loss_and_grads(self.config, self.mesh,
-                                               self.params, batch,
-                                               self.generator),
-                self._leaves, self._split, self.mesh)
-        loss = t5.forward(self.config, self.params,
-                          input_ids=batch["input_ids"],
-                          attention_mask=batch.get("attention_mask"),
-                          labels=batch["labels"], generator=self.generator,
-                          deterministic=False)["loss"]
-        loss.backward()
-        grads = tp_step.ensure_grads(self._leaves)
-        return loss.detach(), grads, self._norm(grads)
+            with span("train.backward"):
+                return tp_step.grads_and_norm(
+                    lambda: tp_step.loss_and_grads(self.config, self.mesh,
+                                                   self.params, batch,
+                                                   self.generator),
+                    self._leaves, self._split, self.mesh)
+        with span("train.forward"):
+            loss = t5.forward(self.config, self.params,
+                              input_ids=batch["input_ids"],
+                              attention_mask=batch.get("attention_mask"),
+                              labels=batch["labels"],
+                              generator=self.generator,
+                              deterministic=False)["loss"]
+        with span("train.backward"):
+            loss.backward()
+            grads = tp_step.ensure_grads(self._leaves)
+            return loss.detach(), grads, self._norm(grads)
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One training step (one micro-batch under accumulation); returns
         the loss and its gradient's norm as device tensors (read only when
-        logged)."""
+        logged). The span `train.optimizer` covers the accumulation, the
+        clip and the update."""
         loss, grads, grad_norm = self._loss_and_grads(batch)
         metrics = {"loss": loss, "grad_norm": grad_norm}
         k = self.tcfg.gradient_accumulation_steps
-        if k > 1:
-            if self._acc is None:
-                self._acc = [torch.zeros_like(p) for p in self._leaves]
-            # optax.MultiSteps's running mean (its Welford form)
-            torch._foreach_add_(self._acc, torch._foreach_div(
-                torch._foreach_sub(grads, self._acc), self._mini_step + 1))
-            self._mini_step += 1
-            if self._mini_step < k:
-                return metrics
-            self._mini_step = 0
-            grads = self._acc
-            for p, g in zip(self._leaves, grads):
-                p.grad = g
-        clip = self.tcfg.gradient_clip_norm
-        if clip:
-            # optax.clip_by_global_norm: unchanged below the limit, else
-            # scaled to it
-            norm = grad_norm if k == 1 else self._norm(grads)
-            factor = torch.where(norm < clip, 1.0, clip / norm)
-            torch._foreach_mul_(grads, factor)
-        self.optimizer.step()
-        if k > 1:
-            torch._foreach_zero_(self._acc)
+        with span("train.optimizer"):
+            if k > 1:
+                if self._acc is None:
+                    self._acc = [torch.zeros_like(p) for p in self._leaves]
+                # optax.MultiSteps's running mean (its Welford form)
+                torch._foreach_add_(self._acc, torch._foreach_div(
+                    torch._foreach_sub(grads, self._acc),
+                    self._mini_step + 1))
+                self._mini_step += 1
+                if self._mini_step < k:
+                    return metrics
+                self._mini_step = 0
+                grads = self._acc
+                for p, g in zip(self._leaves, grads):
+                    p.grad = g
+            clip = self.tcfg.gradient_clip_norm
+            if clip:
+                # optax.clip_by_global_norm: unchanged below the limit, else
+                # scaled to it
+                norm = grad_norm if k == 1 else self._norm(grads)
+                factor = torch.where(norm < clip, 1.0, clip / norm)
+                torch._foreach_mul_(grads, factor)
+            self.optimizer.step()
+            if k > 1:
+                torch._foreach_zero_(self._acc)
         return metrics
 
     # -- checkpoints -------------------------------------------------------
@@ -439,6 +463,17 @@ class Trainer:
 
     def train(self, train_iter: Iterable[Dict], eval_iter=None,
               log_fn: Callable[[Dict], None] = None) -> Dict:
+        """Steps over `train_iter` up to `max_steps` (at `max_steps` one
+        more batch is fetched and left, as a `for` loop over it would). A
+        logged entry's `tokens_per_sec` is every token since the start of
+        this call over the time until the logging step's loss was read,
+        which waits for the card to finish that step.
+
+        Each fetch from the iterator is a span `train.batch`; the step that
+        takes the batch is a span `train.step` (`step`, `tokens`) whose
+        children are `train.to_device`, `train.forward`, `train.backward`,
+        `train.optimizer` and, on a logging step, `train.log`
+        (`utils/profiling.py`). Evaluation and checkpoints follow it."""
         logs = []
         tokens_seen = 0
         t_start = time.perf_counter()
@@ -446,27 +481,36 @@ class Trainer:
         jsonl = self._jsonl_logger() if save_steps and self.rank0 else None
         self._dispatch("on_train_begin")
         try:
-            for batch in train_iter:
+            for batch in _fetched(train_iter):
                 if self.step_num >= self.tcfg.max_steps:
                     break
-                metrics = self._step(self._device_batch(batch))
-                self.step_num += 1
-                tokens_seen += int(np.prod(np.shape(batch["input_ids"]))) + \
-                    int(np.prod(np.shape(batch["labels"])))
+                with span("train.step") as step_span:
+                    with span("train.to_device"):
+                        device_batch = self._device_batch(batch)
+                    metrics = self._step(device_batch)
+                    self.step_num += 1
+                    tokens = int(np.prod(np.shape(batch["input_ids"]))) + \
+                        int(np.prod(np.shape(batch["labels"])))
+                    tokens_seen += tokens
+                    step_span.set(step=self.step_num, tokens=tokens)
 
-                if self.step_num % self.tcfg.logging_steps == 0 or \
-                        self.step_num == self.tcfg.max_steps:
-                    dt = time.perf_counter() - t_start
-                    entry = {"step": self.step_num,
-                             "loss": float(metrics["loss"]),
-                             "grad_norm": float(metrics["grad_norm"]),
-                             "tokens_per_sec": tokens_seen / max(dt, 1e-9)}
-                    self._dispatch("on_log", entry)
-                    logs.append(entry)
-                    if log_fn and self.rank0:
-                        log_fn(entry)
-                    if jsonl:
-                        jsonl(entry)
+                    if self.step_num % self.tcfg.logging_steps == 0 or \
+                            self.step_num == self.tcfg.max_steps:
+                        with span("train.log"):
+                            # the loss's read waits for the step's end
+                            loss = float(metrics["loss"])
+                            grad_norm = float(metrics["grad_norm"])
+                            dt = time.perf_counter() - t_start
+                            entry = {"step": self.step_num, "loss": loss,
+                                     "grad_norm": grad_norm,
+                                     "tokens_per_sec":
+                                         tokens_seen / max(dt, 1e-9)}
+                            self._dispatch("on_log", entry)
+                            logs.append(entry)
+                            if log_fn and self.rank0:
+                                log_fn(entry)
+                            if jsonl:
+                                jsonl(entry)
 
                 if (self.tcfg.eval_steps and eval_iter is not None
                         and self.step_num % self.tcfg.eval_steps == 0):

@@ -1,5 +1,14 @@
 """Tracing, timing and speed-of-light accounting.
 
+`span(name, **attrs)` marks a layer boundary of the program (the trainer's
+step and its phases, the collator, the paged engine's admissions, windows
+and scheduler): off by default, when it costs a flag check and records
+nothing; inside a `recording()` block its spans are kept in memory on
+`time.perf_counter()`; while a `torch.profiler` records, each span is also
+a `record_function("ft5.<name>")`, so it lands in the Chrome trace on the
+kernels' clock. The counts a layer does (requests admitted, tokens emitted,
+rows collated) are attributes of its span.
+
 The counterpart of `flasht5_tpu/utils/profiling.py` (the reference's
 torch-profiler wrapper, benchmarks/benchmark_utils.py:203-268):
 `profile_trace` records a `torch.profiler` trace of the CPU and the card and
@@ -22,17 +31,162 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
 
 CHIP_SPECS = {
     "h100": {"bf16_flops": 989e12, "int8_flops": 1979e12,
              "hbm_gbps": 3.35e12},
     "cpu": {"bf16_flops": 1e12, "int8_flops": 1e12, "hbm_gbps": 100e9},
 }
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: its name, its id and its parent's (None at the top
+    of its thread), start and end in `time.perf_counter()` seconds, and its
+    attributes."""
+    name: str
+    id: int
+    parent: Optional[int]
+    start: float
+    end: float
+    attrs: Dict
+
+
+_SPAN_LIMIT = 1_000_000     # spans a recorder keeps
+
+
+class Recorder:
+    """The spans closed inside a `recording()` block, in the order they
+    closed: at most `_SPAN_LIMIT` of them, `dropped` counts the rest."""
+
+    def __init__(self):
+        self.spans: List[SpanRecord] = []
+        self.dropped = 0
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+
+    def _stack(self) -> List[int]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _keep(self, record: SpanRecord) -> None:
+        if len(self.spans) < _SPAN_LIMIT:
+            self.spans.append(record)
+        else:
+            self.dropped += 1
+
+
+_recorder: Optional[Recorder] = None
+
+
+class _NullSpan:
+    """What `span` returns while nothing records: enters, exits and takes
+    attributes doing nothing; false, so that a caller computes an attribute
+    only for a span that keeps it (`if sp: sp.set(...)`)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def __bool__(self):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "_recorder", "_annotation", "_id",
+                 "_parent", "_start")
+
+    def __init__(self, name: str, attrs: Dict, recorder, profiled: bool):
+        self.name = name
+        self.attrs = attrs
+        self._recorder = recorder
+        self._annotation = (torch.profiler.record_function("ft5." + name)
+                            if profiled else None)
+
+    def set(self, **attrs) -> None:
+        """Add attributes (counts known only once the work is done)."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        if self._annotation is not None:
+            self._annotation.__enter__()
+        rec = self._recorder
+        if rec is not None:
+            stack = rec._stack()
+            self._parent = stack[-1] if stack else None
+            self._id = next(rec._ids)
+            stack.append(self._id)
+            self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self._recorder
+        if rec is not None:
+            end = time.perf_counter()
+            rec._stack().pop()
+            rec._keep(SpanRecord(self.name, self._id, self._parent,
+                                 self._start, end, self.attrs))
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        return None
+
+
+def span(name: str, **attrs):
+    """A context manager around one pass through a layer boundary, closed
+    on exceptions too. While no `recording()` block is open and no
+    `torch.profiler` records, a shared object that does nothing (no clock,
+    no allocation, no device synchronization); else it keeps a
+    `SpanRecord` in the open recorder and enters
+    `record_function("ft5." + name)` under the profiler.
+
+        with span("paged.window", window=n, steps=k) as sp:
+            out = run_window()
+            if sp:
+                sp.set(tokens=int(out.sum()))
+    """
+    rec = _recorder
+    profiled = _profiler_enabled()
+    if rec is None and not profiled:
+        return _NULL_SPAN
+    return _Span(name, attrs, rec, profiled)
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep every span that closes inside the block in a new `Recorder`
+    (yielded), on `time.perf_counter()`; the recorder open before, if any,
+    is restored after.
+
+        with recording() as rec:
+            trainer.train(batches)
+        steps = [s for s in rec.spans if s.name == "train.step"]
+    """
+    global _recorder
+    outer, rec = _recorder, Recorder()
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = outer
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
