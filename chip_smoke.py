@@ -36,6 +36,7 @@ of JAX. In order:
    paged decode attention (two pages swapped, a length one short), the
    bias kernels (the bias rows shifted by one; dbias summed over the heads
    as well as the batch; also on ALiBi's asymmetric and FIRE's biases),
+   the T5 bucket table's gradient (every key's bucket one key over),
    `decode_attention` on ALiBi's and FIRE's bias rows (the rows shifted by
    one position) and the fused lm_head+CE kernels (the last vocab
    split dropped from the merge; the z-loss term left out of dlogits; the
@@ -209,8 +210,9 @@ attention backward's limit on the inputs that
 once went beyond the old one, against f64; the attention kernels' device
 ms at the train step's shapes), `--spec-probe` (the speculative window's
 attention batched over its Q rows: requests whose tokens change, tokens/s,
-kernels a window step), ROOT a checkout whose package is imported instead
-of this one's, so that two commits run in turns in one call.
+kernels a window step), `--bias-grad-probe` (the T5 bucket table's
+gradient kernel's rows alone), ROOT a checkout whose package is imported
+instead of this one's, so that two commits run in turns in one call.
 """
 
 from __future__ import annotations
@@ -2974,6 +2976,68 @@ def check_wgmma_descriptor(dev):
 DBIAS_TOL = 1e-4          # of each dbias entry, plus as much of the largest
 
 
+def check_bias_grad_kernel(dev):
+    """The T5 bucket table's gradient (`ops.t5_bias_grad`, the backward of
+    the pretraining step's bias gather) against its plain version, the
+    `index_put_(accumulate=True)` that autograd's gather runs (which is
+    also its library yardstick): at the pretraining encoder's (1, 8, 1024,
+    1024) bidirectional bias and the decoder's (1, 8, 256, 256) causal
+    one, and at the encoder's shape with randomized positions under 2048.
+    Planted fault: every key's bucket moved one key over."""
+    from flasht5_tpu_torch import positional
+    from flasht5_tpu_torch.ops import t5_bias_grad
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = []
+
+    def case(m_len, n_len, bidirectional, explicit, label, main=False):
+        nb, h = 32, 8
+        kw = dict(bidirectional=bidirectional, num_buckets=nb, max_len=2048)
+        if explicit:
+            cpu_gen = torch.Generator().manual_seed(6)
+            kw.update({key: positional._randomized_positions(
+                cpu_gen, length, 2048) for key, length in
+                (("q_positions", m_len), ("k_positions", n_len))})
+        buckets = positional.bucket_map(m_len, n_len, device=dev, **kw)
+
+        def make():
+            g = torch.randn((1, h, m_len, n_len), device=dev, generator=gen)
+            return (g, buckets), None
+
+        def kernel(g, buckets):
+            return t5_bias_grad.t5_bias_grad(g, buckets, nb)
+
+        def plain(g, buckets):
+            return t5_bias_grad.t5_bias_grad_plain(g, buckets, nb)
+
+        def limits(g, buckets, want):
+            return [1e-6 * t5_bias_grad.t5_bias_grad_plain(g.abs(), buckets,
+                                                           nb) + 1e-6]
+
+        def shifted(g, buckets):
+            return kernel(g, torch.roll(buckets, 1, dims=1))
+
+        g = make()[0][0]
+        cases.append(dict(
+            name="t5_bias_grad", label=label, make=make, in_bytes=nbytes(g),
+            kernel=kernel, plain=plain, limits=limits,
+            faults=([("every key's bucket one key over", shifted)]
+                    if main else []),
+            library=None, library_note="the plain version is the call",
+            bytes=nbytes(g, buckets) + nb * h * 4, ops=g.numel(),
+            ops_type="f32", main=main,
+            why="f32 sums of the same dbias entries in another order than "
+                "index_put_'s: 1e-6 of each bucket's sum of |dbias|, plus "
+                "1e-6"))
+
+    case(1024, 1024, True, False,
+         "encoder dbias (1,8,1024,1024) f32, bidirectional", main=True)
+    case(256, 256, False, False, "decoder dbias (1,8,256,256) f32, causal")
+    case(1024, 1024, True, True,
+         "encoder dbias (1,8,1024,1024) f32, randomized positions")
+    return run_checks(cases)
+
+
 def check_bias_kernels(dev, run=True):
     """The three bias kernels (forward, dK/dV + dbias, dQ) against their
     plain versions, entry by entry: at the pretraining driver's own shapes
@@ -5483,6 +5547,10 @@ KERNELS = {
     "fused_linear_ce_bwd": ("cuda", "flasht5_tpu_torch/csrc/"
                             "fused_linear_ce.cu",
                             "flasht5_tpu/ops/fused_linear_ce.py:320"),
+    # no Pallas kernel: the gradient of the bias's `jnp.take`, XLA's
+    # scatter-add there
+    "t5_bias_grad": ("cuda", "flasht5_tpu_torch/csrc/t5_bias_grad.cu",
+                     "flasht5_tpu/positional.py:114"),
 }
 # the kernels each path runs, and must launch in each of its runs
 SERVING = ("rms_norm", "flash_attention_rpe", "quant_matmul",
@@ -5499,7 +5567,7 @@ TRAINING = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
 PRETRAIN = ("rms_norm", "rms_norm_bwd", "flash_attention_rpe",
             "flash_attention_bwd", "flash_attention_bias",
             "flash_attention_bias_dkv", "flash_attention_bias_dq",
-            "cross_entropy_fwd", "cross_entropy_bwd")
+            "cross_entropy_fwd", "cross_entropy_bwd", "t5_bias_grad")
 # the scoring path on a checkpoint (`ref` attention, unfused norms): the
 # fused forward in full precision, quant_matmul in the quantized variants
 SCORING = ("fused_linear_ce_fwd", "quant_matmul")
@@ -5546,7 +5614,7 @@ def main() -> int:
     check_wgmma_descriptor(dev)
     checks = (check_kernels(dev) + check_paged_kernels(dev)
               + check_training_kernels(dev) + check_bias_kernels(dev)
-              + check_flce_kernels(dev))
+              + check_bias_grad_kernel(dev) + check_flce_kernels(dev))
     for d_kv in (32, 16):
         check_small_reference(dev, d_kv)
         check_small_paged(dev, d_kv)
@@ -6271,6 +6339,15 @@ if __name__ == "__main__":
         from flasht5_tpu_torch import runtime
         runtime.build_kernels(["flash_attention_rpe", "flash_attention_bwd"])
         sys.exit(attn_probe(torch.device("cuda", 0)))
+    if sys.argv[1:2] == ["--bias-grad-probe"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        print(sh("nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader").splitlines()[0], flush=True)
+        from flasht5_tpu_torch import runtime
+        print(runtime.build_kernels(["t5_bias_grad"]), flush=True)
+        check_bias_grad_kernel(torch.device("cuda", 0))
+        sys.exit(0)
     if sys.argv[1:2] == ["--library-kernels"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")

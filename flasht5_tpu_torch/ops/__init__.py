@@ -18,13 +18,15 @@ version for CPU tensors, and counts its launches in a `.launches` integer.
 - decode_attention:    single-query attention over int8/bf16/f32 caches (CUDA)
 - paged_attention:     single-query attention over paged int8/bf16/f32 pools
                        (CUDA)
+- t5_bias_grad:        the T5 bucket table's gradient through the
+                       materialized bias (CUDA)
 - attn_ref:            plain attention oracle
 """
 
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
                                    flash_attention, flash_attention_rpe,
                                    fused_linear_ce, paged_attention, quant,
-                                   rmsnorm)
+                                   rmsnorm, t5_bias_grad)
 
 # name -> the wrapper that launches (and counts) the kernel
 KERNELS = {
@@ -43,6 +45,7 @@ KERNELS = {
     "quant_matmul": quant.quant_matmul,
     "decode_attention": decode_attention.decode_attention,
     "paged_decode_attention": paged_attention.paged_attention,
+    "t5_bias_grad": t5_bias_grad.t5_bias_grad,
 }
 
 

@@ -6,6 +6,11 @@ takes the place of each rng. Every bias-producing family returns a
 `(1, num_heads, q_len, k_len)` additive bias; RoPE rotates q and k (and v)
 and returns no bias.
 
+The T5 bias is a gather from the (num_buckets, H) bucket table
+(`_BucketGather`); its backward sums the bias's gradient by bucket through
+`ops.t5_bias_grad` (the kernel `csrc/t5_bias_grad.cu` on the card,
+`index_put_` on the CPU), which opens a `t5_bias.grad` span.
+
 `relative_position_bucket` is a float32 transcription of the Mesh-TF / T5
 log-bucketing (reference positional_encoding.py:26-71). Its float32 value
 lands exactly on an integer at some offsets (2.0, 4.0, 6.0 at |rel| = 16, 32,
@@ -24,6 +29,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from flasht5_tpu_torch.ops.t5_bias_grad import t5_bias_grad
 
 
 def relative_position_bucket(relative_position: torch.Tensor, *,
@@ -86,39 +93,69 @@ def _randomized_positions(generator: torch.Generator, length: int,
     return pos
 
 
+def bucket_map(q_len: int, k_len: int, *, bidirectional: bool = True,
+               num_buckets: int = 32, max_distance: int = 128,
+               q_positions: Optional[torch.Tensor] = None,
+               k_positions: Optional[torch.Tensor] = None,
+               max_len: Optional[int] = None, device=None) -> torch.Tensor:
+    """The (q_len, k_len) int32 bucket of every (query, key) on `device`.
+    Explicit positions must lie in [0, max_len); their bucket table covers
+    the offsets -(max_len - 1)..max_len - 1, the same table for every
+    draw."""
+    if q_positions is None and k_positions is None:
+        lo, hi = -(q_len - 1), k_len - 1
+        rel = (torch.arange(k_len, device=device)[None, :]
+               - torch.arange(q_len, device=device)[:, None])
+    else:
+        if max_len is None:
+            raise ValueError("explicit positions need max_len, the bound "
+                             "they lie under")
+        if q_positions is None:
+            q_positions = torch.arange(q_len, device=device)
+        if k_positions is None:
+            k_positions = torch.arange(k_len, device=device)
+        rel = (k_positions.to(device).long()[None, :]
+               - q_positions.to(device).long()[:, None])
+        lo, hi = -(max_len - 1), max_len - 1
+    lut = bucket_lut(lo, hi, bidirectional=bidirectional,
+                     num_buckets=num_buckets, max_distance=max_distance,
+                     device=device)
+    return lut[rel - lo]
+
+
 def t5_relative_bias(params: dict, q_len: int, k_len: int, *,
                      bidirectional: bool = True, num_buckets: int = 32,
                      max_distance: int = 128, dtype=torch.float32,
                      q_positions: Optional[torch.Tensor] = None,
                      k_positions: Optional[torch.Tensor] = None,
                      max_len: Optional[int] = None) -> torch.Tensor:
-    """The (1, H, q_len, k_len) T5 bias gathered from the bucket table.
-    `q_positions`/`k_positions` replace the default aranges (randomized
-    positions, decoding rows); they must lie in [0, max_len), and the
-    bucket table then covers the offsets -(max_len - 1)..max_len - 1, the
-    same table for every draw."""
+    """The (1, H, q_len, k_len) T5 bias gathered from the bucket table,
+    contiguous. `q_positions`/`k_positions` replace the default aranges
+    (randomized positions, decoding rows) under `max_len` (`bucket_map`)."""
     table = params["relative_attention_bias"]
-    dev = table.device
-    if q_positions is None and k_positions is None:
-        lo, hi = -(q_len - 1), k_len - 1
-        rel = (torch.arange(k_len, device=dev)[None, :]
-               - torch.arange(q_len, device=dev)[:, None])
-    else:
-        if max_len is None:
-            raise ValueError("explicit positions need max_len, the bound "
-                             "they lie under")
-        if q_positions is None:
-            q_positions = torch.arange(q_len, device=dev)
-        if k_positions is None:
-            k_positions = torch.arange(k_len, device=dev)
-        rel = (k_positions.to(dev).long()[None, :]
-               - q_positions.to(dev).long()[:, None])
-        lo, hi = -(max_len - 1), max_len - 1
-    lut = bucket_lut(lo, hi, bidirectional=bidirectional,
-                     num_buckets=num_buckets, max_distance=max_distance,
-                     device=dev)
-    values = table[lut[rel - lo].long()]    # (M, N, H)
-    return values.permute(2, 0, 1)[None].to(dtype)
+    buckets = bucket_map(
+        q_len, k_len, bidirectional=bidirectional, num_buckets=num_buckets,
+        max_distance=max_distance, q_positions=q_positions,
+        k_positions=k_positions, max_len=max_len, device=table.device)
+    return _BucketGather.apply(table, buckets).to(dtype)
+
+
+class _BucketGather(torch.autograd.Function):
+    """table[buckets] as the contiguous (1, H, M, N) bias; its backward is
+    `t5_bias_grad`, in the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, buckets):
+        ctx.save_for_backward(buckets)
+        ctx.num_buckets, ctx.dtype = table.shape[0], table.dtype
+        flat = torch.index_select(table.t(), 1, buckets.reshape(-1).long())
+        return flat.view(1, table.shape[1], *buckets.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        buckets, = ctx.saved_tensors
+        dw = t5_bias_grad(grad, buckets, ctx.num_buckets)
+        return dw.to(ctx.dtype), None
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,10 @@ dtypes: 1e-3 of the largest entry. The bias kernels' dbias is dS itself, in
 fp32 for both input types, summed over the bias's broadcast axes by the same
 PyTorch sum on both sides: 1e-3 of its largest entry.
 
+The T5 bucket table's gradient: f32 sums of the same dbias entries in
+another order than `index_put_`'s, each bucket's within 1e-6 of the sum of
+its entries' magnitudes (plus 1e-6).
+
 The fused lm_head+CE kernels: lse to 1e-5 relative plus 1e-5 (f32 sums of
 the same products in another order), the row sum of the logits to 1e-6 of
 the row's sum of |logits|; dx and dW to 1e-4 of their largest entry in f32
@@ -40,12 +44,13 @@ differ by an f32 ulp, dx rounded to bf16), one bf16 ulp of each entry plus
 import pytest
 import torch
 
-from flasht5_tpu_torch import runtime
+from flasht5_tpu_torch import positional, runtime
 from flasht5_tpu_torch.inference import paged_kv
 from flasht5_tpu_torch.ops import (cross_entropy, decode_attention,
                                    flash_attention, flash_attention_rpe,
                                    fused_linear_ce, paged_attention, quant,
-                                   rmsnorm)
+                                   rmsnorm, t5_bias_grad)
+from flasht5_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -629,6 +634,68 @@ def test_flash_attention_bwd_kernel(dev, causal, m_len, n_len, d, dtype,
             (got[3] - want[3]).abs().max()
     else:
         assert got[3] is None and want[3] is None
+
+
+def _t5_bias_case(dev, heads, m_len, n_len, num_buckets, bidirectional,
+                  explicit):
+    """A table on the card, its bias through `t5_relative_bias`, a gradient
+    of the bias and the bucket map: explicit positions are sorted draws
+    under 2048, the first pinned to 0 (randomized-position training's)."""
+    gen = torch.Generator().manual_seed(m_len * n_len + num_buckets)
+    kw = dict(bidirectional=bidirectional, num_buckets=num_buckets,
+              max_len=2048)
+    if explicit:
+        kw.update({key: positional._randomized_positions(gen, length, 2048)
+                   for key, length in (("q_positions", m_len),
+                                       ("k_positions", n_len))})
+    table = torch.randn((num_buckets, heads), generator=gen).to(dev)
+    table.requires_grad_(True)
+    bias = positional.t5_relative_bias(
+        {"relative_attention_bias": table}, m_len, n_len, **kw)
+    grad = torch.randn(bias.shape, generator=gen).to(dev)
+    return table, bias, grad, positional.bucket_map(m_len, n_len,
+                                                    device=dev, **kw)
+
+
+@pytest.mark.parametrize("shape,num_buckets,bidirectional,explicit", [
+    ((8, 1024, 1024), 32, True, False),     # the encoder's
+    ((8, 256, 256), 32, False, False),      # the decoder's
+    ((8, 77, 301), 64, True, False),        # rows of 4 bytes
+    ((8, 300, 1000), 256, True, False),     # the kernel's largest table
+    ((8, 512, 512), 32, True, True),
+    ((4, 130, 70), 64, False, True),
+    ((8, 200, 333), 40, True, True),        # counts that do not divide the
+    ((8, 96, 160), 24, False, False),       # kernel's 128 bins a bucket
+    ((8, 64, 64), 300, True, False),        # above the limit: refused
+])
+def test_t5_bias_grad_kernel(dev, shape, num_buckets, bidirectional,
+                             explicit):
+    """The table's gradient through the bias's backward on the card against
+    `t5_bias_grad_plain` (the `index_put_` that autograd's gather runs), the
+    `t5_bias.grad` span naming the kernel's route; the kernel gives the same
+    bits on a second call. Above the kernel's `MAX_BUCKETS` a CUDA tensor is
+    refused. Tolerance in the module's docstring."""
+    heads, m_len, n_len = shape
+    table, bias, grad, buckets = _t5_bias_case(
+        dev, heads, m_len, n_len, num_buckets, bidirectional, explicit)
+    if num_buckets > t5_bias_grad.MAX_BUCKETS:
+        with pytest.raises(ValueError, match="buckets"):
+            bias.backward(grad)
+        return
+    with profiling.recording() as rec:
+        bias.backward(grad)
+    assert [(s.attrs["route"], s.attrs["elements"], s.attrs["buckets"])
+            for s in rec.spans if s.name == "t5_bias.grad"] == [
+        ("kernel", heads * m_len * n_len, num_buckets)]
+    want = t5_bias_grad.t5_bias_grad_plain(grad, buckets, num_buckets)
+    magnitude = t5_bias_grad.t5_bias_grad_plain(grad.abs(), buckets,
+                                                num_buckets)
+    got = table.grad
+    assert got.dtype == torch.float32 and got.shape == (num_buckets, heads)
+    assert torch.all((got - want).abs() <= 1e-6 * magnitude + 1e-6), \
+        (got - want).abs().max()
+    again = t5_bias_grad.t5_bias_grad(grad, buckets, num_buckets)
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("n", [64, 128])

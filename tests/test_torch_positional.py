@@ -9,6 +9,8 @@ port alone.
   own `convert.hf_import` (no JAX on the path) and run on `ref` and on
   `pallas` (the plain versions of the kernels), and `ref_rope`'s token
   stream through the reference's loop and through the KV-cached one;
+- the T5 bias as `_BucketGather` and its table gradient against the old
+  gather and `jax.grad`, with the backward's `t5_bias.grad` span;
 - FIRE's 0-d leaves through the conversions and the optimizer;
 - both engines refuse the encodings they do not serve.
 
@@ -39,6 +41,7 @@ from flasht5_tpu_torch.convert.hf_import import (load_fat5_safetensors,
 from flasht5_tpu_torch.inference import engine, generate, paged_engine
 from flasht5_tpu_torch.models import t5
 from flasht5_tpu_torch.optim import AdamWScale, no_decay_mask
+from flasht5_tpu_torch.utils import profiling
 
 # f32 functions computed by the same formulas in the same order; cos, sin,
 # log and pow of the two libraries may differ by an ulp: 1e-6
@@ -171,6 +174,63 @@ def test_t5_bias_at_explicit_positions_takes_one_table_for_every_draw():
     assert positional.bucket_lut.cache_info().currsize == 1
     with pytest.raises(ValueError, match="max_len"):
         positional.t5_relative_bias(table, 16, 16, q_positions=pos)
+
+
+@pytest.mark.parametrize("explicit", [False, True],
+                         ids=["default", "explicit"])
+@pytest.mark.parametrize("bidirectional", [True, False],
+                         ids=["encoder", "decoder"])
+def test_t5_bias_gather_and_its_gradient(bidirectional, explicit):
+    """The bias as the gather of `_BucketGather` equals the old
+    `table[lut[rel - lo]].permute(2, 0, 1)` bit for bit (and is
+    contiguous); its table gradient matches `jax.grad` of the JAX
+    package's function, M != N; a recorded backward opens one
+    `t5_bias.grad` span, on the CPU's route "plain"."""
+    rng = np.random.default_rng(11)
+    m, n, heads, max_len = 24, 40, 4, 300
+    table = rng.standard_normal((32, heads)).astype(np.float32)
+    cot = rng.standard_normal((1, heads, m, n)).astype(np.float32)
+    pos = {}
+    if explicit:
+        pos = dict(q_positions=np.sort(rng.choice(max_len, m, replace=False)),
+                   k_positions=np.sort(rng.choice(max_len, n, replace=False)))
+
+    t = torch.from_numpy(table).requires_grad_(True)
+    bias = positional.t5_relative_bias(
+        {"relative_attention_bias": t}, m, n, bidirectional=bidirectional,
+        max_len=max_len, **{k: torch.from_numpy(v) for k, v in pos.items()})
+    qp = torch.from_numpy(pos["q_positions"]) if explicit else \
+        torch.arange(m)
+    kp = torch.from_numpy(pos["k_positions"]) if explicit else \
+        torch.arange(n)
+    lo = -(max_len - 1) if explicit else -(m - 1)
+    hi = max_len - 1 if explicit else n - 1
+    lut = positional.bucket_lut(lo, hi, bidirectional=bidirectional,
+                                num_buckets=32, max_distance=128,
+                                device=torch.device("cpu"))
+    old = torch.from_numpy(table)[
+        lut[kp[None, :] - qp[:, None] - lo].long()].permute(2, 0, 1)[None]
+    assert bias.is_contiguous()
+    torch.testing.assert_close(bias.detach(), old, rtol=0, atol=0)
+
+    with profiling.recording() as rec:
+        (bias * torch.from_numpy(cot)).sum().backward()
+    spans = [s for s in rec.spans if s.name == "t5_bias.grad"]
+    assert [s.attrs for s in spans] == [
+        {"route": "plain", "elements": heads * m * n, "buckets": 32}]
+
+    def loss(w):
+        b = jpos.t5_relative_bias(
+            {"relative_attention_bias": w}, m, n,
+            bidirectional=bidirectional,
+            **{k: jnp.asarray(v) for k, v in pos.items()})
+        return jnp.sum(b * jnp.asarray(cot))
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(table)))
+    # f32 sums of the same terms in another order: 1e-5 relative, against
+    # the largest entry for the entries whose terms nearly cancel
+    np.testing.assert_allclose(_np(t.grad), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def test_randomized_positions_are_a_sorted_draw_from_zero():
